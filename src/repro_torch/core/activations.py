@@ -1,0 +1,280 @@
+"""Activation engine: every element-wise nonlinearity is routed through
+here, selected by config.
+
+Counterpart of ``repro/core/activations.py``. Backends ported in this
+slice:
+
+  exact     torch reference (what a float accelerator computes)
+  cr        Catmull-Rom spline interpolation (the paper, float datapath;
+            alias of the registered ``cr_spline`` approximant scheme)
+
+With ``use_kernel=True`` every nonlinearity of a ``cr`` engine runs as
+ONE launch of the hand-written ``elementwise_2d`` CUDA kernel
+(``kernels/epilogue.py``) on a CUDA tensor, and as that kernel's plain
+version on a CPU tensor.
+
+``cr_fixed`` / ``<scheme>_fixed`` and ``region`` / ``taylor`` / ``base2``
+raise ``NotImplementedError`` until their slice (ROADMAP.md, Queue A
+items 2 and 4); ``pwl`` / ``poly`` / ``rational`` are not registered yet,
+so the engine rejects them as unknown impls.
+
+Functions: tanh, sigmoid, silu, gelu_tanh, softplus, derived from the
+tanh table via the paper's identities:
+    sigmoid(x) = (1 + tanh(x/2)) / 2
+    silu(x)    = x * sigmoid(x)
+    softplus(x)= relu(x) + h(|x|),  h(u) = log(1 + e^{-u})  (own even table)
+    gelu_tanh(x) = x/2 * (1 + tanh(c*(x + 0.044715 x^3)))
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from functools import lru_cache, partial
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from . import approximant
+from . import catmull_rom as cr
+
+SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
+
+# engine impls of the reference that later slices port
+_NOT_PORTED = {
+    "region": "Queue A item 4",
+    "taylor": "Queue A item 4",
+    "base2": "Queue A item 4",
+}
+
+
+def scheme_of(impl: str) -> str | None:
+    """The registered approximant scheme behind an engine impl (None for
+    non-approximant backends)."""
+    if impl == "cr":
+        return "cr_spline"
+    return impl if impl in approximant.schemes() else None
+
+
+def fixed_scheme_of(impl: str) -> str | None:
+    """The registered scheme behind a ``<scheme>_fixed`` engine impl
+    (``cr_fixed`` is the historical alias of ``cr_spline_fixed``)."""
+    if impl == "cr_fixed":
+        return "cr_spline"
+    if impl.endswith("_fixed"):
+        base = scheme_of(impl[: -len("_fixed")])
+        if base is not None:
+            return base
+    return None
+
+
+@dataclasses.dataclass(frozen=True)
+class ActivationConfig:
+    """How the framework computes nonlinearities (a model-config field)."""
+
+    impl: str = "exact"          # exact|cr|cr_spline in this slice
+    depth: int = 32              # LUT depth (paper's flagship: 32)
+    x_max: float = 4.0           # table range for tanh (paper: 4.0)
+    degree: int = 3              # poly: per-segment degree; rational:
+                                 # continued-fraction order
+    taylor_terms: int = 3        # for impl="taylor"
+    use_kernel: bool = False     # approximant impls: route EVERY
+                                 # nonlinearity through one launch of the
+                                 # elementwise epilogue kernel
+    int_bits: int = 2            # Q-format of the *_fixed datapaths
+    frac_bits: int = 13          # (the paper's flagship: Q2.13)
+
+    def tag(self) -> str:
+        q = "" if (self.int_bits, self.frac_bits) == (2, 13) else \
+            f"-q{self.int_bits}.{self.frac_bits}"
+        if self.impl in ("poly", "rational"):
+            return f"{self.impl}-d{self.depth}-g{self.degree}{q}"
+        return f"{self.impl}-d{self.depth}{q}"
+
+    @classmethod
+    def from_tag(cls, tag: str, **overrides) -> "ActivationConfig":
+        """Parse a ``tag()`` string back into a config. x_max is not
+        encoded in tags — pass it via ``overrides`` when non-default."""
+        parts = tag.split("-")
+        kw: dict = {"impl": parts[0]}
+        for p in parts[1:]:
+            if p[:1] == "d" and p[1:].isdigit():
+                kw["depth"] = int(p[1:])
+            elif p[:1] == "g" and p[1:].isdigit():
+                kw["degree"] = int(p[1:])
+            elif p[:1] == "q" and "." in p:
+                ib, fb = p[1:].split(".", 1)
+                kw["int_bits"], kw["frac_bits"] = int(ib), int(fb)
+            else:
+                raise ValueError(f"unparseable activation tag part {p!r} "
+                                 f"in {tag!r}")
+        kw.update(overrides)
+        return cls(**kw)
+
+
+def tanh_spec_of(cfg: ActivationConfig) -> approximant.ApproxSpec | None:
+    """The tanh ApproxSpec whose params are this config's trainable leaf
+    (None for non-approximant backends)."""
+    scheme = scheme_of(cfg.impl) or fixed_scheme_of(cfg.impl)
+    if scheme is None:
+        return None
+    return approximant.spec_for(scheme, "tanh", x_max=cfg.x_max,
+                                depth=cfg.depth, degree=cfg.degree,
+                                int_bits=cfg.int_bits,
+                                frac_bits=cfg.frac_bits)
+
+
+def init_act_params(layer_cfgs) -> dict[str, np.ndarray]:
+    """tag -> built f32 tanh params for every distinct approximant config
+    in a per-layer assignment — the ``params["act"]`` subtree."""
+    out: dict[str, np.ndarray] = {}
+    for c in layer_cfgs:
+        spec = tanh_spec_of(c)
+        if spec is not None and c.tag() not in out:
+            out[c.tag()] = np.asarray(approximant.params_for(spec, "tanh"),
+                                      np.float32)
+    return out
+
+
+@lru_cache(maxsize=None)
+def tanh_table(x_max: float, depth: int) -> cr.SplineTable:
+    return cr.build_table(np.tanh, x_max, depth, saturation=float(np.tanh(x_max)))
+
+
+@lru_cache(maxsize=None)
+def softplus_residual_table(x_max: float, depth: int) -> cr.SplineTable:
+    # h(u) = log(1 + e^-u) on [0, x_max); the k=-1 boundary knot uses the
+    # natural analytic extension h(-p) = log(1+e^p), not a reflection.
+    fn = lambda u: np.log1p(np.exp(-u))
+    return cr.build_table(fn, x_max, depth, saturation=float(np.log1p(np.exp(-x_max))))
+
+
+def _kernel_act(name: str, x, cfg: ActivationConfig, params=None):
+    """One-launch dispatch: the whole epilogue runs inside the kernel.
+    ``params`` (the model's f32 tanh leaf) overrides the registry-built
+    tanh params; the softplus epilogue reads its own residual table."""
+    from repro_torch.kernels import epilogue as epi
+    from repro_torch.kernels import ops as kernel_ops
+    scheme = scheme_of(cfg.impl)
+    if name == "softplus":
+        params = None
+    if scheme == "cr_spline":
+        return kernel_ops.act(x, name,
+                              table=epi.table_for(name, cfg.x_max, cfg.depth),
+                              params=params)
+    return kernel_ops.act(x, name, method=scheme, depth=cfg.depth,
+                          x_max=cfg.x_max, degree=cfg.degree, params=params)
+
+
+def _tanh_cr(x, cfg: ActivationConfig):
+    if cfg.use_kernel:
+        return _kernel_act("tanh", x, cfg)
+    return cr.interpolate(tanh_table(cfg.x_max, cfg.depth), x)
+
+
+_TANH_BACKENDS = {
+    "exact": lambda x, cfg: torch.tanh(x),
+    "cr": _tanh_cr,
+    "cr_spline": _tanh_cr,
+}
+
+
+class ActivationEngine:
+    """Configured set of nonlinearities. Use as:
+    ``act = ActivationEngine(cfg); act.silu(x)``."""
+
+    def __init__(self, cfg: ActivationConfig | None = None, act_params=None):
+        self.cfg = cfg or ActivationConfig()
+        self.act_impl = scheme_of(self.cfg.impl)
+        # tanh params bound from the model's params["act"] (see ``bind``);
+        # None means the cached registry build
+        self.act_params = None if act_params is None else \
+            torch.as_tensor(act_params, dtype=torch.float32)
+        if fixed_scheme_of(self.cfg.impl) is not None and self.cfg.use_kernel:
+            raise ValueError(
+                f"impl={self.cfg.impl!r} is a bit-accurate integer "
+                f"datapath with no kernel lowering; drop use_kernel=True, "
+                f"or use impl={fixed_scheme_of(self.cfg.impl)!r} for the "
+                f"f32 kernel path")
+        if fixed_scheme_of(self.cfg.impl) is not None:
+            raise NotImplementedError(
+                f"impl={self.cfg.impl!r}: fixed-point datapaths are not "
+                f"ported yet (ROADMAP.md, Queue A item 2)")
+        if self.cfg.impl in _NOT_PORTED:
+            raise NotImplementedError(
+                f"impl={self.cfg.impl!r} is not ported yet (ROADMAP.md, "
+                f"{_NOT_PORTED[self.cfg.impl]})")
+        if self.act_params is not None:
+            self._tanh = self._bound_tanh()
+        else:
+            backend = _TANH_BACKENDS.get(self.cfg.impl)
+            if backend is None:
+                raise ValueError(
+                    f"unknown activation impl {self.cfg.impl!r}; built-ins: "
+                    f"{sorted(_TANH_BACKENDS)}, registered approximant "
+                    f"schemes: {list(approximant.schemes())}")
+            self._tanh = partial(backend, cfg=self.cfg)
+
+    def _bound_tanh(self):
+        """tanh backend reading ``self.act_params`` instead of the cached
+        registry build."""
+        cfg, p = self.cfg, self.act_params
+        if cfg.use_kernel:
+            return lambda x: _kernel_act("tanh", x, cfg, params=p)
+        # same float-spline codepath as the unbound engine, windows
+        # swapped for the bound leaf (interpolate casts them to x.dtype)
+        tab = tanh_table(cfg.x_max, cfg.depth)._replace(windows=p)
+        return lambda x: cr.interpolate(tab, x)
+
+    def bind(self, act_params) -> "ActivationEngine":
+        """Engine whose tanh params come from the model's
+        ``params["act"]`` subtree keyed by ``cfg.tag()``. Returns
+        ``self`` when the subtree has no entry for this config."""
+        p = (act_params or {}).get(self.cfg.tag())
+        if p is None or tanh_spec_of(self.cfg) is None:
+            return self
+        return ActivationEngine(self.cfg, act_params=p)
+
+    @property
+    def _kernelized(self) -> bool:
+        """True when every nonlinearity lowers to ONE epilogue kernel."""
+        return self.act_impl is not None and self.cfg.use_kernel
+
+    def tanh(self, x):
+        return self._tanh(x)
+
+    def sigmoid(self, x):
+        if self.cfg.impl == "exact":
+            return torch.sigmoid(x)
+        if self._kernelized:
+            return _kernel_act("sigmoid", x, self.cfg, params=self.act_params)
+        return 0.5 * (1.0 + self.tanh(x * 0.5))
+
+    def silu(self, x):
+        if self.cfg.impl == "exact":
+            return F.silu(x)
+        if self._kernelized:
+            return _kernel_act("silu", x, self.cfg, params=self.act_params)
+        return x * self.sigmoid(x)
+
+    def gelu_tanh(self, x):
+        if self.cfg.impl == "exact":
+            return F.gelu(x, approximate="tanh")
+        if self._kernelized:
+            return _kernel_act("gelu_tanh", x, self.cfg,
+                               params=self.act_params)
+        inner = SQRT_2_OVER_PI * (x + 0.044715 * (x * x * x))
+        return 0.5 * x * (1.0 + self.tanh(inner))
+
+    def softplus(self, x):
+        if self.cfg.impl == "exact":
+            return F.softplus(x)
+        if self._kernelized:
+            return _kernel_act("softplus", x, self.cfg)
+        tab = softplus_residual_table(max(self.cfg.x_max, 8.0),
+                                      max(self.cfg.depth, 64))
+        h = cr.interpolate(tab, torch.abs(x), odd=False)
+        return torch.relu(x) + h
+
+    def __call__(self, name: str, x):
+        return getattr(self, name)(x)

@@ -1,0 +1,87 @@
+"""Build and load the hand-written CUDA kernels of ``repro_torch/csrc``.
+
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` source into one shared
+library with a plain C interface, cached under ``build/repro_torch/`` in
+the repository checkout and keyed by a hash of the sources and flags, so
+an edited kernel is rebuilt and an unchanged one is loaded as it is. The
+library is loaded with ``ctypes``: every pointer and the stream are
+``c_void_p``, every int is ``c_int``, every float ``c_float``, and each
+entry point returns ``cudaGetLastError()`` as an int.
+
+Nothing here runs at import time: a CPU-only process never builds.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# entry point -> argtypes (see csrc/epilogue.cu)
+SIGNATURES = {
+    # x, params, y, rows, cols, depth, epi, dtype, inv_period, x_max,
+    # saturation, stream
+    "repro_elementwise_2d": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P),
+    # x, w_gate, w_up, params, out, M, N, K, depth, epi, dtype,
+    # inv_period, x_max, saturation, stream
+    "repro_glu_2d": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                     _F, _F, _F, _P),
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    return str(Path(home) / "bin" / "nvcc")
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _key() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the sources if this exact set has no library yet; returns
+    the library's path."""
+    out = BUILD_DIR / f"libepilogue_{_key()}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cus = [str(s) for s in sources() if s.suffix == ".cu"]
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cus],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return lib

@@ -1,0 +1,283 @@
+"""The approximant-epilogue subsystem: one activation datapath, two
+hand-written CUDA kernels.
+
+Counterpart of ``repro/kernels/epilogue.py``. It owns:
+
+  * ``TableSpec`` — an alias of ``approximant.ApproxSpec``;
+  * ``_cr_tanh_block`` — the paper's Fig. 2/3 datapath on an f32 tensor
+    (index/t split, 4-tap basis MAC, saturation, odd-symmetry sign
+    fixup), the single authoritative CR block;
+  * the composable epilogues ``tanh | sigmoid | silu | gelu_tanh |
+    softplus`` (``make_epilogue``) plus ``table_for`` / ``params_for``;
+  * the two kernels every public op instantiates, each beside its plain
+    PyTorch version and a launch counter:
+      - ``elementwise_2d`` / ``elementwise_2d_plain``: y = epilogue(x);
+      - ``glu_2d`` / ``glu_2d_plain``:
+        out = epilogue(x @ w_gate) * (x @ w_up) on the f32 accumulators.
+
+A wrapper given a CPU tensor runs the plain version; given a CUDA tensor
+it launches its kernel (``csrc/epilogue.cu``, built by ``_build``) or
+raises. There is no other route. ``LAUNCHES[name]`` counts the kernel's
+launches and nothing else. The kernels carry the ``cr_spline`` scheme;
+the ``pwl`` / ``poly`` / ``rational`` scheme blocks are still to be
+ported (ROADMAP.md, Queue B).
+"""
+from __future__ import annotations
+
+import functools
+import math
+
+import numpy as np
+import torch
+
+from repro_torch.core import approximant
+from repro_torch.core import catmull_rom as cr
+from repro_torch.core.approximant import ApproxSpec
+
+SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
+
+EPILOGUES = ("tanh", "sigmoid", "silu", "gelu_tanh", "softplus")
+LOOKUPS = ("onehot", "take")
+
+TableSpec = ApproxSpec
+
+# kernel launches, counted by each wrapper right after its launch
+LAUNCHES = {"elementwise_2d": 0, "glu_2d": 0}
+
+_DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_DEPTH = 256      # csrc/epilogue.cu MAX_DEPTH
+
+
+def table_for(act: str, x_max: float, depth: int) -> cr.SplineTable:
+    """The spline table an epilogue reads: one shared tanh table for the
+    tanh family; softplus has its own even residual table, widened to
+    x_max >= 8, depth >= 64."""
+    from repro_torch.core.activations import softplus_residual_table, tanh_table
+    if act == "softplus":
+        return softplus_residual_table(max(x_max, 8.0), max(depth, 64))
+    if act in EPILOGUES:
+        return tanh_table(x_max, depth)
+    raise ValueError(f"unknown epilogue {act!r}")
+
+
+def _spec_for_epilogue(act: str, scheme: str, x_max: float, depth: int,
+                       degree: int = 3) -> ApproxSpec:
+    """The spec an epilogue runs under: the cr_spline route goes through
+    ``table_for``; other schemes resolve through the registry."""
+    if scheme == "cr_spline":
+        return TableSpec.of(table_for(act, x_max, depth))
+    return approximant.spec_for(scheme, act, x_max=x_max, depth=depth,
+                                degree=degree)
+
+
+def params_for(act: str, spec: ApproxSpec) -> np.ndarray:
+    """The flat f32 params array an epilogue reads under ``spec``."""
+    return approximant.params_for(spec, approximant.target_of(act))
+
+
+def _basis_weights_f32(t):
+    """CR basis (incl. the 1/2) in f32 Horner form; t in [0, 1)."""
+    w0 = 0.5 * (((-t + 2.0) * t - 1.0) * t)
+    w1 = 0.5 * ((3.0 * t - 5.0) * t * t + 2.0)
+    w2 = 0.5 * (((-3.0 * t + 4.0) * t + 1.0) * t)
+    w3 = 0.5 * ((t - 1.0) * t * t)
+    return w0, w1, w2, w3
+
+
+def _cr_tanh_block(v, win, *, spec: TableSpec, lookup: str = "onehot",
+                   odd: bool = True):
+    """CR-spline interpolation of an f32 tensor — the shared datapath.
+
+    The index/t split is a float multiply by the inverse period and a
+    floor (hardware: a bit slice). ``lookup`` "onehot" and "take" select
+    the same window values (a one-hot f32 dot selects them exactly), so
+    both are one gather here. ``odd=True`` evaluates on |v| and restores
+    the sign (tanh family); ``odd=False`` evaluates at v directly
+    (softplus residual; the caller supplies a non-negative argument)."""
+    if lookup not in LOOKUPS:
+        raise ValueError(f"unknown lookup {lookup!r}")
+    av = torch.abs(v) if odd else v
+    u = av * spec.inv_period
+    k = torch.clamp(torch.floor(u), 0.0, spec.depth - 1.0)
+    t = u - k                                        # in [0, 1)
+    p = win[k.to(torch.int64)]                       # [..., 4]
+    p0, p1, p2, p3 = p.unbind(-1)
+    w0, w1, w2, w3 = _basis_weights_f32(t)
+    y = p0 * w0 + p1 * w1 + p2 * w2 + p3 * w3        # the 4-tap MAC
+    sat = torch.tensor(spec.saturation, dtype=torch.float32, device=v.device)
+    y = torch.where(av >= spec.x_max, sat, y)
+    if odd:
+        y = torch.where(v < 0.0, -y, y)              # odd-symmetry fixup
+    return y
+
+
+def _block_for(spec: ApproxSpec, lookup: str):
+    """The scheme's tensor datapath ``fn(v, params, odd=...)``."""
+    if spec.scheme == "cr_spline":
+        return functools.partial(_cr_tanh_block, spec=spec, lookup=lookup)
+
+    def blk(v, params, odd: bool = True):
+        return approximant.block(v, params, spec, lookup=lookup, odd=odd)
+    return blk
+
+
+def make_epilogue(act: str, spec: TableSpec, lookup: str = "onehot"):
+    """Build the f32 epilogue ``fn(v, params) -> y`` for ``act``; every
+    tanh-derived epilogue reuses ONE approximant evaluation per element:
+        sigmoid(x) = (1 + tanh(x/2)) / 2
+        silu(x)    = x * sigmoid(x)
+        gelu_tanh  = x/2 * (1 + tanh(c(x + 0.044715 x^3)))
+        softplus   = relu(x) + h(|x|)           (own even residual table)
+    """
+    block = _block_for(spec, lookup)
+    if act == "tanh":
+        return lambda v, win: block(v, win)
+    if act == "sigmoid":
+        return lambda v, win: 0.5 * (1.0 + block(v * 0.5, win))
+    if act == "silu":
+        return lambda v, win: v * (0.5 * (1.0 + block(v * 0.5, win)))
+    if act == "gelu_tanh":
+        def gelu(v, win):
+            inner = SQRT_2_OVER_PI * (v + 0.044715 * v * v * v)
+            return 0.5 * v * (1.0 + block(inner, win))
+        return gelu
+    if act == "softplus":
+        return lambda v, win: torch.relu(v) + block(torch.abs(v), win,
+                                                    odd=False)
+    raise ValueError(f"unknown epilogue {act!r}")
+
+
+def _check_params(params, spec: ApproxSpec):
+    expected = approximant.get(spec.scheme).params_shape(spec)
+    if tuple(params.shape) != tuple(expected):
+        raise ValueError(f"params shape {tuple(params.shape)} != "
+                         f"{tuple(expected)} for {spec}")
+
+
+def _route(x) -> bool:
+    """True: launch the CUDA kernel; False: run the plain version. The
+    device of the input decides, nothing else."""
+    if x.device.type == "cuda":
+        return True
+    if x.device.type == "cpu":
+        return False
+    raise ValueError(f"no epilogue kernel for device {x.device}")
+
+
+def _kernel_args(act: str, spec: ApproxSpec, params, x):
+    """Checks shared by both wrappers; returns the C call's trailing
+    (depth, epi, dtype, inv_period, x_max, saturation)."""
+    if spec.scheme != "cr_spline":
+        raise NotImplementedError(
+            f"scheme {spec.scheme!r} has no CUDA kernel yet (ROADMAP.md, "
+            f"Queue B)")
+    if act not in EPILOGUES:
+        raise ValueError(f"unknown epilogue {act!r}")
+    if x.dtype not in _DTYPE_IDS:
+        raise TypeError(f"kernel takes float32 or bfloat16, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("kernel input must be contiguous")
+    if (params.device != x.device or params.dtype != torch.float32
+            or not params.is_contiguous()):
+        raise ValueError("params must be a contiguous float32 tensor on "
+                         f"{x.device}")
+    if spec.depth > _MAX_DEPTH:
+        raise ValueError(f"depth {spec.depth} > kernel limit {_MAX_DEPTH}")
+    return (spec.depth, EPILOGUES.index(act), _DTYPE_IDS[x.dtype],
+            spec.inv_period, spec.x_max, spec.saturation)
+
+
+def _raise_on(rc: int, name: str):
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+
+
+# ---------------------------------------------------------------------------
+# kernel 1: matmul-free epilogue
+# ---------------------------------------------------------------------------
+
+def elementwise_2d_plain(x, params, *, spec: TableSpec, act: str = "tanh",
+                         lookup: str = "onehot"):
+    """Plain PyTorch version of ``elementwise_2d``: f32 math, result cast
+    back to x's dtype."""
+    epi = make_epilogue(act, spec, lookup)
+    return epi(x.to(torch.float32), params.to(torch.float32)).to(x.dtype)
+
+
+def elementwise_2d(x, params, *, spec: TableSpec, act: str = "tanh",
+                   lookup: str = "onehot"):
+    """Apply one approximant epilogue to a 2D tensor in ONE kernel launch
+    (CUDA), or through the plain version (CPU). Any [rows, cols] shape:
+    the kernel masks its own ragged edge."""
+    if x.dim() != 2:
+        raise ValueError(f"elementwise_2d takes a 2D tensor, got {x.shape}")
+    _check_params(params, spec)
+    if not _route(x):
+        return elementwise_2d_plain(x, params, spec=spec, act=act,
+                                    lookup=lookup)
+    from . import _build
+    args = _kernel_args(act, spec, params, x)
+    y = torch.empty_like(x)
+    rows, cols = x.shape
+    if rows * cols == 0:
+        return y
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = _build.library().repro_elementwise_2d(
+        x.data_ptr(), params.data_ptr(), y.data_ptr(), rows, cols, *args,
+        stream)
+    _raise_on(rc, "elementwise_2d")
+    LAUNCHES["elementwise_2d"] += 1
+    return y
+
+
+# ---------------------------------------------------------------------------
+# kernel 2: GLU epilogue (fused matmuls + epilogue on the f32 accumulator)
+# ---------------------------------------------------------------------------
+
+def glu_2d_plain(x, w_gate, w_up, params, *, spec: TableSpec,
+                 act: str = "silu", lookup: str = "onehot"):
+    """Plain PyTorch version of ``glu_2d``: f32 matmuls of the upcast
+    inputs, then the same epilogue, cast once to x's dtype."""
+    epi = make_epilogue(act, spec, lookup)
+    xf = x.to(torch.float32)
+    gate = xf @ w_gate.to(torch.float32)
+    up = xf @ w_up.to(torch.float32)
+    return (epi(gate, params.to(torch.float32)) * up).to(x.dtype)
+
+
+def glu_2d(x, w_gate, w_up, params, *, spec: TableSpec, act: str = "silu",
+           lookup: str = "onehot"):
+    """out[M,N] = epilogue(x[M,K] @ w_gate[K,N]) * (x @ w_up) in ONE
+    kernel launch (CUDA), or through the plain version (CPU): the gate
+    projection never round-trips to device memory and is never rounded
+    below f32 before the epilogue."""
+    if x.dim() != 2 or w_gate.dim() != 2:
+        raise ValueError(f"glu_2d takes 2D operands, got {x.shape}, "
+                         f"{w_gate.shape}")
+    m, k = x.shape
+    k2, n = w_gate.shape
+    if k != k2 or tuple(w_up.shape) != (k, n):
+        raise ValueError(f"shape mismatch: x {tuple(x.shape)}, w_gate "
+                         f"{tuple(w_gate.shape)}, w_up {tuple(w_up.shape)}")
+    _check_params(params, spec)
+    if not _route(x):
+        return glu_2d_plain(x, w_gate, w_up, params, spec=spec, act=act,
+                            lookup=lookup)
+    from . import _build
+    args = _kernel_args(act, spec, params, x)
+    for w in (w_gate, w_up):
+        if w.device != x.device or w.dtype != x.dtype or not w.is_contiguous():
+            raise ValueError(f"weights must be contiguous {x.dtype} on "
+                             f"{x.device}")
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    if m == 0 or n == 0:
+        return out
+    if k == 0:
+        raise ValueError("glu_2d needs K >= 1")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = _build.library().repro_glu_2d(
+        x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), params.data_ptr(),
+        out.data_ptr(), m, n, k, *args, stream)
+    _raise_on(rc, "glu_2d")
+    LAUNCHES["glu_2d"] += 1
+    return out

@@ -1,0 +1,397 @@
+"""Model building blocks, dense parts (counterpart of
+``repro/models/layers.py``).
+
+Plain functions on tensors over a nested-dict parameter tree with the
+reference's key paths. Every nonlinearity routes through the configured
+ActivationEngine. Attention runs in plain torch with f32 scores: a
+flash-style online softmax over KV chunks inside a loop over Q chunks
+(the reference's doubly-chunked ``lax.scan``), so long prefills keep
+bounded temporaries. GQA head h is served by kv-head h // G.
+
+Not ported yet: mrope, MoE, Mamba and the hybrid block (ROADMAP.md,
+Queue A item 9), the paged decode contract (item 8). Each raises.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.core.activations import ActivationEngine
+
+from .config import ModelConfig
+
+NEG_INF = -1.0e30
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+def dtype_of(cfg: ModelConfig) -> torch.dtype:
+    return _DTYPES[cfg.compute_dtype]
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise for the parts of the reference's block this slice lacks."""
+    missing = []
+    if cfg.n_experts > 0:
+        missing.append("MoE")
+    if cfg.use_mamba or cfg.parallel_mamba:
+        missing.append("Mamba")
+    if cfg.rope_kind == "mrope":
+        missing.append("mrope")
+    if cfg.n_codebooks > 1:
+        missing.append("multi-codebook heads")
+    if cfg.patch_embed_input:
+        missing.append("patch embeddings")
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP.md, "
+            f"Queue A item 9)")
+
+
+# ---------------------------------------------------------------------------
+# init (same initializer scales and key paths as the reference)
+# ---------------------------------------------------------------------------
+
+def _init(gen, shape, scale=None, device="cuda"):
+    scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
+    return torch.randn(shape, generator=gen, device=device) * scale
+
+
+def init_norm(cfg: ModelConfig, device, d: int | None = None):
+    d = d or cfg.d_model
+    if cfg.norm == "rmsnorm":
+        return {"scale": torch.ones((d,), device=device)}
+    return {}  # layernorm_np: non-parametric (olmo)
+
+
+def init_attention(gen, cfg: ModelConfig, device):
+    d, h, kvh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    p = {
+        "wq": _init(gen, (d, h, hd), device=device),
+        "wk": _init(gen, (d, kvh, hd), device=device),
+        "wv": _init(gen, (d, kvh, hd), device=device),
+        "wo": _init(gen, (h, hd, d), scale=1.0 / math.sqrt(h * hd),
+                    device=device),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((h, hd), device=device)
+        p["bk"] = torch.zeros((kvh, hd), device=device)
+        p["bv"] = torch.zeros((kvh, hd), device=device)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((hd,), device=device)
+        p["k_norm"] = torch.ones((hd,), device=device)
+    return p
+
+
+def init_mlp(gen, cfg: ModelConfig, device):
+    d, f = cfg.d_model, cfg.d_ff
+    p = {}
+    if cfg.glu:
+        p["w_gate"] = _init(gen, (d, f), device=device)
+    p["w_up"] = _init(gen, (d, f), device=device)
+    p["w_down"] = _init(gen, (f, d), device=device)
+    return p
+
+
+def init_block(gen, cfg: ModelConfig, device):
+    check_ported(cfg)
+    p: dict[str, Any] = {"ln1": init_norm(cfg, device),
+                         "attn": init_attention(gen, cfg, device)}
+    if cfg.has_ffn:
+        p["ln2"] = init_norm(cfg, device)
+        p["ffn"] = init_mlp(gen, cfg, device)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def apply_norm(params, x, cfg: ModelConfig, eps: float = 1e-6):
+    xf = x.to(torch.float32)
+    if cfg.norm == "rmsnorm":
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(var + eps) * params["scale"]
+    else:  # non-parametric layernorm
+        mu = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+    return y.to(x.dtype)
+
+
+def rms_head_norm(scale, x, eps: float = 1e-6):
+    """Per-head RMSNorm over head_dim (qwen3 qk-norm)."""
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE (rotate halves)
+# ---------------------------------------------------------------------------
+
+def _inv_freqs(hd: int, theta: float) -> np.ndarray:
+    return 1.0 / (theta ** (np.arange(0, hd, 2, dtype=np.float64) / hd))
+
+
+def rope_freqs(cfg: ModelConfig):
+    return _inv_freqs(cfg.head_dim_, cfg.rope_theta)
+
+
+@functools.lru_cache(maxsize=None)
+def _inv_freqs_on(hd: int, theta: float, device: torch.device):
+    """``rope_freqs`` as f32 on ``device``, copied there once: a copy from
+    host memory makes the host wait for the device, and the decode loop
+    must enqueue its steps without waiting."""
+    return torch.as_tensor(_inv_freqs(hd, theta), dtype=torch.float32,
+                           device=device)
+
+
+def apply_rope(x, positions, cfg: ModelConfig):
+    """x: [..., S, H, hd]; positions: [B_or_1, S]. Rotation in f32."""
+    if cfg.rope_kind == "none":
+        return x
+    if cfg.rope_kind == "mrope":
+        raise NotImplementedError("mrope is not ported yet (ROADMAP.md, "
+                                  "Queue A item 9)")
+    hd = cfg.head_dim_
+    inv = _inv_freqs_on(hd, cfg.rope_theta, x.device)           # [hd/2]
+    angles = positions.to(torch.float32)[..., None] * inv       # [B, S, hd/2]
+    cos = torch.cos(angles)[..., None, :]                       # [B, S, 1, hd/2]
+    sin = torch.sin(angles)[..., None, :]
+    xf = x.to(torch.float32)
+    x1, x2 = xf[..., : hd // 2], xf[..., hd // 2:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention (GQA, flash-style chunked, SWA, qk-norm, bias, softcap)
+# ---------------------------------------------------------------------------
+
+def _proj(x, w, cdt):
+    """x [B, S, d] @ w [d, *out] in the compute dtype -> [B, S, *out]."""
+    w = w.to(cdt)
+    out = x @ w.reshape(w.shape[0], -1)
+    return out.reshape(x.shape[:-1] + tuple(w.shape[1:]))
+
+
+def _qkv(params, x, positions, cfg: ModelConfig):
+    cdt = dtype_of(cfg)
+    q = _proj(x, params["wq"], cdt)
+    k = _proj(x, params["wk"], cdt)
+    v = _proj(x, params["wv"], cdt)
+    if cfg.qkv_bias:
+        q = q + params["bq"].to(cdt)
+        k = k + params["bk"].to(cdt)
+        v = v + params["bv"].to(cdt)
+    if cfg.qk_norm:
+        q = rms_head_norm(params["q_norm"], q)
+        k = rms_head_norm(params["k_norm"], k)
+    q = apply_rope(q, positions, cfg)
+    k = apply_rope(k, positions, cfg)
+    return q, k, v
+
+
+def _flash_chunk_scan(q, k, v, q_pos, k_pos, cfg: ModelConfig, engine):
+    """Online-softmax attention for one Q chunk over all KV chunks.
+    q: [B, qc, H, hd]; k/v: [B, S, H, hd] (GQA heads pre-expanded);
+    positions int. Returns [B, qc, H, hd]."""
+    B, qc, H, hd = q.shape
+    S = k.shape[1]
+    kc = min(cfg.kv_chunk, S)
+    if S % kc:
+        raise ValueError(f"KV length {S} is not a multiple of {kc}")
+    scale = 1.0 / math.sqrt(hd)
+    qf = q.to(torch.float32) * scale
+    acc = torch.zeros((B, H, qc, hd), dtype=torch.float32, device=q.device)
+    m = torch.full((B, H, qc), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, H, qc), dtype=torch.float32, device=q.device)
+    for c0 in range(0, S, kc):
+        kb = k[:, c0:c0 + kc].to(torch.float32)
+        vb = v[:, c0:c0 + kc].to(torch.float32)
+        kp = k_pos[c0:c0 + kc]
+        s = torch.einsum("bqhx,bkhx->bhqk", qf, kb)
+        mask = kp[None, :] <= q_pos[:, None]                # causal [qc, kc]
+        if cfg.sliding_window is not None:
+            mask &= kp[None, :] > q_pos[:, None] - cfg.sliding_window
+        mask &= (kp >= 0)[None, :]                          # ring validity
+        if cfg.logit_softcap:
+            s = cfg.logit_softcap * engine.tanh(s / cfg.logit_softcap)
+        s = torch.where(mask[None, None], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhqk,bkhx->bhqx", p, vb)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-20)[..., None]        # [B,H,qc,hd]
+    return out.transpose(1, 2).to(q.dtype)                  # [B,qc,H,hd]
+
+
+def expand_kv_heads(kv, G: int):
+    """GQA -> flat heads: [B, S, KV, hd] -> [B, S, KV*G, hd], head h
+    served by kv-head h // G."""
+    if G == 1:
+        return kv
+    return torch.repeat_interleave(kv, G, dim=2)
+
+
+def flash_attention(q, k, v, q_pos, k_pos, cfg: ModelConfig, engine):
+    """Doubly-chunked causal attention.
+    q: [B, Sq, H, hd]; k/v: [B, Skv, KV, hd] (expanded to H internally).
+    q_pos: [Sq] absolute positions; k_pos: [Skv] (-1 = invalid slot)."""
+    B, Sq, H, hd = q.shape
+    Skv = k.shape[1]
+    qc = min(cfg.q_chunk, Sq)
+    kc = min(cfg.kv_chunk, Skv)
+    pq = (-Sq) % qc
+    pk = (-Skv) % kc
+    if pq:   # pad query rows are sliced off after
+        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pq))
+        q_pos = torch.nn.functional.pad(q_pos, (0, pq), value=0)
+    if pk:   # pad keys get position -1 => masked out
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pk))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pk))
+        k_pos = torch.nn.functional.pad(k_pos, (0, pk), value=-1)
+    G = H // k.shape[2]
+    k = expand_kv_heads(k, G)
+    v = expand_kv_heads(v, G)
+    outs = [_flash_chunk_scan(q[:, i:i + qc], k, v, q_pos[i:i + qc], k_pos,
+                              cfg, engine)
+            for i in range(0, q.shape[1], qc)]
+    out = torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+    return out[:, :Sq] if pq else out
+
+
+def decode_attention(q, k_cache, v_cache, q_pos, k_pos, cfg: ModelConfig,
+                     engine):
+    """Single-token attention over the cache. q: [B, 1, H, hd];
+    k/v_cache: [B, W, KV, hd]; q_pos: [B] per-slot query positions;
+    k_pos: [B, W] per-slot absolute key positions (-1 empty)."""
+    B, _, H, hd = q.shape
+    KV = k_cache.shape[2]
+    G = H // KV
+    qg = q.reshape(B, KV, G, hd).to(torch.float32) / math.sqrt(hd)
+    s = torch.einsum("bkgh,bskh->bkgs", qg, k_cache.to(torch.float32))
+    mask = (k_pos <= q_pos[:, None]) & (k_pos >= 0)         # [B, W]
+    if cfg.sliding_window is not None:
+        mask &= k_pos > q_pos[:, None] - cfg.sliding_window
+    if cfg.logit_softcap:
+        s = cfg.logit_softcap * engine.tanh(s / cfg.logit_softcap)
+    s = torch.where(mask[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgs,bskh->bkgh", p, v_cache.to(torch.float32))
+    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def attention_out(params, ctx, cfg: ModelConfig):
+    cdt = dtype_of(cfg)
+    wo = params["wo"].to(cdt)                               # [H, hd, d]
+    B, S = ctx.shape[:2]
+    return ctx.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# MLP / GLU
+# ---------------------------------------------------------------------------
+
+def mlp_fusable(cfg: ModelConfig, engine: ActivationEngine) -> bool:
+    """fuse_mlp preconditions: a gated FFN whose activation exists as an
+    epilogue, under an approximant-scheme engine."""
+    from repro_torch.kernels.epilogue import EPILOGUES
+    return (cfg.fuse_mlp and cfg.glu and cfg.mlp_act in EPILOGUES
+            and engine.act_impl is not None)
+
+
+def apply_mlp(params, x, cfg: ModelConfig, engine: ActivationEngine):
+    cdt = dtype_of(cfg)
+    if mlp_fusable(cfg, engine):
+        # one kernel: gate/up matmuls + approximant epilogue on the f32
+        # accumulator — the gate projection never round-trips to memory
+        from repro_torch.kernels import epilogue as epi, ops as kernel_ops
+        ecfg = engine.cfg
+        # a bound engine's tanh params ride into the kernel; the
+        # softplus epilogue reads its own residual table instead
+        bound = None if cfg.mlp_act == "softplus" else engine.act_params
+        table = epi.table_for(cfg.mlp_act, ecfg.x_max, ecfg.depth) \
+            if engine.act_impl == "cr_spline" else None
+        h = kernel_ops.fused_glu(
+            x, params["w_gate"].to(cdt), params["w_up"].to(cdt), table,
+            act=cfg.mlp_act,
+            method=None if table is not None else engine.act_impl,
+            depth=ecfg.depth, x_max=ecfg.x_max, degree=ecfg.degree,
+            params=bound)
+    else:
+        up = x @ params["w_up"].to(cdt)
+        if cfg.glu:
+            gate = x @ params["w_gate"].to(cdt)
+            h = engine(cfg.mlp_act, gate) * up
+        else:
+            h = engine(cfg.mlp_act, up)
+    return h @ params["w_down"].to(cdt)
+
+
+# ---------------------------------------------------------------------------
+# transformer block (dense)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class BlockIO:
+    """What a block consumes/produces besides the hidden state."""
+    positions: Any = None        # [B?, S]
+    q_pos: Any = None            # [S] (train/prefill) or [B] (decode,
+                                 # per-slot) absolute query positions
+    k_pos: Any = None            # [S] (train/prefill) or [B, W] (decode,
+                                 # per-slot) absolute key positions
+    mode: str = "train"          # train | prefill | decode
+    cache: dict | None = None    # per-layer cache slices (decode/prefill out)
+    aux_loss: Any = 0.0
+
+
+def _attn_branch(p, xn, io: BlockIO, cfg: ModelConfig, engine):
+    new_cache = {}
+    if io.mode == "decode":
+        if "page_tbl" in io.cache:
+            raise NotImplementedError("the paged cache is not ported yet "
+                                      "(ROADMAP.md, Queue A item 8)")
+        q, k_new, v_new = _qkv(p, xn, io.positions, cfg)
+        # slot contract: k/v [B, W, KV, hd] are views into the stacked
+        # cache and are written in place (the reference returns updated
+        # copies; in place saves a full cache copy per step)
+        kc, vc = io.cache["k"], io.cache["v"]
+        rows = torch.arange(kc.shape[0], device=kc.device)
+        slot = io.cache["slot"]                             # [B]
+        kc[rows, slot] = k_new[:, 0].to(kc.dtype)
+        vc[rows, slot] = v_new[:, 0].to(vc.dtype)
+        ctx = decode_attention(q, kc, vc, io.q_pos, io.k_pos, cfg, engine)
+        new_cache = {"k": kc, "v": vc}
+    else:
+        if io.cache is not None and "k_pre" in io.cache:
+            raise NotImplementedError("prefix-cached prefill is not ported "
+                                      "yet (ROADMAP.md, Queue A item 8)")
+        q, k, v = _qkv(p, xn, io.positions, cfg)
+        ctx = flash_attention(q, k, v, io.q_pos, io.k_pos, cfg, engine)
+        if io.mode == "prefill":
+            new_cache = {"k": k, "v": v}
+    return attention_out(p, ctx, cfg), new_cache
+
+
+def apply_block(p, x, io: BlockIO, cfg: ModelConfig, engine):
+    """Returns (x_out, new_cache_dict, aux_loss_increment)."""
+    check_ported(cfg)
+    new_cache: dict[str, Any] = {}
+    xn = apply_norm(p["ln1"], x, cfg)
+    attn_out, ac = _attn_branch(p["attn"], xn, io, cfg, engine)
+    new_cache.update(ac)
+    x = x + attn_out
+    if cfg.has_ffn:
+        xn2 = apply_norm(p["ln2"], x, cfg)
+        x = x + apply_mlp(p["ffn"], xn2, cfg, engine)
+    return x, new_cache, 0.0

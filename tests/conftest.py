@@ -19,6 +19,9 @@ def pytest_configure(config):
         "markers", "x64: enables global float64 for paper-table precision")
     config.addinivalue_line(
         "markers", "slow: spawns worker processes / builds models repeatedly")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc (hand-written CUDA "
+        "kernels of repro_torch); skips without one")
 
 
 try:

@@ -1,0 +1,177 @@
+"""Port vs reference: the epilogue ops and the activation engine.
+
+On the CPU the port's wrappers run the kernels' plain versions; the
+reference runs its Pallas kernels in interpret mode, as its own tests do.
+The CUDA kernels themselves are held against their plain versions on the
+card by tests/test_torch_kernels_cuda.py.
+"""
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.core.activations import ActivationConfig as JCfg  # noqa: E402
+from repro.core.activations import ActivationEngine as JEng  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
+from repro_torch.core.activations import ActivationConfig as TCfg  # noqa: E402
+from repro_torch.core.activations import ActivationEngine as TEng  # noqa: E402
+from repro_torch.kernels import epilogue as tepi  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+
+EPILOGUES = ("tanh", "sigmoid", "silu", "gelu_tanh", "softplus")
+
+
+def rand(shape, scale=6.0, seed=0):
+    return np.random.RandomState(seed).uniform(-scale, scale, shape).astype(
+        np.float32)
+
+
+def bf16_ulp(ref):
+    """One bf16 ulp at each |ref| (8 significant bits)."""
+    a = np.maximum(np.abs(ref.astype(np.float32)), np.float32(2.0 ** -126))
+    return np.exp2(np.floor(np.log2(a)) - 7).astype(np.float32)
+
+
+def assert_within_bf16_ulp(got, ref):
+    got = np.asarray(got, np.float32)
+    ref = np.asarray(ref, np.float32)
+    err = np.abs(got - ref)
+    assert np.all(err <= bf16_ulp(ref)), (err.max(), np.argmax(err))
+
+
+@pytest.mark.parametrize("act", EPILOGUES)
+@pytest.mark.parametrize("shape", [(37, 1000), (3, 5, 130), ()])
+def test_act_matches_reference_f32(act, shape):
+    x = rand(shape, seed=len(shape) + 7)
+    yj = np.asarray(jops.act(jnp.asarray(x), act))
+    yt = tops.act(torch.from_numpy(x), act)
+    assert tuple(yt.shape) == shape and yt.dtype == torch.float32
+    np.testing.assert_allclose(yt.numpy(), yj, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("act", EPILOGUES)
+@pytest.mark.parametrize("shape", [(37, 1000), (3, 5, 130)])
+def test_act_matches_reference_bf16(act, shape):
+    x = rand(shape, seed=len(shape))
+    xj = jnp.asarray(x, jnp.bfloat16)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    yj = jops.act(xj, act)
+    yt = tops.act(xt, act)
+    assert yt.dtype == torch.bfloat16
+    assert_within_bf16_ulp(yt.float().numpy(), np.asarray(yj, np.float32))
+
+
+@pytest.mark.parametrize("act", EPILOGUES)
+def test_act_matches_oracle(act):
+    x = torch.from_numpy(rand((8, 300), seed=3))
+    table = tepi.table_for(act, 4.0, 32)
+    np.testing.assert_allclose(tops.act(x, act).numpy(),
+                               tref.act_ref(x, act, table).numpy(),
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_cr_act_is_tanh_instance():
+    x = torch.from_numpy(rand((4, 256), seed=5))
+    assert torch.equal(tops.cr_act(x), tops.act(x, "tanh"))
+
+
+@pytest.mark.parametrize("act", EPILOGUES)
+@pytest.mark.parametrize("mkn", [(8, 128, 128), (37, 300, 130)])
+def test_fused_glu_matches_reference_f32(act, mkn):
+    m, k, n = mkn
+    x = rand((m, k), scale=1.0, seed=m + n)
+    wg = rand((k, n), scale=0.05, seed=k)
+    wu = rand((k, n), scale=0.05, seed=k + 1)
+    yj = np.asarray(jops.fused_glu(jnp.asarray(x), jnp.asarray(wg),
+                                   jnp.asarray(wu), act=act))
+    yt = tops.fused_glu(torch.from_numpy(x), torch.from_numpy(wg),
+                        torch.from_numpy(wu), act=act)
+    np.testing.assert_allclose(yt.numpy(), yj, rtol=1e-5, atol=1e-6)
+    yr = tref.fused_glu_ref(torch.from_numpy(x), torch.from_numpy(wg),
+                            torch.from_numpy(wu),
+                            tepi.table_for(act, 4.0, 32), act=act)
+    np.testing.assert_allclose(yt.numpy(), yr.numpy(), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("act", ["silu", "tanh"])
+def test_fused_glu_matches_reference_bf16(act):
+    x = rand((2, 9, 256), scale=1.0, seed=21)
+    wg = rand((256, 192), scale=0.1, seed=22)
+    wu = rand((256, 192), scale=0.1, seed=23)
+    bj = lambda a: jnp.asarray(a, jnp.bfloat16)
+    bt = lambda a: torch.from_numpy(a).to(torch.bfloat16)
+    yj = np.asarray(jops.fused_glu(bj(x), bj(wg), bj(wu), act=act),
+                    np.float32)
+    yt = tops.fused_glu(bt(x), bt(wg), bt(wu), act=act)
+    assert yt.dtype == torch.bfloat16 and tuple(yt.shape) == (2, 9, 192)
+    np.testing.assert_allclose(yt.float().numpy(), yj, rtol=2e-2, atol=1e-3)
+
+
+def test_bound_params_override_windows():
+    """``params=`` (the model's bound leaf) replaces the built table."""
+    x = torch.from_numpy(rand((4, 64), seed=31))
+    win = tepi.table_for("tanh", 4.0, 32).windows
+    y0 = tops.act(x, "tanh")
+    assert torch.equal(tops.act(x, "tanh", params=win), y0)
+    y2 = tops.act(x, "tanh", params=2.0 * win)
+    inside = x.abs() < 4.0
+    torch.testing.assert_close(y2[inside], 2.0 * y0[inside])
+
+
+@pytest.mark.parametrize("fn", EPILOGUES)
+@pytest.mark.parametrize("impl,use_kernel", [("exact", False), ("cr", False),
+                                             ("cr", True)])
+def test_engine_matches_reference(fn, impl, use_kernel):
+    x = rand((16, 384), seed=23)
+    je = JEng(JCfg(impl=impl, use_kernel=use_kernel))
+    te = TEng(TCfg(impl=impl, use_kernel=use_kernel))
+    yj = np.asarray(getattr(je, fn)(jnp.asarray(x)))
+    yt = getattr(te, fn)(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(yt, yj, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("fn", ["silu", "tanh"])
+def test_bound_engine_matches_reference(fn):
+    cfg = dict(impl="cr", use_kernel=False)
+    win = 1.5 * np.asarray(tepi.table_for("tanh", 4.0, 32).windows,
+                           np.float32)
+    x = rand((8, 128), seed=41)
+    for use_kernel in (False, True):
+        c = dict(cfg, use_kernel=use_kernel)
+        je = JEng(JCfg(**c)).bind({"cr-d32": jnp.asarray(win)})
+        te = TEng(TCfg(**c)).bind({"cr-d32": torch.from_numpy(win)})
+        assert te.act_params is not None
+        np.testing.assert_allclose(
+            getattr(te, fn)(torch.from_numpy(x)).numpy(),
+            np.asarray(getattr(je, fn)(jnp.asarray(x))), rtol=1e-5,
+            atol=1e-6)
+
+
+def test_engine_config_tags_round_trip():
+    for c in (TCfg(), TCfg(impl="cr", depth=64), TCfg(impl="cr", int_bits=3,
+                                                      frac_bits=12)):
+        jc = JCfg(**dataclasses.asdict(c))
+        assert c.tag() == jc.tag()
+        assert TCfg.from_tag(c.tag()) == dataclasses.replace(c)
+
+
+def test_engine_rejects_unported_impls():
+    with pytest.raises(ValueError, match="unknown activation impl"):
+        TEng(TCfg(impl="pwl"))
+    with pytest.raises(ValueError, match="no kernel lowering"):
+        TEng(TCfg(impl="cr_fixed", use_kernel=True))
+    for impl in ("cr_fixed", "region", "taylor", "base2"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TEng(TCfg(impl=impl))
+
+
+def test_wrappers_take_the_plain_version_on_cpu():
+    before = dict(tepi.LAUNCHES)
+    x = torch.from_numpy(rand((4, 64), seed=1))
+    tops.act(x, "silu")
+    tops.fused_glu(x, torch.ones(64, 32), torch.ones(64, 32))
+    assert tepi.LAUNCHES == before
