@@ -4,21 +4,27 @@
     python3 chip_smoke.py
 
 Needs one NVIDIA GPU (written for an H100), ``nvcc`` and PyTorch built for
-CUDA. It imports nothing of JAX and nothing of the JAX package. Phases,
-each printing one JSON line:
+CUDA. It imports nothing of JAX and nothing of the JAX package. Both
+kernels carry four approximant schemes (``cr_spline``, ``pwl``, ``poly``,
+``rational``); every phase runs each scheme. Phases, each printing JSON
+lines:
 
   1. build: compile both hand-written kernels from src/repro_torch/csrc
      with nvcc; print the card's name and power limit; TF32 off.
   2. kernel checks: each kernel against its plain PyTorch version on the
-     card, at stated tolerances.
-  3. serve ``fused_of(qwen3-0.6b)`` at full width (28 layers, random
-     weights from seed 0, bf16 compute) through the port's ServeEngine:
-     every FFN goes through ``glu_2d``; the launch count must be exactly
-     28 x (prefills + decode steps), and ``elementwise_2d`` must not run.
-  4. the same requests and weights under ``act_impl_of(qwen3-0.6b,
-     "cr_spline", use_kernel=True)``: every FFN SiLU goes through
-     ``elementwise_2d`` (exact count), ``glu_2d`` must not run.
-  5. kernel timings at the main path's shapes, beside the bound from the
+     card, at stated tolerances, for every scheme and epilogue at the
+     deployment geometry (depth 32, degree 3), and at every float
+     geometry ``benchmarks/dse.py`` sweeps. Then each scheme's kernel
+     tanh over the whole 2^16-point Q2.13 input grid, within 0.03 of tanh.
+  3. serve qwen3-0.6b at full width (28 layers, random weights from seed
+     0, bf16 compute) through the port's ServeEngine, in two deployments
+     per scheme: ``fused_of(act_impl_of(cfg, scheme))``, where every FFN
+     goes through ``glu_2d``, and ``act_impl_of(cfg, scheme,
+     use_kernel=True)``, where every FFN SiLU goes through
+     ``elementwise_2d``. The kernel of the path must launch exactly 28 x
+     (prefills + decode steps) times, the other kernel not at all. The
+     weights are built once; only their ``act`` leaf differs by scheme.
+  4. kernel timings at the main path's shapes, beside the bound from the
      card's data-sheet rates, the plain version and the library yardstick
      (``ms`` / ``plain_ms`` / ``library_ms``: device time from a profiler
      trace, the sum of one call's kernel durations, mean of 30 calls with
@@ -26,11 +32,12 @@ each printing one JSON line:
      around one call, host dispatch included). Then one decode chunk of
      each deployment under the profiler: device busy time and idle share
      per decode step; and one decode chunk that must make no host sync
-     (CUDA's sync debug mode raises on any). Profiling comes after serving because a profiled
-     process keeps paying tracing costs on every later launch.
-  6. f32 prefill logits of both deployments on the card (kernels) against
+     (CUDA's sync debug mode raises on any). Profiling comes after
+     serving because a profiled process keeps paying tracing costs on
+     every later launch.
+  5. f32 prefill logits of every deployment on the card (kernels) against
      the CPU (plain versions) on the same weights.
-  7. the ``{"kernels": [...]}`` line.
+  6. the ``{"kernels": [...]}`` line: one entry per (kernel, scheme).
 
 Then the card's ``nvidia-smi`` name/power line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises, exits non-zero and
@@ -54,9 +61,16 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12
 BF16_TC_FLOPS = 989e12
 F32_FLOPS = 67e12
-# f32 operations of one silu epilogue element (csrc/epilogue.cu: index
-# split 6, basis 22, MAC 7, saturate/sign 4, silu wiring 4)
-EPILOGUE_OPS = 43
+SCHEMES = ("cr_spline", "pwl", "poly", "rational")
+DEPTH, DEGREE = 32, 3           # ActivationConfig's deployment geometry
+# every float geometry benchmarks/dse.py sweeps
+DSE_GEOMS = ([(s, dict(depth=d)) for s in ("cr_spline", "pwl")
+              for d in (8, 16, 32, 64)]
+             + [("poly", dict(depth=d, degree=g))
+                for d, g in ((4, 2), (4, 3), (8, 3), (16, 3))]
+             + [("rational", dict(degree=g)) for g in (3, 5, 7)])
+# the source line of each TPU kernel (src/repro/kernels/epilogue.py)
+REPLACES = {"elementwise_2d": 229, "glu_2d": 289}
 
 SLOTS, MAX_PROMPT, MAX_LEN, CHUNK = 2, 128, 160, 8
 PROMPT_LENS = (17, 40, 64, 100)
@@ -128,6 +142,21 @@ def bound(bytes_moved: float, ops: float, peak_ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def epilogue_ops(spec, params) -> int:
+    """f32 operations of one silu epilogue element under ``spec``, counted
+    from csrc/epilogue.cu: silu wiring 4, |x| 1, saturate and sign 3, and
+    the scheme's block: index split 6 for the LUT schemes; cr_spline basis
+    22 + 4-tap MAC 7; pwl one MAC 2; poly Horner 2 per degree; rational
+    clamp + square 2, two Horner chains 4 per step, x multiply 1, seed 2,
+    Newton 3 per step, product + clamp 2."""
+    rows, cols = params.shape
+    block = {"cr_spline": lambda: 6 + 22 + 7,
+             "pwl": lambda: 6 + 2,
+             "poly": lambda: 6 + 2 * (cols - 1),
+             "rational": lambda: 2 + 4 * (cols - 1) + 1 + 2 + 3 * 5 + 2}
+    return 4 + 1 + 3 + block[spec.scheme]()
+
+
 def bf16_ulp_ok(got, ref) -> bool:
     import torch
     a = ref.float().abs().clamp_min(2.0 ** -126)
@@ -135,98 +164,166 @@ def bf16_ulp_ok(got, ref) -> bool:
     return bool(((got.float() - ref.float()).abs() <= ulp).all())
 
 
-def _silu_spec(torch, epi, dev):
-    table = epi.table_for("silu", 4.0, 32)
-    return epi.TableSpec.of(table), torch.as_tensor(
-        table.windows, dtype=torch.float32, device=dev)
+def scheme_spec(torch, epi, scheme, act, dev, depth=DEPTH, degree=DEGREE):
+    """(spec, params on the card) of one epilogue under one scheme, as the
+    main path resolves them: cr_spline from its spline table, the other
+    schemes from the approximant registry."""
+    from repro_torch.core import approximant
+    if scheme == "cr_spline":
+        table = epi.table_for(act, 4.0, depth)
+        return epi.TableSpec.of(table), torch.as_tensor(
+            table.windows, dtype=torch.float32, device=dev)
+    spec = approximant.spec_for(scheme, act, depth=depth, degree=degree)
+    return spec, approximant.params_on(spec, approximant.target_of(act), dev)
+
+
+def acts_of(epi, scheme):
+    """The epilogues a scheme has: rational's build targets tanh only, so
+    it has no softplus."""
+    return [a for a in epi.EPILOGUES if (scheme, a) != ("rational",
+                                                       "softplus")]
+
+
+def check_elementwise(torch, epi, spec, p, act, x):
+    """One elementwise_2d launch against its plain version: f32 within
+    rtol 1e-5 / atol 1e-6 (measured exact), bf16 within one bf16 ulp.
+    Returns the max abs error."""
+    y = epi.elementwise_2d(x, p, spec=spec, act=act)
+    torch.cuda.synchronize()
+    yp = epi.elementwise_2d_plain(x, p, spec=spec, act=act)
+    err = float((y.float() - yp.float()).abs().max())
+    if x.dtype == torch.float32:
+        torch.testing.assert_close(y, yp, rtol=1e-5, atol=1e-6)
+    elif not bf16_ulp_ok(y, yp):
+        raise AssertionError(f"elementwise_2d {spec.scheme} {act} bf16 "
+                             f"beyond one ulp: max err {err}")
+    return err
+
+
+def check_glu(torch, epi, spec, p, act, x, wg, wu):
+    """One glu_2d launch against its plain version: f32 within rtol 1e-4 /
+    atol 1e-5 (the K sums run in another order), bf16 within rtol 1e-2 /
+    atol 1e-3 (the output is rounded once to bf16). Returns the max abs
+    error."""
+    tol = (1e-4, 1e-5) if x.dtype == torch.float32 else (1e-2, 1e-3)
+    y = epi.glu_2d(x, wg, wu, p, spec=spec, act=act)
+    torch.cuda.synchronize()
+    yp = epi.glu_2d_plain(x, wg, wu, p, spec=spec, act=act)
+    torch.testing.assert_close(y.float(), yp.float(), rtol=tol[0],
+                               atol=tol[1])
+    return float((y.float() - yp.float()).abs().max())
+
+
+def glu_operands(torch, gen, dev, M, K, N, dt):
+    x = torch.randn((M, K), generator=gen, device=dev).to(dt)
+    wg = (torch.randn((K, N), generator=gen, device=dev) / K ** 0.5).to(dt)
+    wu = (torch.randn((K, N), generator=gen, device=dev) / K ** 0.5).to(dt)
+    return x, wg, wu
 
 
 def phase_kernel_checks(torch, epi, dev):
-    """Each kernel against its plain version on the card; returns the
-    worst absolute error per kernel."""
+    """Each kernel against its plain version on the card, for every scheme
+    and epilogue, then at every DSE geometry; returns the worst absolute
+    error per (kernel, scheme)."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    worst = {"elementwise_2d": 0.0, "glu_2d": 0.0}
-    for act in epi.EPILOGUES:
-        table = epi.table_for(act, 4.0, 32)
-        spec = epi.TableSpec.of(table)
-        p = torch.as_tensor(table.windows, dtype=torch.float32, device=dev)
-        cases = [((256, 3072), torch.float32), ((4, 3072), torch.float32),
-                 ((37, 1000), torch.float32), ((256, 3072), torch.bfloat16)]
-        for shape, dt in cases:
-            x = (torch.randn(shape, generator=gen, device=dev) * 3).to(dt)
-            y = epi.elementwise_2d(x, p, spec=spec, act=act)
-            torch.cuda.synchronize()
-            yp = epi.elementwise_2d_plain(x, p, spec=spec, act=act)
-            err = float((y.float() - yp.float()).abs().max())
-            if dt == torch.float32:
-                torch.testing.assert_close(y, yp, rtol=1e-5, atol=1e-6)
-            elif not bf16_ulp_ok(y, yp):
-                raise AssertionError(f"elementwise_2d {act} bf16 beyond one "
-                                     f"ulp: max err {err}")
-            worst["elementwise_2d"] = max(worst["elementwise_2d"], err)
-            emit({"phase": "kernel_check", "kernel": "elementwise_2d",
-                  "act": act, "shape": list(shape), "dtype": str(dt),
-                  "max_abs_err": err})
-
-    spec, p = _silu_spec(torch, epi, dev)
+    worst = {(k, s): 0.0 for k in REPLACES for s in SCHEMES}
+    cases = [((256, 3072), torch.float32), ((4, 3072), torch.float32),
+             ((37, 1000), torch.float32), ((256, 3072), torch.bfloat16)]
     K, N = 1024, 3072
-    for M in (4, 256, 37):
-        for dt, tol in ((torch.bfloat16, (1e-2, 1e-3)),
-                        (torch.float32, (1e-4, 1e-5))):
-            x = torch.randn((M, K), generator=gen, device=dev).to(dt)
-            wg = (torch.randn((K, N), generator=gen, device=dev)
-                  / K ** 0.5).to(dt)
-            wu = (torch.randn((K, N), generator=gen, device=dev)
-                  / K ** 0.5).to(dt)
-            y = epi.glu_2d(x, wg, wu, p, spec=spec, act="silu")
-            torch.cuda.synchronize()
-            yp = epi.glu_2d_plain(x, wg, wu, p, spec=spec, act="silu")
-            torch.testing.assert_close(y.float(), yp.float(), rtol=tol[0],
-                                       atol=tol[1])
-            err = float((y.float() - yp.float()).abs().max())
-            worst["glu_2d"] = max(worst["glu_2d"], err)
-            emit({"phase": "kernel_check", "kernel": "glu_2d", "act": "silu",
-                  "shape": [M, K, N], "dtype": str(dt), "max_abs_err": err})
+    for scheme in SCHEMES:
+        for act in acts_of(epi, scheme):
+            spec, p = scheme_spec(torch, epi, scheme, act, dev)
+            errs = {}
+            for shape, dt in cases:
+                x = (torch.randn(shape, generator=gen, device=dev) * 3).to(dt)
+                errs[f"{list(shape)} {dt}"] = check_elementwise(
+                    torch, epi, spec, p, act, x)
+            worst["elementwise_2d", scheme] = max(
+                worst["elementwise_2d", scheme], *errs.values())
+            emit({"phase": "kernel_check", "kernel": "elementwise_2d",
+                  "scheme": scheme, "act": act, "max_abs_err": errs})
+        spec, p = scheme_spec(torch, epi, scheme, "silu", dev)
+        errs = {}
+        for M in (4, 256, 37):
+            for dt in (torch.bfloat16, torch.float32):
+                errs[f"{[M, K, N]} {dt}"] = check_glu(
+                    torch, epi, spec, p, "silu",
+                    *glu_operands(torch, gen, dev, M, K, N, dt))
+        worst["glu_2d", scheme] = max(worst["glu_2d", scheme], *errs.values())
+        emit({"phase": "kernel_check", "kernel": "glu_2d", "scheme": scheme,
+              "act": "silu", "max_abs_err": errs})
+
+    # every float geometry the DSE sweeps, both kernels, f32 and bf16
+    for scheme, geom in DSE_GEOMS:
+        spec, p = scheme_spec(torch, epi, scheme, "silu", dev, **geom)
+        errs = {}
+        for dt in (torch.float32, torch.bfloat16):
+            x = (torch.randn((256, N), generator=gen, device=dev) * 3).to(dt)
+            errs[f"elementwise_2d {dt}"] = check_elementwise(
+                torch, epi, spec, p, "silu", x)
+            errs[f"glu_2d {dt}"] = check_glu(
+                torch, epi, spec, p, "silu",
+                *glu_operands(torch, gen, dev, 4, K, N, dt))
+        emit({"phase": "kernel_check_dse", "scheme": scheme, "geometry": geom,
+              "params_shape": list(p.shape), "act": "silu",
+              "max_abs_err": errs})
     return worst
+
+
+def phase_accuracy(torch, epi, dev):
+    """Each scheme's kernel tanh over the whole Q2.13 input grid (2^16
+    points in [-4, 4)) against torch.tanh in f64: within 0.03, the
+    reference's bound (tests/test_approximant.py)."""
+    grid = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.float64,
+                        device=dev) / 2 ** 13
+    out = {}
+    for scheme in SCHEMES:
+        spec, p = scheme_spec(torch, epi, scheme, "tanh", dev)
+        y = epi.elementwise_2d(grid.float().reshape(1, -1), p, spec=spec,
+                               act="tanh")
+        err = float((y.double().reshape(-1) - torch.tanh(grid)).abs().max())
+        out[scheme] = err
+        assert err < 0.03, (scheme, err)
+    emit({"phase": "accuracy_q213", "points": grid.numel(), "bound": 0.03,
+          "max_abs_err_vs_tanh": out})
 
 
 def phase_kernel_times(torch, epi, dev, flush):
     """Kernel, plain version and library yardstick at the main path's
-    shapes (bf16): decode rows = SLOTS, and the longest prefill (one
-    128-token bucket). All per-call event times are taken before the
-    first profiler session: a profiled process keeps paying per-launch
-    tracing costs afterwards."""
+    shapes (bf16), for every scheme on the same inputs: decode rows =
+    SLOTS, and the longest prefill (one 128-token bucket). All per-call
+    event times are taken before the first profiler session: a profiled
+    process keeps paying per-launch tracing costs afterwards."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
-    spec, p = _silu_spec(torch, epi, dev)
     K, N = 1024, 3072
     cases = {}
     for rows in (SLOTS, MAX_PROMPT):
         x = torch.randn((rows, N), generator=gen, device=dev).to(torch.bfloat16)
-        b_ms, b_by = bound(2 * x.numel() * 2 + p.numel() * 4,
-                           EPILOGUE_OPS * x.numel(), F32_FLOPS)
-        cases[("elementwise_2d", rows)] = dict(
-            shape=[rows, N], bound=(b_ms, b_by), fns={
-                "kernel": lambda x=x: epi.elementwise_2d(x, p, spec=spec,
-                                                         act="silu"),
-                "plain": lambda x=x: epi.elementwise_2d_plain(
-                    x, p, spec=spec, act="silu")})
-        xg = torch.randn((rows, K), generator=gen, device=dev).to(torch.bfloat16)
-        wg = (torch.randn((K, N), generator=gen, device=dev)
-              / K ** 0.5).to(torch.bfloat16)
-        wu = (torch.randn((K, N), generator=gen, device=dev)
-              / K ** 0.5).to(torch.bfloat16)
-        nbytes = (xg.numel() + wg.numel() + wu.numel() + rows * N) * 2 \
-            + p.numel() * 4
-        cases[("glu_2d", rows)] = dict(
-            shape=[rows, K, N],
-            bound=bound(nbytes, 4.0 * rows * N * K, BF16_TC_FLOPS), fns={
-                "kernel": lambda a=(xg, wg, wu): epi.glu_2d(*a, p, spec=spec),
-                "plain": lambda a=(xg, wg, wu): epi.glu_2d_plain(*a, p,
-                                                                 spec=spec),
-                "library": lambda a=(xg, wg, wu): (torch.matmul(a[0], a[1]),
-                                                   torch.matmul(a[0], a[2]))})
+        xg, wg, wu = glu_operands(torch, gen, dev, rows, K, N, torch.bfloat16)
+        for scheme in SCHEMES:
+            spec, p = scheme_spec(torch, epi, scheme, "silu", dev)
+            cases[("elementwise_2d", scheme, rows)] = dict(
+                shape=[rows, N],
+                bound=bound(2 * x.numel() * 2 + p.numel() * 4,
+                            epilogue_ops(spec, p) * x.numel(), F32_FLOPS),
+                fns={"kernel": lambda x=x, s=spec, p=p: epi.elementwise_2d(
+                         x, p, spec=s, act="silu"),
+                     "plain": lambda x=x, s=spec, p=p:
+                         epi.elementwise_2d_plain(x, p, spec=s, act="silu")})
+            nbytes = (xg.numel() + wg.numel() + wu.numel() + rows * N) * 2 \
+                + p.numel() * 4
+            a = (xg, wg, wu)
+            cases[("glu_2d", scheme, rows)] = dict(
+                shape=[rows, K, N],
+                bound=bound(nbytes, 4.0 * rows * N * K, BF16_TC_FLOPS),
+                fns={"kernel": lambda a=a, s=spec, p=p: epi.glu_2d(
+                         *a, p, spec=s),
+                     "plain": lambda a=a, s=spec, p=p: epi.glu_2d_plain(
+                         *a, p, spec=s),
+                     "library": lambda a=a: (torch.matmul(a[0], a[1]),
+                                             torch.matmul(a[0], a[2]))})
     calls = {(key, role): call_ms(fn, flush)
              for key, c in cases.items() for role, fn in c["fns"].items()}
     timings = {}
@@ -246,8 +343,8 @@ def phase_kernel_times(torch, epi, dev, flush):
                  plain_call_ms=calls[(key, "plain")],
                  library_call_ms=calls.get((key, "library")))
         timings[key] = t
-        emit({"phase": "kernel_time", "kernel": key[0],
-              "where": "decode" if key[1] == SLOTS else "prefill", **t})
+        emit({"phase": "kernel_time", "kernel": key[0], "scheme": key[1],
+              "where": "decode" if key[2] == SLOTS else "prefill", **t})
     return timings
 
 
@@ -337,18 +434,16 @@ def phase_trace(torch, name, cfg, params, prompts, dev, serve_line):
     emit(out)
 
 
-def phase_f32_vs_cpu(torch, np, M, TS, cfg, dev):
+def phase_f32_vs_cpu(torch, np, M, TS, cfg, params, params_cpu, dev):
     """One ragged f32 prefill on the card (kernels) and on the CPU (plain
     versions), same weights; returns the relative max-norm difference."""
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
-    params = M.materialize_params(cfg32, seed=0, device=dev)
     rng = np.random.RandomState(1)
     toks = rng.randint(0, cfg.vocab_size, (2, 40)).astype(np.int32)
     lens = [40, 23]
     out = {}
-    for where in (dev, "cpu"):
-        p = M.compute_params(
-            params if where == dev else _tree_to(params, "cpu"), cfg32)
+    for where, tree in ((dev, params), ("cpu", params_cpu)):
+        p = M.compute_params(with_act(torch, tree, cfg32, where), cfg32)
         batch = {"tokens": torch.as_tensor(toks, device=where),
                  "lengths": torch.as_tensor(lens, dtype=torch.int32,
                                             device=where)}
@@ -359,6 +454,16 @@ def phase_f32_vs_cpu(torch, np, M, TS, cfg, dev):
     diff = float((out[dev] - out["cpu"]).abs().max())
     scale = float(out["cpu"].abs().max())
     return diff, scale
+
+
+def with_act(torch, params, cfg, device):
+    """``params`` with the ``act`` leaf of ``cfg``'s scheme: the weights
+    are shared, only the approximant params differ between schemes."""
+    from repro_torch.core.activations import init_act_params
+    out = {k: v for k, v in params.items() if k != "act"}
+    out["act"] = {tag: torch.as_tensor(arr, device=device) for tag, arr in
+                  init_act_params(cfg.layer_activation_configs()).items()}
+    return out
 
 
 def _tree_to(tree, device):
@@ -399,65 +504,87 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "sources": [str(s.relative_to(ROOT)) for s in _build.sources()]})
 
-    # 2. kernels against their plain versions
+    # 2. kernels against their plain versions, and each scheme's accuracy
     worst = phase_kernel_checks(torch, epi, dev)
 
-    # 3./4. serve qwen3-0.6b at full width through each kernel, before
-    #       any profiler session (see phase_kernel_times)
+    phase_accuracy(torch, epi, dev)
+
+    # 3. serve qwen3-0.6b at full width through each kernel under each
+    #    scheme, before any profiler session (see phase_kernel_times)
     base = registry.get("qwen3-0.6b")
     rng = np.random.RandomState(0)
     prompts = [rng.randint(0, base.vocab_size, (n,)).astype(np.int32)
                for n in PROMPT_LENS]
-    cfg_f = fused_of(base)
-    cfg_k = act_impl_of(base, "cr_spline", use_kernel=True)
-    params_f = M.materialize_params(cfg_f, seed=0, device=dev)
-    toks_f, launches_f, line_f = phase_serve(
-        torch, epi, "serve_fused", cfg_f, params_f, prompts, dev, card,
-        "glu_2d")
-    params_k = M.materialize_params(cfg_k, seed=0, device=dev)
-    toks_k, launches_k, line_k = phase_serve(
-        torch, epi, "serve_kernelized", cfg_k, params_k, prompts, dev, card,
-        "elementwise_2d")
-    same = sum(a == b for ra, rb in zip(toks_f, toks_k)
-               for a, b in zip(ra, rb))
-    emit({"phase": "token_agreement", "fused_vs_kernelized": same
-          / sum(len(r) for r in toks_f),
+    # (phase suffix, scheme, kernel of the path, config); the cr_spline
+    # pair is the first slice's
+    deployments = [("fused", "cr_spline", "glu_2d", fused_of(base)),
+                   ("kernelized", "cr_spline", "elementwise_2d",
+                    act_impl_of(base, "cr_spline", use_kernel=True))]
+    for scheme in SCHEMES[1:]:
+        deployments += [
+            (f"fused_{scheme}", scheme, "glu_2d",
+             fused_of(act_impl_of(base, scheme))),
+            (f"kernelized_{scheme}", scheme, "elementwise_2d",
+             act_impl_of(base, scheme, use_kernel=True))]
+    weights = M.materialize_params(base, seed=0, device=dev)
+    served = {}
+    for name, scheme, kernel, cfg in deployments:
+        params = with_act(torch, weights, cfg, dev)
+        toks, launches, line = phase_serve(
+            torch, epi, "serve_" + name, cfg, params, prompts, dev, card,
+            kernel)
+        served[name] = dict(toks=toks, launches=launches, line=line,
+                            params=params)
+    agree = {}
+    for scheme in SCHEMES:
+        f, k = [served[n]["toks"] for n, s, _, _ in deployments if s == scheme]
+        agree[scheme] = sum(a == b for ra, rb in zip(f, k)
+                            for a, b in zip(ra, rb)) / sum(map(len, f))
+    emit({"phase": "token_agreement", "fused_vs_kernelized": agree,
           "note": "bf16 deployments differ by design; information only"})
 
-    # 5. kernel timings, then where a decode step's time goes
+    # 4. kernel timings, then where a decode step's time goes
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
     timings = phase_kernel_times(torch, epi, dev, flush)
-    phase_trace(torch, "fused", cfg_f, params_f, prompts, dev, line_f)
-    phase_trace(torch, "kernelized", cfg_k, params_k, prompts, dev, line_k)
-    del params_f, params_k, flush
+    for name, _, _, cfg in deployments:
+        phase_trace(torch, name, cfg, served[name]["params"], prompts, dev,
+                    served[name]["line"])
+        del served[name]["params"]
+    del flush
     torch.cuda.empty_cache()
 
-    # 6. f32 prefill logits: card (kernels) vs CPU (plain versions)
+    # 5. f32 prefill logits: card (kernels) vs CPU (plain versions)
     tol = 1e-4
-    for name, cfg in (("fused", cfg_f), ("kernelized", cfg_k)):
-        diff, scale = phase_f32_vs_cpu(torch, np, M, TS, cfg, dev)
+    weights_cpu = _tree_to(weights, "cpu")
+    for name, _, _, cfg in deployments:
+        diff, scale = phase_f32_vs_cpu(torch, np, M, TS, cfg, weights,
+                                       weights_cpu, dev)
         rel = diff / scale
         emit({"phase": "f32_vs_cpu", "deployment": name, "layers":
               cfg.n_layers, "max_abs_diff": diff, "max_abs_logit": scale,
               "rel": rel, "tolerance_rel": tol})
         assert rel <= tol, (name, rel)
+    del weights, weights_cpu
 
-    # 7. the kernels line (timings at the decode shape, the main path's
-    #    most frequent launch)
+    # 6. the kernels line: one entry per (kernel, scheme), its launches on
+    #    its own deployment's run, its timings at the decode shape (the
+    #    main path's most frequent launch)
     kernels = []
-    for name, line, launches in (("elementwise_2d", 229, launches_k),
-                                 ("glu_2d", 289, launches_f)):
-        t = timings[(name, SLOTS)]
+    for name, scheme, kernel, _ in deployments:
+        t = timings[(kernel, scheme, SLOTS)]
         kernels.append({
-            "name": name, "route": "cuda",
+            "name": kernel if scheme == "cr_spline" else
+            f"{kernel}[{scheme}]", "scheme": scheme, "route": "cuda",
             "source": "src/repro_torch/csrc/epilogue.cu",
-            "replaces": f"src/repro/kernels/epilogue.py:{line}",
-            "launches": launches[name], "max_abs_err": t["max_abs_err"],
+            "replaces": f"src/repro/kernels/epilogue.py:{REPLACES[kernel]}",
+            "launches": served[name]["launches"][kernel],
+            "max_abs_err": t["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "shape": t["shape"],
             "dtype": t["dtype"], "timing": t["timing"],
-            "call_ms": t["call_ms"], "max_abs_err_checks": worst[name]})
+            "call_ms": t["call_ms"],
+            "max_abs_err_checks": worst[(kernel, scheme)]})
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,25 +1,31 @@
 """Activation engine: every element-wise nonlinearity is routed through
 here, selected by config.
 
-Counterpart of ``repro/core/activations.py``. Backends ported in this
-slice:
+Counterpart of ``repro/core/activations.py``. Backends:
 
   exact     torch reference (what a float accelerator computes)
   cr        Catmull-Rom spline interpolation (the paper, float datapath;
             alias of the registered ``cr_spline`` approximant scheme)
+  pwl       piecewise-linear over the same knots (paper's baseline; also
+            a registered approximant scheme)
+  poly      piecewise near-minimax polynomial, Horner datapath
+            (approximant scheme; degree = ActivationConfig.degree)
+  rational  Pade + Newton-reciprocal datapath, no divider
+            (approximant scheme; CF order = ActivationConfig.degree)
+  region    Zamanlooy-style three-region approximation [6]
+  taylor    Adnan-style truncated Taylor series [8]
+  base2     Gomar-style base-2 exponential approximation [9]
 
-With ``use_kernel=True`` every nonlinearity of a ``cr`` engine runs as
-ONE launch of the hand-written ``elementwise_2d`` CUDA kernel
-(``kernels/epilogue.py``) on a CUDA tensor, and as that kernel's plain
-version on a CPU tensor.
+With ``use_kernel=True`` every nonlinearity of an approximant engine
+(cr, pwl, poly, rational) runs as ONE launch of the hand-written
+``elementwise_2d`` CUDA kernel (``kernels/epilogue.py``) on a CUDA
+tensor, and as that kernel's plain version on a CPU tensor.
 
-``cr_fixed`` / ``<scheme>_fixed`` and ``region`` / ``taylor`` / ``base2``
-raise ``NotImplementedError`` until their slice (ROADMAP.md, Queue A
-items 2 and 4); ``pwl`` / ``poly`` / ``rational`` are not registered yet,
-so the engine rejects them as unknown impls.
+``cr_fixed`` / ``<scheme>_fixed`` raise ``NotImplementedError`` until
+their slice (ROADMAP.md, Queue A item 2).
 
 Functions: tanh, sigmoid, silu, gelu_tanh, softplus, derived from the
-tanh table via the paper's identities:
+tanh unit via the paper's identities:
     sigmoid(x) = (1 + tanh(x/2)) / 2
     silu(x)    = x * sigmoid(x)
     softplus(x)= relu(x) + h(|x|),  h(u) = log(1 + e^{-u})  (own even table)
@@ -39,13 +45,6 @@ from . import approximant
 from . import catmull_rom as cr
 
 SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
-
-# engine impls of the reference that later slices port
-_NOT_PORTED = {
-    "region": "Queue A item 4",
-    "taylor": "Queue A item 4",
-    "base2": "Queue A item 4",
-}
 
 
 def scheme_of(impl: str) -> str | None:
@@ -72,7 +71,9 @@ def fixed_scheme_of(impl: str) -> str | None:
 class ActivationConfig:
     """How the framework computes nonlinearities (a model-config field)."""
 
-    impl: str = "exact"          # exact|cr|cr_spline in this slice
+    impl: str = "exact"          # exact|cr|pwl|poly|rational|region|
+                                 # taylor|base2, or any registered
+                                 # approximant scheme name
     depth: int = 32              # LUT depth (paper's flagship: 32)
     x_max: float = 4.0           # table range for tanh (paper: 4.0)
     degree: int = 3              # poly: per-segment degree; rational:
@@ -166,16 +167,78 @@ def _kernel_act(name: str, x, cfg: ActivationConfig, params=None):
                           x_max=cfg.x_max, degree=cfg.degree, params=params)
 
 
+def _approx_spec(cfg: ActivationConfig, act: str) -> approximant.ApproxSpec:
+    return approximant.spec_for(scheme_of(cfg.impl), act, x_max=cfg.x_max,
+                                depth=cfg.depth, degree=cfg.degree)
+
+
 def _tanh_cr(x, cfg: ActivationConfig):
     if cfg.use_kernel:
         return _kernel_act("tanh", x, cfg)
     return cr.interpolate(tanh_table(cfg.x_max, cfg.depth), x)
 
 
+def _tanh_pwl(x, cfg: ActivationConfig):
+    # the reference's unbound pwl engine interpolates the CR tanh table's
+    # knots, not the PWL scheme's own [depth, 2] params
+    if cfg.use_kernel:
+        return _kernel_act("tanh", x, cfg)
+    return cr.interpolate_pwl(tanh_table(cfg.x_max, cfg.depth), x)
+
+
+def _tanh_scheme(x, cfg: ActivationConfig):
+    """Generic approximant backend (poly / rational / future schemes):
+    the scheme's own block, the datapath the kernel runs."""
+    if cfg.use_kernel:
+        return _kernel_act("tanh", x, cfg)
+    return approximant.reference(x, _approx_spec(cfg, "tanh"))
+
+
+def _tanh_region(x, cfg: ActivationConfig):
+    """Three-region approximation in the spirit of [6] (Zamanlooy): pass
+    region |x| < 0.25: y = x; saturation |x| > 3: y = sign(x); processing
+    region: PWL over an 8-entry table quantized to 6 fractional bits."""
+    tab = tanh_table(3.0, 8)
+    ax = torch.abs(x)
+    proc = cr.interpolate_pwl(tab, ax, odd=False)
+    proc = torch.round(proc * 64.0) / 64.0  # 6-bit output quantization
+    y = torch.where(ax < 0.25, ax,
+                    torch.where(ax > 3.0, torch.ones_like(ax), proc))
+    return torch.sign(x) * y
+
+
+def _tanh_taylor(x, cfg: ActivationConfig):
+    """Truncated odd Taylor series x - x^3/3 + 2x^5/15 - 17x^7/315 [8],
+    clamped to +-1."""
+    coeffs = [1.0, -1.0 / 3.0, 2.0 / 15.0, -17.0 / 315.0][: cfg.taylor_terms]
+    x2 = x * x
+    acc = torch.zeros_like(x)
+    for c in reversed(coeffs):
+        acc = acc * x2 + c
+    return torch.clamp(acc * x, -1.0, 1.0)
+
+
+def _tanh_base2(x, cfg: ActivationConfig):
+    """Gomar-style [9]: tanh(x) = (2^{ax} - 2^{-ax}) / (2^{ax} + 2^{-ax})
+    with a = 2/ln(2), the exponent path quantized to 5 fractional bits."""
+    a = 2.0 / math.log(2.0)
+    e = a * x / 2.0
+    e = torch.round(e * 32.0) / 32.0   # coarse exponent path
+    p = torch.exp2(e)
+    n = torch.exp2(-e)
+    return (p - n) / (p + n)
+
+
 _TANH_BACKENDS = {
     "exact": lambda x, cfg: torch.tanh(x),
     "cr": _tanh_cr,
     "cr_spline": _tanh_cr,
+    "pwl": _tanh_pwl,
+    "poly": _tanh_scheme,
+    "rational": _tanh_scheme,
+    "region": _tanh_region,
+    "taylor": _tanh_taylor,
+    "base2": _tanh_base2,
 }
 
 
@@ -200,14 +263,12 @@ class ActivationEngine:
             raise NotImplementedError(
                 f"impl={self.cfg.impl!r}: fixed-point datapaths are not "
                 f"ported yet (ROADMAP.md, Queue A item 2)")
-        if self.cfg.impl in _NOT_PORTED:
-            raise NotImplementedError(
-                f"impl={self.cfg.impl!r} is not ported yet (ROADMAP.md, "
-                f"{_NOT_PORTED[self.cfg.impl]})")
         if self.act_params is not None:
             self._tanh = self._bound_tanh()
         else:
             backend = _TANH_BACKENDS.get(self.cfg.impl)
+            if backend is None and self.act_impl is not None:
+                backend = _tanh_scheme   # any newly registered scheme
             if backend is None:
                 raise ValueError(
                     f"unknown activation impl {self.cfg.impl!r}; built-ins: "
@@ -221,10 +282,14 @@ class ActivationEngine:
         cfg, p = self.cfg, self.act_params
         if cfg.use_kernel:
             return lambda x: _kernel_act("tanh", x, cfg, params=p)
-        # same float-spline codepath as the unbound engine, windows
-        # swapped for the bound leaf (interpolate casts them to x.dtype)
-        tab = tanh_table(cfg.x_max, cfg.depth)._replace(windows=p)
-        return lambda x: cr.interpolate(tab, x)
+        if self.act_impl == "cr_spline":
+            # same float-spline codepath as the unbound engine, windows
+            # swapped for the bound leaf (interpolate casts them to x.dtype)
+            tab = tanh_table(cfg.x_max, cfg.depth)._replace(windows=p)
+            return lambda x: cr.interpolate(tab, x)
+        spec = _approx_spec(cfg, "tanh")
+        return lambda x: approximant.block(x.to(torch.float32), p,
+                                           spec).to(x.dtype)
 
     def bind(self, act_params) -> "ActivationEngine":
         """Engine whose tanh params come from the model's
@@ -271,6 +336,12 @@ class ActivationEngine:
             return F.softplus(x)
         if self._kernelized:
             return _kernel_act("softplus", x, self.cfg)
+        if self.act_impl not in (None, "cr_spline"):
+            # scheme-consistent residual (the rational scheme rejects the
+            # non-tanh target with a clear error at build time)
+            spec = _approx_spec(self.cfg, "softplus")
+            h = approximant.reference(torch.abs(x), spec, "softplus_res")
+            return torch.relu(x) + h
         tab = softplus_residual_table(max(self.cfg.x_max, 8.0),
                                       max(self.cfg.depth, 64))
         h = cr.interpolate(tab, torch.abs(x), odd=False)

@@ -8,12 +8,22 @@
 //   repro_glu_2d          <- epilogue.py:glu_2d (_glu_kernel)
 //
 // Both evaluate the same epilogue (tanh | sigmoid | silu | gelu_tanh |
-// softplus, built on one CR-spline tanh block, epilogue.py:_cr_tanh_block)
-// in f32, in the plain PyTorch version's operation order. Every multiply
-// and add of the epilogue uses the round-to-nearest intrinsics
-// (__fmul_rn, __fadd_rn, __fsub_rn), which the compiler never contracts
-// into an FMA, so the kernel's epilogue rounds exactly where the plain
-// version's separate PyTorch ops round.
+// softplus, built on one tanh block) in f32, in the plain PyTorch
+// version's operation order. The tanh block is one of the four approximant
+// schemes of src/repro/core/approximant.py, chosen per launch:
+//
+//   cr_spline  epilogue.py:_cr_tanh_block     params [depth, 4]
+//   pwl        approximant.py:PWL.block       params [depth, 2]
+//   poly       approximant.py:PiecewisePoly   params [depth, degree + 1]
+//   rational   approximant.py:PadeRational    params [3, K]
+//
+// Every multiply and add of the epilogue uses the round-to-nearest
+// intrinsics (__fmul_rn, __fadd_rn, __fsub_rn), which the compiler never
+// contracts into an FMA, so the kernel's epilogue rounds exactly where the
+// plain version's separate PyTorch ops round. The scheme is a runtime
+// switch, uniform across the grid, not a template parameter: the
+// instantiations (epilogue x dtype x vector path x tile) stay as many as
+// with one scheme, and so does the build time.
 //
 // Each entry point launches on the caller's stream, does not synchronise,
 // allocates nothing, and returns cudaGetLastError() so the Python wrapper
@@ -30,20 +40,44 @@ typedef __nv_bfloat16 bf16;
 
 enum { EPI_TANH = 0, EPI_SIGMOID = 1, EPI_SILU = 2, EPI_GELU = 3, EPI_SOFTPLUS = 4 };
 enum { DT_F32 = 0, DT_BF16 = 1 };
+enum { SCHEME_CR = 0, SCHEME_PWL = 1, SCHEME_POLY = 2, SCHEME_RATIONAL = 3 };
 
-constexpr int MAX_DEPTH = 256;   // window rows a kernel holds in shared memory
-constexpr int SM_COUNT = 132;    // H100 SXM streaming multiprocessors
+constexpr int MAX_PARAMS = 2048;  // f32 params a kernel holds in shared memory (8 KB)
+constexpr int MAX_POLY_COLS = 8;  // poly degree <= 7
+constexpr int NEWTON_ITERS = 5;   // approximant.py:NEWTON_ITERS
+constexpr int SM_COUNT = 132;     // H100 SXM streaming multiprocessors
 
+// One approximant: its scheme, its [rows, cols] f32 params (row-major; in
+// device memory as a kernel argument, in shared memory once the block has
+// copied them) and its geometry. rows is the LUT depth of cr_spline, pwl
+// and poly; rational reads no depth.
 struct Table {
-  const float4* win;   // [depth] CR control-point windows, in shared memory
-  int depth;
+  const float* p;
+  int scheme, rows, cols;
   float inv_period, x_max, sat;
 };
 
-// Copy the [depth, 4] f32 window table into shared memory (whole block).
-__device__ __forceinline__ void load_table(float4* s_win, const float* params, int depth) {
-  for (int i = threadIdx.x; i < depth; i += blockDim.x)
-    s_win[i] = make_float4(params[4 * i], params[4 * i + 1], params[4 * i + 2], params[4 * i + 3]);
+// Copy the block's params into shared memory and point the table there.
+// The caller synchronises the block before the first read.
+__device__ __forceinline__ void load_params(float* s_par, Table& tb) {
+  const int n = tb.rows * tb.cols;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) s_par[i] = tb.p[i];
+  tb.p = s_par;
+}
+
+// approximant.py:_index_t_split: segment index and local t in [0, 1).
+__device__ __forceinline__ int index_t_split(float av, const Table& tb, float& t) {
+  const float u = __fmul_rn(av, tb.inv_period);
+  const float k = fminf(fmaxf(floorf(u), 0.0f), (float)(tb.rows - 1));
+  t = __fsub_rn(u, k);
+  return (int)k;
+}
+
+// approximant.py:_finish: saturate at the domain edge, restore the sign.
+__device__ __forceinline__ float finish(float y, float v, float av, const Table& tb, bool odd) {
+  if (av >= tb.x_max) y = tb.sat;
+  if (odd && v < 0.0f) y = -y;
+  return y;
 }
 
 // epilogue.py:_cr_tanh_block on one f32 value: index/t split, window
@@ -51,10 +85,9 @@ __device__ __forceinline__ void load_table(float4* s_win, const float* params, i
 // sign restore.
 __device__ __forceinline__ float cr_block(float v, const Table& tb, bool odd) {
   const float av = odd ? fabsf(v) : v;
-  const float u = __fmul_rn(av, tb.inv_period);
-  const float k = fminf(fmaxf(floorf(u), 0.0f), (float)(tb.depth - 1));
-  const float t = __fsub_rn(u, k);
-  const float4 p = tb.win[(int)k];
+  float t;
+  const int k = index_t_split(av, tb, t);
+  const float4 p = reinterpret_cast<const float4*>(tb.p)[k];
   const float w0 = __fmul_rn(0.5f, __fmul_rn(__fsub_rn(__fmul_rn(__fadd_rn(-t, 2.0f), t), 1.0f), t));
   const float w1 = __fmul_rn(0.5f, __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(__fmul_rn(3.0f, t), 5.0f), t), t), 2.0f));
   const float w2 = __fmul_rn(0.5f, __fmul_rn(__fadd_rn(__fmul_rn(__fadd_rn(__fmul_rn(-3.0f, t), 4.0f), t), 1.0f), t));
@@ -62,28 +95,83 @@ __device__ __forceinline__ float cr_block(float v, const Table& tb, bool odd) {
   float y = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(p.x, w0), __fmul_rn(p.y, w1)),
                                 __fmul_rn(p.z, w2)),
                       __fmul_rn(p.w, w3));
-  if (av >= tb.x_max) y = tb.sat;
-  if (odd && v < 0.0f) y = -y;
-  return y;
+  return finish(y, v, av, tb, odd);
+}
+
+// approximant.py:PWL.block: y0 + t * dy from the (value, delta) row.
+__device__ __forceinline__ float pwl_block(float v, const Table& tb, bool odd) {
+  const float av = odd ? fabsf(v) : v;
+  float t;
+  const int k = index_t_split(av, tb, t);
+  const float y = __fadd_rn(tb.p[2 * k], __fmul_rn(t, tb.p[2 * k + 1]));
+  return finish(y, v, av, tb, odd);
+}
+
+// approximant.py:PiecewisePoly.block: Horner in t over the segment's
+// coefficients, highest power first.
+__device__ __forceinline__ float poly_block(float v, const Table& tb, bool odd) {
+  const float av = odd ? fabsf(v) : v;
+  float t;
+  const int k = index_t_split(av, tb, t);
+  const float* c = tb.p + k * tb.cols;
+  float y = c[0];
+  for (int j = 1; j < tb.cols; ++j) y = __fadd_rn(__fmul_rn(y, t), c[j]);
+  return finish(y, v, av, tb, odd);
+}
+
+// approximant.py:PadeRational.block: num/den Horner chains in u = avc^2
+// from the top coefficient, a linear seed for 1/den, NEWTON_ITERS Newton
+// steps, then the overshoot clamp. No table lookup. The two clamps are
+// written as compares so that a NaN passes through, as torch.clamp's does.
+__device__ __forceinline__ float rational_block(float v, const Table& tb, bool odd) {
+  const float av = odd ? fabsf(v) : v;
+  const float avc = av > tb.x_max ? tb.x_max : av;   // keep den in range
+  const float u = __fmul_rn(avc, avc);
+  const int K = tb.cols;
+  const float* pn = tb.p;            // num coefficients, u^0 first
+  const float* pd = tb.p + K;        // den coefficients
+  const float* ps = tb.p + 2 * K;    // seed [alpha, beta]
+  float num = pn[K - 1], den = pd[K - 1];
+  for (int j = K - 2; j >= 0; --j) {
+    num = __fadd_rn(__fmul_rn(num, u), pn[j]);
+    den = __fadd_rn(__fmul_rn(den, u), pd[j]);
+  }
+  num = __fmul_rn(num, avc);
+  float r = __fsub_rn(ps[0], __fmul_rn(ps[1], den));
+#pragma unroll
+  for (int i = 0; i < NEWTON_ITERS; ++i) r = __fmul_rn(r, __fsub_rn(2.0f, __fmul_rn(den, r)));
+  float y = __fmul_rn(num, r);
+  if (y > tb.sat) y = tb.sat;
+  return finish(y, v, av, tb, odd);
+}
+
+// approximant.py:block, the registry dispatch (one scheme per launch).
+__device__ __forceinline__ float scheme_block(float v, const Table& tb, bool odd) {
+  switch (tb.scheme) {
+    case SCHEME_PWL: return pwl_block(v, tb, odd);
+    case SCHEME_POLY: return poly_block(v, tb, odd);
+    case SCHEME_RATIONAL: return rational_block(v, tb, odd);
+    default: return cr_block(v, tb, odd);
+  }
 }
 
 // epilogue.py:make_epilogue, the paper's identities on one tanh unit.
 template <int EPI>
 __device__ __forceinline__ float epilogue(float v, const Table& tb) {
-  if (EPI == EPI_TANH) return cr_block(v, tb, true);
+  if (EPI == EPI_TANH) return scheme_block(v, tb, true);
   if (EPI == EPI_SIGMOID)
-    return __fmul_rn(0.5f, __fadd_rn(1.0f, cr_block(__fmul_rn(v, 0.5f), tb, true)));
+    return __fmul_rn(0.5f, __fadd_rn(1.0f, scheme_block(__fmul_rn(v, 0.5f), tb, true)));
   if (EPI == EPI_SILU)
-    return __fmul_rn(v, __fmul_rn(0.5f, __fadd_rn(1.0f, cr_block(__fmul_rn(v, 0.5f), tb, true))));
+    return __fmul_rn(v, __fmul_rn(0.5f, __fadd_rn(1.0f, scheme_block(__fmul_rn(v, 0.5f), tb, true))));
   if (EPI == EPI_GELU) {
     const float c = (float)0.7978845608028654;   // sqrt(2 / pi)
     const float a = (float)0.044715;
     const float cube = __fmul_rn(__fmul_rn(__fmul_rn(a, v), v), v);
     const float inner = __fmul_rn(c, __fadd_rn(v, cube));
-    return __fmul_rn(__fmul_rn(0.5f, v), __fadd_rn(1.0f, cr_block(inner, tb, true)));
+    return __fmul_rn(__fmul_rn(0.5f, v), __fadd_rn(1.0f, scheme_block(inner, tb, true)));
   }
-  // softplus: relu(v) + h(|v|) from its own even residual table
-  return __fadd_rn(fmaxf(v, 0.0f), cr_block(fabsf(v), tb, false));
+  // softplus: relu(v) + h(|v|) from its own even residual params
+  return __fadd_rn(fmaxf(v, 0.0f), scheme_block(fabsf(v), tb, false));
 }
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -102,21 +190,18 @@ template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) { return __flo
 // Design: a grid-stride loop over the flattened contiguous array with
 // 16-byte vector loads and stores (4 f32 or 8 bf16 per access) when both
 // pointers are 16-byte aligned, a scalar tail, and the ragged edge masked
-// by the loop bound in place of the TPU's block padding. The [depth, 4]
-// window table is copied into shared memory once per block, so the
-// per-element gather never touches device memory. Templated on the
-// epilogue and the I/O dtype.
+// by the loop bound in place of the TPU's block padding. The scheme's
+// params (at most MAX_PARAMS floats) are copied into shared memory once per
+// block, so the per-element gather never touches device memory. Templated
+// on the epilogue and the I/O dtype; the scheme is a uniform switch.
 // ---------------------------------------------------------------------------
 
 template <int EPI, typename T, bool VEC>
 __global__ void __launch_bounds__(256)
-repro_elementwise_kernel(const T* __restrict__ x, const float* __restrict__ params,
-                   T* __restrict__ y, long long n, int depth, float inv_period,
-                   float x_max, float sat) {
-  __shared__ float4 s_win[MAX_DEPTH];
-  load_table(s_win, params, depth);
+repro_elementwise_kernel(const T* __restrict__ x, T* __restrict__ y, long long n, Table tb) {
+  __shared__ __align__(16) float s_par[MAX_PARAMS];
+  load_params(s_par, tb);
   __syncthreads();
-  const Table tb{s_win, depth, inv_period, x_max, sat};
   const long long stride = (long long)gridDim.x * blockDim.x;
   const long long start = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   long long tail = 0;
@@ -139,8 +224,7 @@ repro_elementwise_kernel(const T* __restrict__ x, const float* __restrict__ para
 }
 
 template <int EPI, typename T>
-void launch_elementwise(const void* x, const void* params, void* y, long long n,
-                        int depth, float inv_period, float x_max, float sat,
+void launch_elementwise(const void* x, void* y, long long n, const Table& tb,
                         cudaStream_t stream) {
   const bool vec = ((uintptr_t)x % 16 == 0) && ((uintptr_t)y % 16 == 0);
   const long long units = vec ? (n + (16 / sizeof(T)) - 1) / (16 / sizeof(T)) : n;
@@ -150,25 +234,21 @@ void launch_elementwise(const void* x, const void* params, void* y, long long n,
   if (blocks < 1) blocks = 1;
   const T* xt = static_cast<const T*>(x);
   T* yt = static_cast<T*>(y);
-  const float* pt = static_cast<const float*>(params);
   if (vec)
-    repro_elementwise_kernel<EPI, T, true><<<(int)blocks, threads, 0, stream>>>(
-        xt, pt, yt, n, depth, inv_period, x_max, sat);
+    repro_elementwise_kernel<EPI, T, true><<<(int)blocks, threads, 0, stream>>>(xt, yt, n, tb);
   else
-    repro_elementwise_kernel<EPI, T, false><<<(int)blocks, threads, 0, stream>>>(
-        xt, pt, yt, n, depth, inv_period, x_max, sat);
+    repro_elementwise_kernel<EPI, T, false><<<(int)blocks, threads, 0, stream>>>(xt, yt, n, tb);
 }
 
 template <typename T>
-bool dispatch_elementwise(int epi, const void* x, const void* params, void* y,
-                          long long n, int depth, float ip, float xm, float sat,
+bool dispatch_elementwise(int epi, const void* x, void* y, long long n, const Table& tb,
                           cudaStream_t s) {
   switch (epi) {
-    case EPI_TANH: launch_elementwise<EPI_TANH, T>(x, params, y, n, depth, ip, xm, sat, s); return true;
-    case EPI_SIGMOID: launch_elementwise<EPI_SIGMOID, T>(x, params, y, n, depth, ip, xm, sat, s); return true;
-    case EPI_SILU: launch_elementwise<EPI_SILU, T>(x, params, y, n, depth, ip, xm, sat, s); return true;
-    case EPI_GELU: launch_elementwise<EPI_GELU, T>(x, params, y, n, depth, ip, xm, sat, s); return true;
-    case EPI_SOFTPLUS: launch_elementwise<EPI_SOFTPLUS, T>(x, params, y, n, depth, ip, xm, sat, s); return true;
+    case EPI_TANH: launch_elementwise<EPI_TANH, T>(x, y, n, tb, s); return true;
+    case EPI_SIGMOID: launch_elementwise<EPI_SIGMOID, T>(x, y, n, tb, s); return true;
+    case EPI_SILU: launch_elementwise<EPI_SILU, T>(x, y, n, tb, s); return true;
+    case EPI_GELU: launch_elementwise<EPI_GELU, T>(x, y, n, tb, s); return true;
+    case EPI_SOFTPLUS: launch_elementwise<EPI_SOFTPLUS, T>(x, y, n, tb, s); return true;
   }
   return false;
 }
@@ -185,7 +265,8 @@ bool dispatch_elementwise(int epi, const void* x, const void* params, void* y,
 // counterpart: nothing carries over between blocks). Each K step stages one
 // x tile and the matching w_gate and w_up tiles in shared memory and
 // accumulates BOTH products into f32 accumulators. After the last K step
-// the epilogue fires on the f32 gate accumulator, is multiplied by the f32
+// the epilogue (one scheme evaluation) fires on the f32 gate accumulator,
+// is multiplied by the f32
 // up accumulator and cast once to the output dtype: gate and up are never
 // rounded to bf16, which is the point of the fusion. bf16 inputs run on the
 // tensor cores (nvcuda::wmma bf16 16x16x16, f32 accumulate); f32 inputs run
@@ -210,9 +291,8 @@ __device__ __forceinline__ void load8(bf16* dst, const bf16* __restrict__ src, i
 
 template <int EPI, int BM, int BN, int BK, int WM, int WN>
 __global__ void repro_glu_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wg,
-                                const bf16* __restrict__ wu, const float* __restrict__ params,
-                                bf16* __restrict__ out, int M, int N, int K, int depth,
-                                float inv_period, float x_max, float sat, bool vec) {
+                                const bf16* __restrict__ wu, bf16* __restrict__ out, int M,
+                                int N, int K, Table tb, bool vec) {
   using namespace nvcuda;
   constexpr int WARPS_N = BN / WN;
   constexpr int NT = (BM / WM) * WARPS_N * 32;
@@ -222,14 +302,14 @@ __global__ void repro_glu_bf16_kernel(const bf16* __restrict__ x, const bf16* __
   constexpr int EPI_BYTES = 2 * BM * LDC * 4;
   constexpr int SMEM = STAGE_BYTES > EPI_BYTES ? STAGE_BYTES : EPI_BYTES;
   __shared__ __align__(128) unsigned char smem[SMEM];
-  __shared__ float4 s_win[MAX_DEPTH];
+  __shared__ __align__(16) float s_par[MAX_PARAMS];
   bf16* sa = reinterpret_cast<bf16*>(smem);                  // [BM][LDA]
   bf16* sg = sa + BM * LDA;                                  // [BK][LDB]
   bf16* su = sg + BK * LDB;                                  // [BK][LDB]
   float* cg = reinterpret_cast<float*>(smem);                // [BM][LDC] after the K loop
   float* cu = cg + BM * LDC;
 
-  load_table(s_win, params, depth);
+  load_params(s_par, tb);   // read after the K loop's barriers
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int warp = threadIdx.x / 32;
   const int wm = warp / WARPS_N, wn = warp % WARPS_N;
@@ -284,7 +364,6 @@ __global__ void repro_glu_bf16_kernel(const bf16* __restrict__ x, const bf16* __
       wmma::store_matrix_sync(cu + off, acc_u[i][j], LDC, wmma::mem_row_major);
     }
   __syncthreads();
-  const Table tb{s_win, depth, inv_period, x_max, sat};
   for (int idx = threadIdx.x; idx < BM * BN; idx += NT) {
     const int r = idx / BN, c = idx % BN;
     const int gm = m0 + r, gn = n0 + c;
@@ -296,15 +375,14 @@ __global__ void repro_glu_bf16_kernel(const bf16* __restrict__ x, const bf16* __
 
 template <int EPI, int BM, int BN, int BK, int TM, int TN>
 __global__ void repro_glu_f32_kernel(const float* __restrict__ x, const float* __restrict__ wg,
-                               const float* __restrict__ wu, const float* __restrict__ params,
-                               float* __restrict__ out, int M, int N, int K, int depth,
-                               float inv_period, float x_max, float sat) {
+                               const float* __restrict__ wu, float* __restrict__ out, int M,
+                               int N, int K, Table tb) {
   constexpr int TX = BN / TN, NT = TX * (BM / TM);
   __shared__ float sa[BK][BM + 4];     // x tile, transposed: k-major
   __shared__ float sg[BK][BN + 4];
   __shared__ float su[BK][BN + 4];
-  __shared__ float4 s_win[MAX_DEPTH];
-  load_table(s_win, params, depth);
+  __shared__ __align__(16) float s_par[MAX_PARAMS];
+  load_params(s_par, tb);   // read after the K loop's barriers
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
   float acc_g[TM][TN], acc_u[TM][TN];
@@ -347,7 +425,6 @@ __global__ void repro_glu_f32_kernel(const float* __restrict__ x, const float* _
     }
     __syncthreads();
   }
-  const Table tb{s_win, depth, inv_period, x_max, sat};
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
@@ -359,10 +436,8 @@ __global__ void repro_glu_f32_kernel(const float* __restrict__ x, const float* _
 }
 
 template <int EPI>
-void launch_glu(const void* x, const void* wg, const void* wu, const void* params, void* out,
-                int M, int N, int K, int depth, int dtype, float ip, float xm, float sat,
-                cudaStream_t s) {
-  const float* p = static_cast<const float*>(params);
+void launch_glu(const void* x, const void* wg, const void* wu, void* out, int M, int N, int K,
+                int dtype, const Table& tb, cudaStream_t s) {
   if (dtype == DT_BF16) {
     const bf16* xb = static_cast<const bf16*>(x);
     const bf16* gb = static_cast<const bf16*>(wg);
@@ -374,12 +449,12 @@ void launch_glu(const void* x, const void* wg, const void* wu, const void* param
       constexpr int BM = 16, BN = 32, BK = 64, WM = 16, WN = 16;
       dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
       repro_glu_bf16_kernel<EPI, BM, BN, BK, WM, WN><<<grid, (BM / WM) * (BN / WN) * 32, 0, s>>>(
-          xb, gb, ub, p, ob, M, N, K, depth, ip, xm, sat, vec);
+          xb, gb, ub, ob, M, N, K, tb, vec);
     } else {
       constexpr int BM = 64, BN = 64, BK = 32, WM = 32, WN = 32;
       dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
       repro_glu_bf16_kernel<EPI, BM, BN, BK, WM, WN><<<grid, (BM / WM) * (BN / WN) * 32, 0, s>>>(
-          xb, gb, ub, p, ob, M, N, K, depth, ip, xm, sat, vec);
+          xb, gb, ub, ob, M, N, K, tb, vec);
     }
     return;
   }
@@ -391,47 +466,66 @@ void launch_glu(const void* x, const void* wg, const void* wu, const void* param
     constexpr int BM = 16, BN = 64, BK = 32, TM = 1, TN = 4;
     dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
     repro_glu_f32_kernel<EPI, BM, BN, BK, TM, TN><<<grid, (BM / TM) * (BN / TN), 0, s>>>(
-        xf, gf, uf, p, of, M, N, K, depth, ip, xm, sat);
+        xf, gf, uf, of, M, N, K, tb);
   } else {
     constexpr int BM = 64, BN = 64, BK = 16, TM = 4, TN = 4;
     dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
     repro_glu_f32_kernel<EPI, BM, BN, BK, TM, TN><<<grid, (BM / TM) * (BN / TN), 0, s>>>(
-        xf, gf, uf, p, of, M, N, K, depth, ip, xm, sat);
+        xf, gf, uf, of, M, N, K, tb);
   }
+}
+
+// The params a kernel takes: the shape each scheme's block reads, at most
+// MAX_PARAMS floats; rational has no softplus (its build targets tanh only).
+bool params_ok(int scheme, int rows, int cols, int epi) {
+  if (rows < 1 || cols < 1 || (long long)rows * cols > MAX_PARAMS) return false;
+  switch (scheme) {
+    case SCHEME_CR: return cols == 4;
+    case SCHEME_PWL: return cols == 2;
+    case SCHEME_POLY: return cols >= 2 && cols <= MAX_POLY_COLS;
+    case SCHEME_RATIONAL: return rows == 3 && cols >= 2 && epi != EPI_SOFTPLUS;
+  }
+  return false;
 }
 
 }  // namespace
 
 extern "C" int repro_elementwise_2d(const void* x, const void* params, void* y, int rows,
-                                    int cols, int depth, int epi, int dtype, float inv_period,
-                                    float x_max, float saturation, void* stream) {
-  if (depth < 1 || depth > MAX_DEPTH || rows < 0 || cols < 0) return (int)cudaErrorInvalidValue;
+                                    int cols, int scheme, int p_rows, int p_cols, int epi,
+                                    int dtype, float inv_period, float x_max, float saturation,
+                                    void* stream) {
+  if (!params_ok(scheme, p_rows, p_cols, epi) || rows < 0 || cols < 0)
+    return (int)cudaErrorInvalidValue;
   const long long n = (long long)rows * cols;
   if (n == 0) return (int)cudaGetLastError();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Table tb{static_cast<const float*>(params), scheme, p_rows, p_cols, inv_period, x_max,
+                 saturation};
   bool ok = false;
   if (dtype == DT_F32)
-    ok = dispatch_elementwise<float>(epi, x, params, y, n, depth, inv_period, x_max, saturation, s);
+    ok = dispatch_elementwise<float>(epi, x, y, n, tb, s);
   else if (dtype == DT_BF16)
-    ok = dispatch_elementwise<bf16>(epi, x, params, y, n, depth, inv_period, x_max, saturation, s);
+    ok = dispatch_elementwise<bf16>(epi, x, y, n, tb, s);
   if (!ok) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 
 extern "C" int repro_glu_2d(const void* x, const void* w_gate, const void* w_up,
-                            const void* params, void* out, int M, int N, int K, int depth,
-                            int epi, int dtype, float inv_period, float x_max, float saturation,
-                            void* stream) {
-  if (depth < 1 || depth > MAX_DEPTH || M < 1 || N < 1 || K < 1 ||
+                            const void* params, void* out, int M, int N, int K, int scheme,
+                            int p_rows, int p_cols, int epi, int dtype, float inv_period,
+                            float x_max, float saturation, void* stream) {
+  if (!params_ok(scheme, p_rows, p_cols, epi) || M < 1 || N < 1 || K < 1 ||
       (dtype != DT_F32 && dtype != DT_BF16))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Table tb{static_cast<const float*>(params), scheme, p_rows, p_cols, inv_period, x_max,
+                 saturation};
   switch (epi) {
-    case EPI_TANH: launch_glu<EPI_TANH>(x, w_gate, w_up, params, out, M, N, K, depth, dtype, inv_period, x_max, saturation, s); break;
-    case EPI_SIGMOID: launch_glu<EPI_SIGMOID>(x, w_gate, w_up, params, out, M, N, K, depth, dtype, inv_period, x_max, saturation, s); break;
-    case EPI_SILU: launch_glu<EPI_SILU>(x, w_gate, w_up, params, out, M, N, K, depth, dtype, inv_period, x_max, saturation, s); break;
-    case EPI_GELU: launch_glu<EPI_GELU>(x, w_gate, w_up, params, out, M, N, K, depth, dtype, inv_period, x_max, saturation, s); break;
-    case EPI_SOFTPLUS: launch_glu<EPI_SOFTPLUS>(x, w_gate, w_up, params, out, M, N, K, depth, dtype, inv_period, x_max, saturation, s); break;
+    case EPI_TANH: launch_glu<EPI_TANH>(x, w_gate, w_up, out, M, N, K, dtype, tb, s); break;
+    case EPI_SIGMOID: launch_glu<EPI_SIGMOID>(x, w_gate, w_up, out, M, N, K, dtype, tb, s); break;
+    case EPI_SILU: launch_glu<EPI_SILU>(x, w_gate, w_up, out, M, N, K, dtype, tb, s); break;
+    case EPI_GELU: launch_glu<EPI_GELU>(x, w_gate, w_up, out, M, N, K, dtype, tb, s); break;
+    case EPI_SOFTPLUS: launch_glu<EPI_SOFTPLUS>(x, w_gate, w_up, out, M, N, K, dtype, tb, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

@@ -28,12 +28,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # entry point -> argtypes (see csrc/epilogue.cu)
 SIGNATURES = {
-    # x, params, y, rows, cols, depth, epi, dtype, inv_period, x_max,
-    # saturation, stream
-    "repro_elementwise_2d": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P),
-    # x, w_gate, w_up, params, out, M, N, K, depth, epi, dtype,
+    # x, params, y, rows, cols, scheme, p_rows, p_cols, epi, dtype,
     # inv_period, x_max, saturation, stream
-    "repro_glu_2d": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+    "repro_elementwise_2d": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                             _F, _F, _F, _P),
+    # x, w_gate, w_up, params, out, M, N, K, scheme, p_rows, p_cols, epi,
+    # dtype, inv_period, x_max, saturation, stream
+    "repro_glu_2d": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                      _F, _F, _F, _P),
 }
 

@@ -18,9 +18,8 @@ Counterpart of ``repro/kernels/epilogue.py``. It owns:
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor
 it launches its kernel (``csrc/epilogue.cu``, built by ``_build``) or
 raises. There is no other route. ``LAUNCHES[name]`` counts the kernel's
-launches and nothing else. The kernels carry the ``cr_spline`` scheme;
-the ``pwl`` / ``poly`` / ``rational`` scheme blocks are still to be
-ported (ROADMAP.md, Queue B).
+launches and nothing else. Both kernels carry every registered scheme
+(``cr_spline``, ``pwl``, ``poly``, ``rational``), chosen per launch.
 """
 from __future__ import annotations
 
@@ -45,7 +44,9 @@ TableSpec = ApproxSpec
 LAUNCHES = {"elementwise_2d": 0, "glu_2d": 0}
 
 _DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_DEPTH = 256      # csrc/epilogue.cu MAX_DEPTH
+_SCHEME_IDS = {"cr_spline": 0, "pwl": 1, "poly": 2, "rational": 3}
+_MAX_PARAMS = 2048    # csrc/epilogue.cu MAX_PARAMS: f32 params in shared memory
+_MAX_POLY_DEGREE = 7  # csrc/epilogue.cu MAX_POLY_COLS - 1
 
 
 def table_for(act: str, x_max: float, depth: int) -> cr.SplineTable:
@@ -147,7 +148,15 @@ def make_epilogue(act: str, spec: TableSpec, lookup: str = "onehot"):
     raise ValueError(f"unknown epilogue {act!r}")
 
 
-def _check_params(params, spec: ApproxSpec):
+def _check_params(params, spec: ApproxSpec, act: str):
+    """Checks of both wrappers, on every route: the params' shape, and
+    the reference's refusal of a rational softplus (Pade targets tanh
+    only, so there is no residual to evaluate)."""
+    if act == "softplus" and spec.scheme == "rational":
+        raise ValueError(
+            "rational (Pade) approximant targets tanh only; the softplus "
+            "residual 'softplus_res' needs a table-based scheme "
+            "(cr_spline / pwl / poly)")
     expected = approximant.get(spec.scheme).params_shape(spec)
     if tuple(params.shape) != tuple(expected):
         raise ValueError(f"params shape {tuple(params.shape)} != "
@@ -166,11 +175,12 @@ def _route(x) -> bool:
 
 def _kernel_args(act: str, spec: ApproxSpec, params, x):
     """Checks shared by both wrappers; returns the C call's trailing
-    (depth, epi, dtype, inv_period, x_max, saturation)."""
-    if spec.scheme != "cr_spline":
-        raise NotImplementedError(
-            f"scheme {spec.scheme!r} has no CUDA kernel yet (ROADMAP.md, "
-            f"Queue B)")
+    (scheme, params rows, params cols, epi, dtype, inv_period, x_max,
+    saturation). The params' rows are the LUT depth of cr_spline / pwl /
+    poly and 3 for rational, which reads no depth."""
+    if spec.scheme not in _SCHEME_IDS:
+        raise ValueError(f"scheme {spec.scheme!r} has no kernel datapath; "
+                         f"the kernels carry {sorted(_SCHEME_IDS)}")
     if act not in EPILOGUES:
         raise ValueError(f"unknown epilogue {act!r}")
     if x.dtype not in _DTYPE_IDS:
@@ -181,10 +191,16 @@ def _kernel_args(act: str, spec: ApproxSpec, params, x):
             or not params.is_contiguous()):
         raise ValueError("params must be a contiguous float32 tensor on "
                          f"{x.device}")
-    if spec.depth > _MAX_DEPTH:
-        raise ValueError(f"depth {spec.depth} > kernel limit {_MAX_DEPTH}")
-    return (spec.depth, EPILOGUES.index(act), _DTYPE_IDS[x.dtype],
-            spec.inv_period, spec.x_max, spec.saturation)
+    rows, cols = params.shape
+    if rows * cols > _MAX_PARAMS:
+        raise ValueError(f"params {tuple(params.shape)} exceed the kernel's "
+                         f"shared-memory limit of {_MAX_PARAMS} floats")
+    if spec.scheme == "poly" and cols - 1 > _MAX_POLY_DEGREE:
+        raise ValueError(f"poly degree {cols - 1} > kernel limit "
+                         f"{_MAX_POLY_DEGREE}")
+    return (_SCHEME_IDS[spec.scheme], rows, cols, EPILOGUES.index(act),
+            _DTYPE_IDS[x.dtype], spec.inv_period, spec.x_max,
+            spec.saturation)
 
 
 def _raise_on(rc: int, name: str):
@@ -211,7 +227,7 @@ def elementwise_2d(x, params, *, spec: TableSpec, act: str = "tanh",
     the kernel masks its own ragged edge."""
     if x.dim() != 2:
         raise ValueError(f"elementwise_2d takes a 2D tensor, got {x.shape}")
-    _check_params(params, spec)
+    _check_params(params, spec, act)
     if not _route(x):
         return elementwise_2d_plain(x, params, spec=spec, act=act,
                                     lookup=lookup)
@@ -259,7 +275,7 @@ def glu_2d(x, w_gate, w_up, params, *, spec: TableSpec, act: str = "silu",
     if k != k2 or tuple(w_up.shape) != (k, n):
         raise ValueError(f"shape mismatch: x {tuple(x.shape)}, w_gate "
                          f"{tuple(w_gate.shape)}, w_up {tuple(w_up.shape)}")
-    _check_params(params, spec)
+    _check_params(params, spec, act)
     if not _route(x):
         return glu_2d_plain(x, w_gate, w_up, params, spec=spec, act=act,
                             lookup=lookup)

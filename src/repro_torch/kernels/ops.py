@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import approximant
 from repro_torch.core import catmull_rom as cr
 from repro_torch.core.activations import tanh_table
 
@@ -36,27 +37,30 @@ def _resolve_spec_params(act: str, table: cr.SplineTable | None,
     """(spec, params) for one epilogue call. The CR route (explicit table,
     ``method`` unset or a CR alias) takes the spec from the SplineTable and
     params = its [depth, 4] windows in f32. Other schemes resolve through
-    the approximant registry. ``params`` (the model's bound leaf, already
-    on the device) replaces the built array, and then nothing is copied
-    from the host: such a copy makes the host wait for the device, and the
-    decode loop must enqueue its steps without waiting."""
+    the approximant registry, whose built params are placed on the device
+    once per (spec, target, device). ``params`` (the model's bound leaf,
+    already on the device) replaces the built array, and then nothing is
+    copied from the host: such a copy makes the host wait for the device,
+    and the decode loop must enqueue its steps without waiting."""
+    windows = None
     if spec is not None:
         if table is not None or method is not None:
             raise ValueError(
                 "spec= fully determines the approximant; don't also pass "
                 f"table/method (got method={method!r})")
-        built = epi.params_for(act, spec)
     elif method in (None, "cr", "cr_spline"):
         table = table or epi.table_for(act, x_max, depth)
-        spec, built = epi.TableSpec.of(table), table.windows
+        spec, windows = epi.TableSpec.of(table), table.windows
     elif table is not None:
         raise ValueError(
             f"pass either a SplineTable (CR route) or method={method!r}, "
             "not both")
     else:
         spec = epi._spec_for_epilogue(act, method, x_max, depth, degree)
-        built = epi.params_for(act, spec)
-    p = built if params is None else params
+    if params is None and windows is None:
+        return spec, approximant.params_on(spec, approximant.target_of(act),
+                                           torch.device(device))
+    p = windows if params is None else params
     return spec, torch.as_tensor(p, dtype=torch.float32,
                                  device=device).contiguous()
 

@@ -123,10 +123,11 @@ def main(argv=None):
     p.add_argument("--gen", type=int, default=32)
     p.add_argument("--temperature", type=float, default=0.0)
     p.add_argument("--activation", default=None,
-                   help="engine impl override (exact|cr)")
+                   help="engine impl override (exact|cr|pwl|poly|rational|"
+                        "region|taylor|base2)")
     p.add_argument("--act-impl", default=None,
-                   help="approximant scheme override (cr_spline in this "
-                        "port) for the serving engine")
+                   help="approximant scheme override for the serving "
+                        "engine (cr_spline|pwl|poly|rational)")
     p.add_argument("--act-impl-kernel", action="store_true",
                    help="with --act-impl: use_kernel=True (one kernel "
                         "launch per nonlinearity)")

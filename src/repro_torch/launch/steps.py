@@ -8,6 +8,7 @@ training slice (ROADMAP.md, Queue A item 7).
 """
 from __future__ import annotations
 
+from repro_torch.core import approximant
 from repro_torch.core.activations import ActivationEngine
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
@@ -25,6 +26,13 @@ def _make_engine(cfg: ModelConfig) -> ActivationEngine:
                 f"{cfg.name}: per-layer act_layers assignments are not "
                 f"ported yet (ROADMAP.md, Queue A item 9)")
         engine = ActivationEngine(layer_cfgs[0])
+        if cfg.has_ffn and cfg.mlp_act == "softplus" and engine.act_impl:
+            # the softplus epilogue reads the scheme's residual params; a
+            # scheme with no residual build (rational) fails the step build
+            c = engine.cfg
+            approximant.params_for(approximant.spec_for(
+                engine.act_impl, "softplus", x_max=c.x_max, depth=c.depth,
+                degree=c.degree), "softplus_res")
     except ValueError as e:
         raise ValueError(f"{cfg.name}: invalid activation config "
                          f"(act_impl={cfg.act_impl!r}, "

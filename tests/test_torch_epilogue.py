@@ -161,12 +161,14 @@ def test_engine_config_tags_round_trip():
 
 def test_engine_rejects_unported_impls():
     with pytest.raises(ValueError, match="unknown activation impl"):
-        TEng(TCfg(impl="pwl"))
+        TEng(TCfg(impl="cordic"))
     with pytest.raises(ValueError, match="no kernel lowering"):
         TEng(TCfg(impl="cr_fixed", use_kernel=True))
-    for impl in ("cr_fixed", "region", "taylor", "base2"):
+    for impl in ("cr_fixed", "pwl_fixed", "poly_fixed", "rational_fixed"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TEng(TCfg(impl=impl))
+    for impl in ("pwl", "poly", "rational", "region", "taylor", "base2"):
+        TEng(TCfg(impl=impl))
 
 
 def test_wrappers_take_the_plain_version_on_cpu():
@@ -175,3 +177,97 @@ def test_wrappers_take_the_plain_version_on_cpu():
     tops.act(x, "silu")
     tops.fused_glu(x, torch.ones(64, 32), torch.ones(64, 32))
     assert tepi.LAUNCHES == before
+
+
+# --- the pwl / poly / rational schemes -------------------------------------
+
+# (scheme, geometry): the reference's representative geometry of each
+# scheme and the deployment geometry of ActivationConfig (depth 32,
+# degree 3)
+SCHEME_GEOMS = [("pwl", dict(depth=32)), ("poly", dict(depth=8, degree=3)),
+                ("poly", dict(depth=32, degree=3)),
+                ("rational", dict(degree=5)), ("rational", dict(degree=3))]
+SCHEME_ACTS = [(s, g, a) for s, g in SCHEME_GEOMS for a in EPILOGUES
+               if (s, a) != ("rational", "softplus")]
+
+
+def _sid(case):
+    return "-".join(str(v) for v in (case[0], *case[1].values(), *case[2:]))
+
+
+@pytest.mark.parametrize("case", SCHEME_ACTS, ids=_sid)
+def test_scheme_act_matches_reference(case):
+    scheme, geom, act = case
+    x = rand((37, 1000), seed=13)
+    yj = np.asarray(jops.act(jnp.asarray(x), act, method=scheme, **geom))
+    yt = tops.act(torch.from_numpy(x), act, method=scheme, **geom)
+    assert yt.dtype == torch.float32 and tuple(yt.shape) == x.shape
+    np.testing.assert_allclose(yt.numpy(), yj, rtol=1e-5, atol=1e-6)
+    xb = rand((3, 5, 130), seed=14)
+    yj = jops.act(jnp.asarray(xb, jnp.bfloat16), act, method=scheme, **geom)
+    yt = tops.act(torch.from_numpy(xb).to(torch.bfloat16), act,
+                  method=scheme, **geom)
+    assert yt.dtype == torch.bfloat16
+    assert_within_bf16_ulp(yt.float().numpy(), np.asarray(yj, np.float32))
+
+
+@pytest.mark.parametrize("case", SCHEME_ACTS, ids=_sid)
+def test_scheme_fused_glu_matches_reference(case):
+    scheme, geom, act = case
+    m, k, n = 37, 300, 130
+    x = rand((m, k), scale=1.0, seed=51)
+    wg = rand((k, n), scale=0.05, seed=52)
+    wu = rand((k, n), scale=0.05, seed=53)
+    yj = np.asarray(jops.fused_glu(jnp.asarray(x), jnp.asarray(wg),
+                                   jnp.asarray(wu), act=act, method=scheme,
+                                   **geom))
+    yt = tops.fused_glu(torch.from_numpy(x), torch.from_numpy(wg),
+                        torch.from_numpy(wu), act=act, method=scheme, **geom)
+    np.testing.assert_allclose(yt.numpy(), yj, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("fn", EPILOGUES)
+@pytest.mark.parametrize("use_kernel", [False, True])
+@pytest.mark.parametrize("impl", ["pwl", "poly", "rational"])
+def test_scheme_engine_matches_reference(impl, use_kernel, fn):
+    x = rand((16, 384), seed=29)
+    c = dict(impl=impl, depth=16, degree=5, use_kernel=use_kernel)
+    je, te = JEng(JCfg(**c)), TEng(TCfg(**c))
+    assert te.act_impl == je.act_impl == impl
+    if (impl, fn) == ("rational", "softplus"):
+        for eng, arr in ((je, jnp.asarray(x)), (te, torch.from_numpy(x))):
+            with pytest.raises(ValueError, match="tanh only"):
+                eng.softplus(arr)
+        return
+    yj = np.asarray(getattr(je, fn)(jnp.asarray(x)))
+    yt = getattr(te, fn)(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(yt, yj, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("impl", ["pwl", "poly", "rational"])
+def test_scheme_bound_engine_matches_reference(impl):
+    """The generic bound branch: the scheme's block on the model's leaf
+    (here the built params scaled by 1.5: rational's numerator row only,
+    so that its Newton reciprocal still converges), not a CR table."""
+    from repro_torch.core import approximant as tap
+    c = dict(impl=impl, depth=32, degree=3)
+    tag = TCfg(**c).tag()
+    spec = tap.spec_for(impl, "tanh", depth=32, degree=3)
+    p = tap.params_for(spec).copy()
+    p[: 1 if impl == "rational" else None] *= 1.5
+    x = rand((8, 128), seed=43)
+    for use_kernel in (False, True):
+        je = JEng(JCfg(**c, use_kernel=use_kernel)).bind(
+            {tag: jnp.asarray(p)})
+        te = TEng(TCfg(**c, use_kernel=use_kernel)).bind(
+            {tag: torch.from_numpy(p)})
+        assert te.act_params is not None
+        for fn in ("tanh", "silu"):
+            yt = getattr(te, fn)(torch.from_numpy(x)).numpy()
+            np.testing.assert_allclose(
+                yt, np.asarray(getattr(je, fn)(jnp.asarray(x))), rtol=1e-5,
+                atol=1e-6)
+        # the leaf is what runs: not the built params, not a CR table
+        y0 = TEng(TCfg(**c, use_kernel=use_kernel)).tanh(torch.from_numpy(x))
+        assert not np.allclose(te.tanh(torch.from_numpy(x)).numpy(),
+                               y0.numpy())

@@ -11,6 +11,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core import approximant as tap  # noqa: E402
 from repro_torch.kernels import epilogue as tepi  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 
@@ -123,3 +124,99 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
                     torch.zeros(8, 4, device=cuda),
                     torch.zeros(8, 4, dtype=torch.bfloat16, device=cuda), p,
                     spec=spec)
+
+
+# --- the pwl / poly / rational scheme datapaths ----------------------------
+
+SCHEMES = ("pwl", "poly", "rational")
+# every float geometry benchmarks/dse.py sweeps for these schemes
+DSE_GEOMS = ([("pwl", dict(depth=d)) for d in (8, 16, 32, 64)]
+             + [("poly", dict(depth=d, degree=g))
+                for d, g in ((4, 2), (4, 3), (8, 3), (16, 3))]
+             + [("rational", dict(degree=g)) for g in (3, 5, 7)])
+# rational has no softplus: its build targets tanh only
+SCHEME_ACTS = [(s, a) for s in SCHEMES for a in EPILOGUES
+               if (s, a) != ("rational", "softplus")]
+
+
+def _scheme(scheme, act, dev, **geom):
+    spec = tap.spec_for(scheme, act, **geom)
+    return spec, tap.params_on(spec, tap.target_of(act), dev)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("scheme,act", SCHEME_ACTS)
+def test_scheme_elementwise_kernel_matches_plain(cuda, scheme, act, dtype):
+    dt = getattr(torch, dtype)
+    spec, p = _scheme(scheme, act, cuda)
+    for shape in ((256, 3072), (37, 1000), (1, 3)):
+        x = torch.from_numpy(rand(shape, seed=shape[0] + 1)).to(cuda, dt)
+        n0 = tepi.LAUNCHES["elementwise_2d"]
+        y = tepi.elementwise_2d(x, p, spec=spec, act=act)
+        torch.cuda.synchronize()
+        assert tepi.LAUNCHES["elementwise_2d"] == n0 + 1
+        yp = tepi.elementwise_2d_plain(x, p, spec=spec, act=act)
+        if dt == torch.float32:
+            assert torch.equal(y, yp), float((y - yp).abs().max())
+        else:
+            assert_within_bf16_ulp(y, yp)
+
+
+@pytest.mark.parametrize("scheme,act", SCHEME_ACTS)
+def test_scheme_glu_kernel_matches_plain(cuda, scheme, act):
+    spec, p = _scheme(scheme, act, cuda)
+    for m, k, n in ((4, 1024, 3072), (37, 300, 130), (130, 512, 256)):
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.from_numpy(rand((m, k), scale=1.0, seed=m)).to(cuda, dt)
+            wg = torch.from_numpy(rand((k, n), scale=0.05, seed=k)).to(cuda,
+                                                                       dt)
+            wu = torch.from_numpy(rand((k, n), scale=0.05, seed=n)).to(cuda,
+                                                                       dt)
+            y = tepi.glu_2d(x, wg, wu, p, spec=spec, act=act)
+            yp = tepi.glu_2d_plain(x, wg, wu, p, spec=spec, act=act)
+            if dt == torch.float32:
+                torch.testing.assert_close(y, yp, rtol=1e-4, atol=1e-5)
+            else:
+                torch.testing.assert_close(y.float(), yp.float(), rtol=1e-2,
+                                           atol=1e-3)
+
+
+@pytest.mark.parametrize("case", DSE_GEOMS,
+                         ids=lambda c: c[0] + "-" + "-".join(
+                             map(str, c[1].values())))
+def test_scheme_kernels_at_dse_geometries(cuda, case):
+    scheme, geom = case
+    spec, p = _scheme(scheme, "tanh", cuda, **geom)
+    x = torch.from_numpy(rand((37, 1000), seed=7)).to(cuda)
+    y = tepi.elementwise_2d(x, p, spec=spec, act="silu")
+    assert torch.equal(y, tepi.elementwise_2d_plain(x, p, spec=spec,
+                                                    act="silu"))
+    w = torch.from_numpy(rand((1000, 96), scale=0.05, seed=8)).to(cuda)
+    torch.testing.assert_close(
+        tepi.glu_2d(x, w, w, p, spec=spec, act="silu"),
+        tepi.glu_2d_plain(x, w, w, p, spec=spec, act="silu"), rtol=1e-4,
+        atol=1e-5)
+
+
+@pytest.mark.parametrize("scheme", ("cr_spline",) + SCHEMES)
+def test_scheme_kernel_tanh_on_q213_grid(cuda, scheme):
+    """The kernel's tanh over the whole 2^16-point Q2.13 input grid stays
+    within the reference's 0.03 of tanh (tests/test_approximant.py)."""
+    spec, p = _scheme(scheme, "tanh", cuda)
+    grid = (torch.arange(-2 ** 15, 2 ** 15, dtype=torch.float64)
+            / 2 ** 13).to(cuda)
+    y = tepi.elementwise_2d(grid.float().reshape(1, -1), p, spec=spec,
+                            act="tanh")
+    assert float((y.double().reshape(-1) - torch.tanh(grid)).abs().max()) \
+        < 0.03
+
+
+def test_scheme_kernel_refusals(cuda):
+    spec, p = _scheme("rational", "tanh", cuda)
+    with pytest.raises(ValueError, match="tanh only"):
+        tepi.elementwise_2d(torch.zeros(4, 4, device=cuda), p, spec=spec,
+                            act="softplus")
+    big = tap.spec_for("pwl", depth=1025)
+    with pytest.raises(ValueError, match="shared-memory"):
+        tepi.elementwise_2d(torch.zeros(4, 4, device=cuda),
+                            tap.params_on(big, "tanh", cuda), spec=big)

@@ -34,14 +34,21 @@ from repro_torch.models import model as TM  # noqa: E402
 TOL = {"float32": 1e-4, "bfloat16": 0.1}
 
 
-def deployments(arch, dtype, dep):
+def deployments(arch, dtype, dep, scheme=None):
+    """(reference config, port config) of one deployment: ``plain`` (the
+    unfused engine), ``kernel`` (every FFN activation one elementwise_2d
+    launch) or ``fused`` (every FFN one glu_2d launch), under the arch's
+    own scheme or ``scheme``."""
     jc = JR.get(arch, smoke=True, compute_dtype=dtype)
     tc = TR.get(arch, smoke=True, compute_dtype=dtype)
+    if scheme is not None:
+        jc, tc = j_act_impl_of(jc, scheme), act_impl_of(tc, scheme)
     if dep == "fused":
         return j_fused_of(jc), fused_of(tc)
     if dep == "kernel":
-        return (j_act_impl_of(jc, "cr_spline", use_kernel=True),
-                act_impl_of(tc, "cr_spline", use_kernel=True))
+        scheme = scheme or "cr_spline"
+        return (j_act_impl_of(jc, scheme, use_kernel=True),
+                act_impl_of(tc, scheme, use_kernel=True))
     return jc, tc
 
 
@@ -164,3 +171,41 @@ def test_step_builder_contracts():
     with pytest.raises(NotImplementedError, match="not ported"):
         TR.get("mixtral-8x22b", smoke=True)
     assert fused_of(cfg).fuse_mlp and fused_of(cfg).activation.use_kernel
+
+
+@pytest.mark.parametrize("dep", ["plain", "fused", "kernel"])
+@pytest.mark.parametrize("scheme", ["pwl", "poly", "rational"])
+def test_scheme_logits_match_reference(scheme, dep):
+    """qwen3-0.6b smoke under each scheme, on the reference's params (its
+    ``params["act"]`` leaf included): f32 logits within 1e-4."""
+    jc, tc = deployments("qwen3-0.6b", "float32", dep, scheme)
+    jp, tp = shared_params(jc, tc)
+    tag = tc.layer_activation_configs()[0].tag()
+    assert tag == {"pwl": "pwl-d32", "poly": "poly-d32-g3",
+                   "rational": "rational-d32-g3"}[scheme]
+    assert set(tp["act"]) == set(jp["act"]) == {tag}
+    np.testing.assert_array_equal(tp["act"][tag].numpy(),
+                                  np.asarray(jp["act"][tag]))
+    je, te = JS.make_engine(jc), TS.make_engine(tc)
+    assert te.act_impl == scheme
+    toks = np.random.RandomState(3).randint(0, 512, (2, 19)).astype(np.int32)
+    lens = np.array([19, 11], np.int32)
+    jl, _ = JM.prefill_fn(jp, {"tokens": jnp.asarray(toks),
+                               "lengths": jnp.asarray(lens)}, jc, je,
+                          capacity=32)
+    tl, _ = TM.prefill_fn(tp, {"tokens": torch.from_numpy(toks),
+                               "lengths": torch.from_numpy(lens)}, tc, te,
+                          capacity=32)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0, atol=1e-4)
+
+
+def test_rational_softplus_ffn_fails_at_step_build():
+    cfg = dataclasses.replace(TR.get("qwen3-0.6b", smoke=True),
+                              mlp_act="softplus")
+    for c in (act_impl_of(cfg, "rational"),
+              fused_of(act_impl_of(cfg, "rational")),
+              act_impl_of(cfg, "rational", use_kernel=True)):
+        with pytest.raises(ValueError, match="tanh only"):
+            TS.make_prefill_step(c)
+    for scheme in ("pwl", "poly"):
+        TS.make_prefill_step(fused_of(act_impl_of(cfg, scheme)))

@@ -40,14 +40,16 @@ LENS = (9, 17, 30, 12, 5)        # buckets 16 and 32
 GEN = 10
 
 
-def deployment(dep):
+def deployment(dep, scheme=None):
     jc = JR.get("qwen3-0.6b", smoke=True, compute_dtype="float32")
     tc = TR.get("qwen3-0.6b", smoke=True, compute_dtype="float32")
+    if scheme is not None:
+        jc, tc = j_act_impl_of(jc, scheme), act_impl_of(tc, scheme)
     if dep == "fused":
         jc, tc = j_fused_of(jc), fused_of(tc)
     elif dep == "kernel":
-        jc = j_act_impl_of(jc, "cr_spline", use_kernel=True)
-        tc = act_impl_of(tc, "cr_spline", use_kernel=True)
+        jc = j_act_impl_of(jc, scheme or "cr_spline", use_kernel=True)
+        tc = act_impl_of(tc, scheme or "cr_spline", use_kernel=True)
     jp, _ = JM.materialize_params(jc, seed=0)
     tp = TM.params_from_numpy(jax.tree.map(np.asarray, jp), tc, device="cpu")
     return jc, tc, jp, tp
@@ -124,6 +126,20 @@ def test_serve_batch_identical_to_reference():
     te, _ = tserve.serve_batch(tc, tp, prompts, 8, eos_id=eos, device="cpu")
     np.testing.assert_array_equal(
         te.numpy(), tserve._mask_after_eos(np.asarray(jt), eos))
+
+
+@pytest.mark.parametrize("dep", ["plain", "fused", "kernel"])
+@pytest.mark.parametrize("scheme", ["pwl", "poly", "rational"])
+def test_scheme_greedy_tokens_identical_to_reference(scheme, dep):
+    """Each scheme through the whole serving stack (ragged bucketed
+    prefill, slot insert, chunked decode), on the reference's params: the
+    same greedy tokens, request by request."""
+    jc, tc, jp, tp = deployment(dep, scheme)
+    prompts = prompts_of((9, 17, 30), seed=4)
+    ref = serve_ref(jc, jp, prompts)
+    done, _ = serve_port(tc, tp, prompts)
+    assert [c.tokens for c in done] == [c.tokens for c in ref]
+    assert all(len(c.tokens) == GEN for c in done)
 
 
 @pytest.fixture(scope="module")
@@ -227,6 +243,13 @@ def test_launcher_main_on_cpu(tmp_path, capsys):
                          str(out)])
     assert stats.decode_steps == 3 and out.exists()
     assert "device=cpu" in capsys.readouterr().out
+    for scheme in ("pwl", "poly", "rational"):
+        for extra in ([], ["--act-impl-kernel"]):
+            st = tserve.main(["--smoke", "--device", "cpu", "--batch", "2",
+                              "--prompt-len", "8", "--gen", "3",
+                              "--act-impl", scheme] + extra)
+            assert st.decode_steps == 2
+        assert f"act_impl={scheme}" in capsys.readouterr().out
     for flags in (["--model-parallel", "2"], ["--replicas", "2"],
                   ["--chunk-prefill", "8"], ["--cache", "paged"]):
         with pytest.raises(SystemExit):

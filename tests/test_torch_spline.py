@@ -113,11 +113,12 @@ def test_reference_block_matches():
 
 
 def test_registry_has_only_the_ported_scheme():
-    assert TAP.schemes() == ("cr_spline",)
+    assert TAP.schemes() == JAP.schemes()
     with pytest.raises(ValueError, match="unknown approximant scheme"):
-        TAP.get("pwl")
-    with pytest.raises(NotImplementedError, match="Queue A item 2"):
-        TAP.get("cr_spline").build_fixed(TAP.spec_for("cr_spline"))
+        TAP.get("cordic")
+    for scheme in TAP.schemes():
+        with pytest.raises(NotImplementedError, match="Queue A item 2"):
+            TAP.get(scheme).build_fixed(TAP.spec_for(scheme))
 
 
 def test_quantize_helpers_match():
