@@ -14,7 +14,11 @@ lines:
   2. kernel checks: each kernel against its plain PyTorch version on the
      card, at stated tolerances, for every scheme and epilogue at the
      deployment geometry (depth 32, degree 3), and at every float
-     geometry ``benchmarks/dse.py`` sweeps. Then each scheme's kernel
+     geometry ``benchmarks/dse.py`` sweeps. ``glu_2d``'s TMA + wgmma
+     variant at M = 1, 2, 64, 65, 128, 256 (K=1024, N=3072) and at a
+     ragged K=1000, N=3000, and its wmma variant at N=3001, for every
+     scheme and epilogue: each case asserts the variant it took and that
+     a repeated launch gives the same bits. Then each scheme's kernel
      tanh over the whole 2^16-point Q2.13 input grid, within 0.03 of tanh.
   3. serve qwen3-0.6b at full width (28 layers, random weights from seed
      0, bf16 compute) through the port's ServeEngine, in two deployments
@@ -22,10 +26,13 @@ lines:
      goes through ``glu_2d``, and ``act_impl_of(cfg, scheme,
      use_kernel=True)``, where every FFN SiLU goes through
      ``elementwise_2d``. The kernel of the path must launch exactly 28 x
-     (prefills + decode steps) times, the other kernel not at all. The
+     (prefills + decode steps) times, the other kernel not at all, and
+     every ``glu_2d`` launch must take the ``tma_wgmma`` variant. The
      weights are built once; only their ``act`` leaf differs by scheme.
-  4. kernel timings at the main path's shapes, beside the bound from the
-     card's data-sheet rates, the plain version and the library yardstick
+  4. kernel timings at the main path's shapes (decode 2 rows, prefill 128
+     rows; ``glu_2d`` also at 256 rows, the largest ragged prefill two
+     slots form), beside the bound from the card's data-sheet rates, the
+     plain version and the library yardstick
      (``ms`` / ``plain_ms`` / ``library_ms``: device time from a profiler
      trace, the sum of one call's kernel durations, mean of 30 calls with
      L2 flushed before each; ``call_ms``: median time between CUDA events
@@ -37,7 +44,8 @@ lines:
      every later launch.
   5. f32 prefill logits of every deployment on the card (kernels) against
      the CPU (plain versions) on the same weights.
-  6. the ``{"kernels": [...]}`` line: one entry per (kernel, scheme).
+  6. the ``{"kernels": [...]}`` line: one entry per (kernel, scheme);
+     ``glu_2d``'s entries add the ``variant`` its decode launch took.
 
 Then the card's ``nvidia-smi`` name/power line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises, exits non-zero and
@@ -71,8 +79,15 @@ DSE_GEOMS = ([(s, dict(depth=d)) for s in ("cr_spline", "pwl")
              + [("rational", dict(degree=g)) for g in (3, 5, 7)])
 # the source line of each TPU kernel (src/repro/kernels/epilogue.py)
 REPLACES = {"elementwise_2d": 229, "glu_2d": 289}
+# glu_2d checks of the TMA + wgmma variant: every decode and prefill row
+# count the engine forms (M = 65 crosses a warpgroup boundary), a ragged K
+# and N (TMA's out-of-bounds fill), and N = 3001, which TMA cannot address
+GLU_TMA_ROWS = (1, 2, 64, 65, 128, 256)
+GLU_RAGGED = ((2, 1000, 3000), (65, 1000, 3000))
+GLU_WMMA_CASE = (3, 1024, 3001)
 
 SLOTS, MAX_PROMPT, MAX_LEN, CHUNK = 2, 128, 160, 8
+GLU_PREFILL_MAX = 2 * MAX_PROMPT    # the largest ragged prefill two slots form
 PROMPT_LENS = (17, 40, 64, 100)
 MAX_NEW = 16
 
@@ -214,6 +229,22 @@ def check_glu(torch, epi, spec, p, act, x, wg, wu):
     return float((y.float() - yp.float()).abs().max())
 
 
+def check_glu_variant(torch, epi, spec, p, act, x, wg, wu, variant):
+    """check_glu for one launch that must take ``variant``, plus a second
+    launch on the same inputs that must give the same bits (the K split's
+    cluster reduction sums in a fixed order). Returns the max abs error."""
+    before = dict(epi.GLU_VARIANTS)
+    err = check_glu(torch, epi, spec, p, act, x, wg, wu)
+    took = [v for v in before if epi.GLU_VARIANTS[v] != before[v]]
+    assert took == [variant], (took, variant, tuple(x.shape), tuple(wg.shape))
+    y1 = epi.glu_2d(x, wg, wu, p, spec=spec, act=act)
+    y2 = epi.glu_2d(x, wg, wu, p, spec=spec, act=act)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2), ("glu_2d not deterministic", variant,
+                                 tuple(x.shape))
+    return err
+
+
 def glu_operands(torch, gen, dev, M, K, N, dt):
     x = torch.randn((M, K), generator=gen, device=dev).to(dt)
     wg = (torch.randn((K, N), generator=gen, device=dev) / K ** 0.5).to(dt)
@@ -254,6 +285,29 @@ def phase_kernel_checks(torch, epi, dev):
         emit({"phase": "kernel_check", "kernel": "glu_2d", "scheme": scheme,
               "act": "silu", "max_abs_err": errs})
 
+    # the TMA + wgmma variant at every row count, ragged K and N, and the
+    # wmma variant, for every scheme and epilogue; each launch repeated
+    # for bitwise determinism
+    for scheme in SCHEMES:
+        for act in acts_of(epi, scheme):
+            spec, p = scheme_spec(torch, epi, scheme, act, dev)
+            errs, variants = {}, {}
+            cases = [(M, K, N) for M in GLU_TMA_ROWS] + list(GLU_RAGGED)
+            for M_, K_, N_ in cases + [GLU_WMMA_CASE]:
+                variant = "wmma" if (M_, K_, N_) == GLU_WMMA_CASE \
+                    else "tma_wgmma"
+                key = f"{[M_, K_, N_]}"
+                errs[key] = check_glu_variant(
+                    torch, epi, spec, p, act,
+                    *glu_operands(torch, gen, dev, M_, K_, N_,
+                                  torch.bfloat16), variant)
+                variants[key] = variant
+            worst["glu_2d", scheme] = max(worst["glu_2d", scheme],
+                                          *errs.values())
+            emit({"phase": "kernel_check_glu_variants", "scheme": scheme,
+                  "act": act, "dtype": "bfloat16", "deterministic": True,
+                  "variant": variants, "max_abs_err": errs})
+
     # every float geometry the DSE sweeps, both kernels, f32 and bf16
     for scheme, geom in DSE_GEOMS:
         spec, p = scheme_spec(torch, epi, scheme, "silu", dev, **geom)
@@ -292,26 +346,29 @@ def phase_accuracy(torch, epi, dev):
 def phase_kernel_times(torch, epi, dev, flush):
     """Kernel, plain version and library yardstick at the main path's
     shapes (bf16), for every scheme on the same inputs: decode rows =
-    SLOTS, and the longest prefill (one 128-token bucket). All per-call
-    event times are taken before the first profiler session: a profiled
-    process keeps paying per-launch tracing costs afterwards."""
+    SLOTS, and the longest prefill (one 128-token bucket); glu_2d also at
+    GLU_PREFILL_MAX rows. All per-call event times are taken before the
+    first profiler session: a profiled process keeps paying per-launch
+    tracing costs afterwards."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     K, N = 1024, 3072
     cases = {}
-    for rows in (SLOTS, MAX_PROMPT):
+    for rows in (SLOTS, MAX_PROMPT, GLU_PREFILL_MAX):
         x = torch.randn((rows, N), generator=gen, device=dev).to(torch.bfloat16)
         xg, wg, wu = glu_operands(torch, gen, dev, rows, K, N, torch.bfloat16)
         for scheme in SCHEMES:
             spec, p = scheme_spec(torch, epi, scheme, "silu", dev)
-            cases[("elementwise_2d", scheme, rows)] = dict(
-                shape=[rows, N],
-                bound=bound(2 * x.numel() * 2 + p.numel() * 4,
-                            epilogue_ops(spec, p) * x.numel(), F32_FLOPS),
-                fns={"kernel": lambda x=x, s=spec, p=p: epi.elementwise_2d(
-                         x, p, spec=s, act="silu"),
-                     "plain": lambda x=x, s=spec, p=p:
-                         epi.elementwise_2d_plain(x, p, spec=s, act="silu")})
+            if rows != GLU_PREFILL_MAX:
+                cases[("elementwise_2d", scheme, rows)] = dict(
+                    shape=[rows, N],
+                    bound=bound(2 * x.numel() * 2 + p.numel() * 4,
+                                epilogue_ops(spec, p) * x.numel(), F32_FLOPS),
+                    fns={"kernel": lambda x=x, s=spec, p=p:
+                             epi.elementwise_2d(x, p, spec=s, act="silu"),
+                         "plain": lambda x=x, s=spec, p=p:
+                             epi.elementwise_2d_plain(x, p, spec=s,
+                                                      act="silu")})
             nbytes = (xg.numel() + wg.numel() + wu.numel() + rows * N) * 2 \
                 + p.numel() * 4
             a = (xg, wg, wu)
@@ -333,15 +390,20 @@ def phase_kernel_times(torch, epi, dev, flush):
         how = "profiler" if dev_ms["kernel"] is not None else "events"
         if how == "events":          # the trace held no device activity
             dev_ms = {role: calls[(key, role)] for role in fns}
-        err = float((fns["kernel"]().float() - fns["plain"]().float())
-                    .abs().max())
+        before = dict(epi.GLU_VARIANTS)
+        got = fns["kernel"]()
+        err = float((got.float() - fns["plain"]().float()).abs().max())
+        extra = {}
+        if key[0] == "glu_2d":
+            extra = dict(variant=[v for v in before
+                                  if epi.GLU_VARIANTS[v] != before[v]][0])
         t = dict(shape=c["shape"], dtype="bfloat16", max_abs_err=err,
                  ms=dev_ms["kernel"], plain_ms=dev_ms["plain"],
                  bound_ms=c["bound"][0], bound_by=c["bound"][1],
                  library_ms=dev_ms.get("library"), timing=how,
                  call_ms=calls[(key, "kernel")],
                  plain_call_ms=calls[(key, "plain")],
-                 library_call_ms=calls.get((key, "library")))
+                 library_call_ms=calls.get((key, "library")), **extra)
         timings[key] = t
         emit({"phase": "kernel_time", "kernel": key[0], "scheme": key[1],
               "where": "decode" if key[2] == SLOTS else "prefill", **t})
@@ -363,10 +425,12 @@ def phase_serve(torch, epi, name, cfg, params, prompts, dev, card, kernel):
     """Warm up, then drive the main path with the launch counts zeroed
     just before and read just after."""
     serve(torch, cfg, params, prompts[:1], dev)            # warm-up
-    for k in epi.LAUNCHES:
-        epi.LAUNCHES[k] = 0
+    for counts in (epi.LAUNCHES, epi.GLU_VARIANTS):
+        for k in counts:
+            counts[k] = 0
     done, eng = serve(torch, cfg, params, prompts, dev)
     launches = dict(epi.LAUNCHES)
+    variants = dict(epi.GLU_VARIANTS)
     st = eng.stats
     forwards = st.prefill_batches + st.decode_steps
     assert len(done) == len(prompts), done
@@ -376,9 +440,13 @@ def phase_serve(torch, epi, name, cfg, params, prompts, dev, card, kernel):
     other = "elementwise_2d" if kernel == "glu_2d" else "glu_2d"
     assert launches[kernel] == cfg.n_layers * forwards, (launches, forwards)
     assert launches[other] == 0, launches
+    # every bf16 FFN of the served model goes through the TMA + wgmma kernel
+    assert variants == {"tma_wgmma": launches["glu_2d"], "wmma": 0,
+                        "simt_f32": 0}, (variants, launches)
     line = {"phase": name, "card": card, "requests": len(done),
           "prefill_batches": st.prefill_batches,
           "decode_steps": st.decode_steps, "launches": launches,
+          "glu_variants": variants,
           "prefill_tokens": st.prefill_tokens, "prefill_s": st.prefill_s,
           "insert_s": st.insert_s, "decode_tokens": st.decode_tokens,
           "decode_s": st.decode_s,
@@ -584,7 +652,8 @@ def main() -> int:
             "library_ms": t["library_ms"], "shape": t["shape"],
             "dtype": t["dtype"], "timing": t["timing"],
             "call_ms": t["call_ms"],
-            "max_abs_err_checks": worst[(kernel, scheme)]})
+            "max_abs_err_checks": worst[(kernel, scheme)],
+            **({"variant": t["variant"]} if kernel == "glu_2d" else {})})
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -22,6 +22,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+# sm_90a: wgmma exists only for that target. No -lcuda: the one driver
+# function the kernels need (cuTensorMapEncodeTiled) comes through the
+# runtime's cudaGetDriverEntryPoint.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -33,9 +36,9 @@ SIGNATURES = {
     "repro_elementwise_2d": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                              _F, _F, _F, _P),
     # x, w_gate, w_up, params, out, M, N, K, scheme, p_rows, p_cols, epi,
-    # dtype, inv_period, x_max, saturation, stream
+    # dtype, inv_period, x_max, saturation, variant, stream
     "repro_glu_2d": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                     _F, _F, _F, _P),
+                     _F, _F, _F, _I, _P),
 }
 
 
@@ -51,24 +54,25 @@ def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
-def _key() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _key(extra: tuple[str, ...]) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + extra).encode())
     for src in sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
 
-def build() -> Path:
-    """Compile the sources if this exact set has no library yet; returns
-    the library's path."""
-    out = BUILD_DIR / f"libepilogue_{_key()}.so"
+def build(extra: tuple[str, ...] = ()) -> Path:
+    """Compile the sources (with ``extra`` nvcc flags, e.g. a ``-D`` of a
+    diagnostic build) if this exact set has no library yet; returns the
+    library's path."""
+    out = BUILD_DIR / f"libepilogue_{_key(extra)}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cus = [str(s) for s in sources() if s.suffix == ".cu"]
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cus],
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, *extra, "-o", str(tmp), *cus],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
@@ -78,9 +82,10 @@ def build() -> Path:
 
 
 @functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
-    lib = ctypes.CDLL(str(build()))
+def library(extra: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The loaded kernel library (built on first call); ``extra`` nvcc
+    flags give a separate library."""
+    lib = ctypes.CDLL(str(build(extra)))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)

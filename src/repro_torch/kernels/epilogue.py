@@ -18,8 +18,11 @@ Counterpart of ``repro/kernels/epilogue.py``. It owns:
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor
 it launches its kernel (``csrc/epilogue.cu``, built by ``_build``) or
 raises. There is no other route. ``LAUNCHES[name]`` counts the kernel's
-launches and nothing else. Both kernels carry every registered scheme
-(``cr_spline``, ``pwl``, ``poly``, ``rational``), chosen per launch.
+launches and nothing else; ``GLU_VARIANTS`` splits ``glu_2d``'s launches
+by the variant ``_glu_variant`` chose (TMA + wgmma for bf16, wmma for bf16
+operands TMA cannot address, SIMT for f32). Both kernels carry every
+registered scheme (``cr_spline``, ``pwl``, ``poly``, ``rational``), chosen
+per launch.
 """
 from __future__ import annotations
 
@@ -42,8 +45,12 @@ TableSpec = ApproxSpec
 
 # kernel launches, counted by each wrapper right after its launch
 LAUNCHES = {"elementwise_2d": 0, "glu_2d": 0}
+# glu_2d launches by variant (see _glu_variant); they sum to
+# LAUNCHES["glu_2d"]
+GLU_VARIANTS = {"tma_wgmma": 0, "wmma": 0, "simt_f32": 0}
 
 _DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
+_GLU_VARIANT_IDS = {"wmma": 0, "tma_wgmma": 1, "simt_f32": 2}  # csrc GLU_*
 _SCHEME_IDS = {"cr_spline": 0, "pwl": 1, "poly": 2, "rational": 3}
 _MAX_PARAMS = 2048    # csrc/epilogue.cu MAX_PARAMS: f32 params in shared memory
 _MAX_POLY_DEGREE = 7  # csrc/epilogue.cu MAX_POLY_COLS - 1
@@ -203,6 +210,14 @@ def _kernel_args(act: str, spec: ApproxSpec, params, x):
             spec.saturation)
 
 
+def _raw_stream(device) -> int:
+    """The handle of PyTorch's current stream on ``device``, the one the
+    kernel launches on. Read through the call Triton's launcher uses:
+    ``torch.cuda.current_stream(device).cuda_stream`` builds a Stream object
+    and costs several microseconds of host time per launch."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
 def _raise_on(rc: int, name: str):
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
@@ -261,6 +276,28 @@ def glu_2d_plain(x, w_gate, w_up, params, *, spec: TableSpec,
     return (epi(gate, params.to(torch.float32)) * up).to(x.dtype)
 
 
+def _glu_variant(m: int, n: int, k: int, dtype, aligned: bool) -> str:
+    """Which ``glu_2d`` kernel a CUDA launch takes, by operand shape, type
+    and alignment (not a fallback: the C side refuses a variant that does
+    not fit, and the wrapper raises):
+
+      "tma_wgmma"  bf16 that TMA can address: x, w_gate and w_up 16-byte
+                   aligned (``aligned``) and both row strides multiples of
+                   16 bytes (K % 8 == 0 for x, N % 8 == 0 for the weights);
+      "simt_f32"   float32 (IEEE f32, no TF32);
+      "wmma"       bf16 operands TMA cannot address.
+
+    ``m`` does not decide the variant; the TMA kernel picks its tile for
+    it."""
+    if dtype == torch.float32:
+        return "simt_f32"
+    if dtype != torch.bfloat16:
+        raise TypeError(f"glu_2d kernel takes float32 or bfloat16, got {dtype}")
+    if aligned and n % 8 == 0 and k % 8 == 0:
+        return "tma_wgmma"
+    return "wmma"
+
+
 def glu_2d(x, w_gate, w_up, params, *, spec: TableSpec, act: str = "silu",
            lookup: str = "onehot"):
     """out[M,N] = epilogue(x[M,K] @ w_gate[K,N]) * (x @ w_up) in ONE
@@ -290,10 +327,12 @@ def glu_2d(x, w_gate, w_up, params, *, spec: TableSpec, act: str = "silu",
         return out
     if k == 0:
         raise ValueError("glu_2d needs K >= 1")
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    ptrs = (x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr())
+    variant = _glu_variant(m, n, k, x.dtype, all(a % 16 == 0 for a in ptrs))
     rc = _build.library().repro_glu_2d(
-        x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), params.data_ptr(),
-        out.data_ptr(), m, n, k, *args, stream)
-    _raise_on(rc, "glu_2d")
+        *ptrs, params.data_ptr(), out.data_ptr(), m, n, k, *args,
+        _GLU_VARIANT_IDS[variant], _raw_stream(x.device))
+    _raise_on(rc, f"glu_2d ({variant})")
     LAUNCHES["glu_2d"] += 1
+    GLU_VARIANTS[variant] += 1
     return out

@@ -179,6 +179,53 @@ def test_wrappers_take_the_plain_version_on_cpu():
     assert tepi.LAUNCHES == before
 
 
+# --- glu_2d's kernel variants ----------------------------------------------
+
+@pytest.mark.parametrize("m", [2, 32, 64, 128, 256])
+def test_glu_variant_serving_shapes_take_tma_wgmma(m):
+    """Every decode and prefill row count of the served qwen3-0.6b FFN
+    (K=1024, N=3072, bf16, fresh aligned tensors) takes the TMA kernel."""
+    assert tepi._glu_variant(m, 3072, 1024, torch.bfloat16, True) \
+        == "tma_wgmma"
+
+
+@pytest.mark.parametrize("m,n,k,dtype,aligned,variant", [
+    (2, 3072, 1024, torch.float32, True, "simt_f32"),
+    (256, 3072, 1024, torch.float32, False, "simt_f32"),
+    (2, 3001, 1024, torch.bfloat16, True, "wmma"),       # N % 8 != 0
+    (2, 130, 1024, torch.bfloat16, True, "wmma"),
+    (2, 3072, 1020, torch.bfloat16, True, "wmma"),       # x's row stride
+    (2, 3072, 1024, torch.bfloat16, False, "wmma"),      # misaligned operand
+    (65, 3000, 1000, torch.bfloat16, True, "tma_wgmma"),  # ragged, addressable
+], ids=["f32", "f32-unaligned", "n3001", "n130", "k1020", "misaligned",
+        "ragged-aligned"])
+def test_glu_variant_by_type_and_addressability(m, n, k, dtype, aligned,
+                                                variant):
+    assert tepi._glu_variant(m, n, k, dtype, aligned) == variant
+
+
+def test_glu_variant_refuses_other_dtypes():
+    with pytest.raises(TypeError):
+        tepi._glu_variant(2, 3072, 1024, torch.float16, True)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mkn", [(2, 64, 32), (65, 1000, 3000)])
+def test_glu_cpu_call_runs_plain_and_counts_nothing(dtype, mkn):
+    m, k, n = mkn
+    dt = getattr(torch, dtype)
+    x = torch.from_numpy(rand((m, k), scale=1.0, seed=m)).to(dt)
+    wg = torch.from_numpy(rand((k, n), scale=0.05, seed=k)).to(dt)
+    wu = torch.from_numpy(rand((k, n), scale=0.05, seed=n)).to(dt)
+    table = tepi.table_for("silu", 4.0, 32)
+    spec = tepi.TableSpec.of(table)
+    p = torch.as_tensor(table.windows, dtype=torch.float32)
+    launches, variants = dict(tepi.LAUNCHES), dict(tepi.GLU_VARIANTS)
+    y = tepi.glu_2d(x, wg, wu, p, spec=spec)
+    assert tepi.LAUNCHES == launches and tepi.GLU_VARIANTS == variants
+    assert torch.equal(y, tepi.glu_2d_plain(x, wg, wu, p, spec=spec))
+
+
 # --- the pwl / poly / rational schemes -------------------------------------
 
 # (scheme, geometry): the reference's representative geometry of each
@@ -271,3 +318,21 @@ def test_scheme_bound_engine_matches_reference(impl):
         y0 = TEng(TCfg(**c, use_kernel=use_kernel)).tanh(torch.from_numpy(x))
         assert not np.allclose(te.tanh(torch.from_numpy(x)).numpy(),
                                y0.numpy())
+
+
+def test_glu_phase_durations_from_stamps():
+    """kernels/glu_phases.py turns the kernel's per-CTA %globaltimer
+    stamps into phase durations: means over the CTAs that wrote stamps
+    (rows of zeros are CTAs that did not exist), the span from the first
+    start to the last end."""
+    from repro_torch.kernels import glu_phases
+    stamps = np.zeros((6, 8), np.uint64)
+    stamps[0] = [1000, 1100, 1300, 2000, 2100, 2300, 2600, 2700]
+    stamps[1] = [1040, 1200, 1380, 2100, 2200, 2400, 2800, 2900]
+    got = glu_phases.phases_of(stamps)
+    assert got["ctas"] == 2 and got["start_spread"] == 40.0
+    assert got["span"] == 1900.0
+    assert got["to_first_stage"] == 320.0           # (300 + 340) / 2
+    assert got["k_loop"] == 1030.0                  # (1000 + 1060) / 2
+    assert got["reduce_epilogue_store"] == 350.0    # (300 + 400) / 2
+    assert got["cluster_barrier_2"] == 100.0

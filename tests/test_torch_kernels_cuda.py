@@ -220,3 +220,87 @@ def test_scheme_kernel_refusals(cuda):
     with pytest.raises(ValueError, match="shared-memory"):
         tepi.elementwise_2d(torch.zeros(4, 4, device=cuda),
                             tap.params_on(big, "tanh", cuda), spec=big)
+
+
+# --- glu_2d's TMA + wgmma variant -------------------------------------------
+
+ALL_SCHEME_ACTS = [("cr_spline", a) for a in EPILOGUES] + SCHEME_ACTS
+# ragged M (65 crosses a warpgroup, 300 a 256-row M tile), N and K
+# (TMA's out-of-bounds fill), all addressable by TMA
+GLU_TMA_RAGGED = ((65, 1000, 3000), (1, 1024, 136), (300, 64, 72),
+                  (130, 512, 256), (17, 8, 8))
+
+
+def _any_scheme(scheme, act, dev):
+    if scheme == "cr_spline":
+        return _table(act, dev)
+    return _scheme(scheme, act, dev)
+
+
+def _bf16_operands(m, k, n, dev, seed=0):
+    x = torch.from_numpy(rand((m, k), scale=1.0, seed=seed + m)).to(
+        dev, torch.bfloat16)
+    wg = torch.from_numpy(rand((k, n), scale=0.05, seed=seed + k)).to(
+        dev, torch.bfloat16)
+    wu = torch.from_numpy(rand((k, n), scale=0.05, seed=seed + n + 1)).to(
+        dev, torch.bfloat16)
+    return x, wg, wu
+
+
+@pytest.mark.parametrize("scheme,act", ALL_SCHEME_ACTS)
+def test_glu_tma_variant_ragged_shapes(cuda, scheme, act):
+    spec, p = _any_scheme(scheme, act, cuda)
+    for m, k, n in GLU_TMA_RAGGED:
+        x, wg, wu = _bf16_operands(m, k, n, cuda)
+        n0 = tepi.GLU_VARIANTS["tma_wgmma"]
+        y = tepi.glu_2d(x, wg, wu, p, spec=spec, act=act)
+        torch.cuda.synchronize()
+        assert tepi.GLU_VARIANTS["tma_wgmma"] == n0 + 1, (m, k, n)
+        torch.testing.assert_close(
+            y.float(), tepi.glu_2d_plain(x, wg, wu, p, spec=spec,
+                                         act=act).float(),
+            rtol=1e-2, atol=1e-3)
+
+
+@pytest.mark.parametrize("m", [2, 128, 256])
+def test_glu_tma_variant_is_bitwise_deterministic(cuda, m):
+    """The K split's cluster reduction sums the ranks' partials in a fixed
+    order: repeated launches give the same bits."""
+    spec, p = _table("silu", cuda)
+    x, wg, wu = _bf16_operands(m, 1024, 3072, cuda, seed=3)
+    first = tepi.glu_2d(x, wg, wu, p, spec=spec)
+    for _ in range(4):
+        assert torch.equal(tepi.glu_2d(x, wg, wu, p, spec=spec), first)
+
+
+def test_glu_variants_counted_on_the_ops_route(cuda):
+    before = dict(tepi.GLU_VARIANTS)
+    n_before = tepi.LAUNCHES["glu_2d"]
+    x, wg, wu = _bf16_operands(2, 64, 32, cuda)
+    tops.fused_glu(x.reshape(1, 2, 64), wg, wu, act="silu")     # TMA
+    tops.fused_glu(x.float(), wg.float(), wu.float(), act="silu")   # f32
+    x5, w5, _ = _bf16_operands(2, 64, 5, cuda)
+    tops.fused_glu(x5, w5, w5, act="silu")                       # N = 5
+    torch.cuda.synchronize()
+    got = {k: tepi.GLU_VARIANTS[k] - before[k] for k in before}
+    assert got == {"tma_wgmma": 1, "simt_f32": 1, "wmma": 1}
+    assert tepi.LAUNCHES["glu_2d"] == n_before + 3
+
+
+@pytest.mark.parametrize("forced,dtype,n", [
+    ("tma_wgmma", torch.bfloat16, 3001),   # N's row stride: not addressable
+    ("simt_f32", torch.bfloat16, 3072),    # wrong type for the variant
+    ("wmma", torch.float32, 3072),
+])
+def test_glu_wrapper_raises_when_the_variant_is_refused(cuda, monkeypatch,
+                                                        forced, dtype, n):
+    """The C side refuses a variant that does not fit the operands; the
+    wrapper raises and runs nothing else (no retry, no plain version)."""
+    spec, p = _table("silu", cuda)
+    x, wg, wu = _bf16_operands(2, 1024, n, cuda)
+    x, wg, wu = x.to(dtype), wg.to(dtype), wu.to(dtype)
+    monkeypatch.setattr(tepi, "_glu_variant", lambda *a: forced)
+    launches, variants = dict(tepi.LAUNCHES), dict(tepi.GLU_VARIANTS)
+    with pytest.raises(RuntimeError, match=forced):
+        tepi.glu_2d(x, wg, wu, p, spec=spec)
+    assert tepi.LAUNCHES == launches and tepi.GLU_VARIANTS == variants
