@@ -30,13 +30,18 @@ lines:
      every ``glu_2d`` launch must take the ``tma_wgmma`` variant. The
      weights are built once; only their ``act`` leaf differs by scheme.
   4. kernel timings at the main path's shapes (decode 2 rows, prefill 128
-     rows; ``glu_2d`` also at 256 rows, the largest ragged prefill two
-     slots form), beside the bound from the card's data-sheet rates, the
-     plain version and the library yardstick
-     (``ms`` / ``plain_ms`` / ``library_ms``: device time from a profiler
-     trace, the sum of one call's kernel durations, mean of 30 calls with
-     L2 flushed before each; ``call_ms``: median time between CUDA events
-     around one call, host dispatch included). Then one decode chunk of
+     rows, and 256 rows, the largest ragged prefill two slots form),
+     beside the bound from the card's data-sheet rates, the plain version
+     and the library yardstick (``ms`` / ``plain_ms`` / ``library_ms``:
+     device time from a profiler trace, the sum of one call's kernel
+     durations, mean of 30 calls with L2 flushed before each; ``call_ms``:
+     median time between CUDA events around one call, host dispatch
+     included). Beside every ``elementwise_2d`` case, ``copy_ms``: the same
+     measure of ``y.copy_(x)`` into a preallocated ``y``, one launch that
+     reads and writes the same bytes, the floor the kernel is held to (it
+     computes another function: the port never calls it). The
+     ``elementwise_aims`` line sets ``ms`` against ``copy_ms`` and the
+     schemes against each other (information, not a gate). Then one decode chunk of
      each deployment under the profiler: device busy time and idle share
      per decode step; and one decode chunk that must make no host sync
      (CUDA's sync debug mode raises on any). Profiling comes after
@@ -44,8 +49,10 @@ lines:
      every later launch.
   5. f32 prefill logits of every deployment on the card (kernels) against
      the CPU (plain versions) on the same weights.
-  6. the ``{"kernels": [...]}`` line: one entry per (kernel, scheme);
-     ``glu_2d``'s entries add the ``variant`` its decode launch took.
+  6. the ``{"kernels": [...]}`` line: one entry per (kernel, scheme), its
+     top-level times at decode and ``by_rows`` at every timed row count;
+     ``elementwise_2d``'s entries add ``copy_ms``, ``glu_2d``'s the
+     ``variant`` its decode launch took.
 
 Then the card's ``nvidia-smi`` name/power line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises, exits non-zero and
@@ -79,6 +86,13 @@ DSE_GEOMS = ([(s, dict(depth=d)) for s in ("cr_spline", "pwl")
              + [("rational", dict(degree=g)) for g in (3, 5, 7)])
 # the source line of each TPU kernel (src/repro/kernels/epilogue.py)
 REPLACES = {"elementwise_2d": 229, "glu_2d": 289}
+# the CUDA source of each port
+SOURCES = {"elementwise_2d": "src/repro_torch/csrc/elementwise.cu",
+           "glu_2d": "src/repro_torch/csrc/epilogue.cu"}
+# what elementwise_2d is designed to reach (not gates): ms within 1.25x of
+# copy_ms at each shape, the schemes within 15% of each other at decode
+AIM_OVER_COPY, AIM_DECODE_SPREAD = 1.25, 0.15
+SESSIONS = 3                    # profiler traces device_ms takes at most
 # glu_2d checks of the TMA + wgmma variant: every decode and prefill row
 # count the engine forms (M = 65 crosses a warpgroup boundary), a ragged K
 # and N (TMA's out-of-bounds fill), and N = 3001, which TMA cannot address
@@ -88,6 +102,7 @@ GLU_WMMA_CASE = (3, 1024, 3001)
 
 SLOTS, MAX_PROMPT, MAX_LEN, CHUNK = 2, 128, 160, 8
 GLU_PREFILL_MAX = 2 * MAX_PROMPT    # the largest ragged prefill two slots form
+ROWS_TIMED = (SLOTS, MAX_PROMPT, GLU_PREFILL_MAX)   # decode, prefill, 2 x prefill
 PROMPT_LENS = (17, 40, 64, 100)
 MAX_NEW = 16
 
@@ -140,15 +155,24 @@ def device_events(fn, iters: int):
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def device_ms(fn, flush, iters: int = 30):
-    """Mean device time of one call: the sum of its kernels' (and copies')
-    durations in a profiler trace, L2 flushed before each call; the
-    flush's own kernels are left out by name. None if the trace holds no
-    device activity."""
+def device_ms(fn, flush, iters: int = 30, outliers: bool = False):
+    """(ms, retakes): the mean device time of one call, the sum of its
+    kernels' (and copies') durations in a profiler trace, L2 flushed
+    before each call (the flush's own kernels are left out by name), and
+    how many traces were taken again. A trace that holds none of the
+    call's device activity is taken again, for every caller. With
+    ``outliers`` (the copy yardstick only, whose lone-copy traces were seen
+    to hold one event 16x the rest) so is a trace whose longest event
+    lasts over 5x the median. At most SESSIONS traces; ms is None if none
+    passed."""
     flush_names = {n for n, _ in device_events(flush.zero_, 3)}
-    evs = device_events(lambda: (flush.zero_(), fn()), iters)
-    own = [us for n, us in evs if n not in flush_names]
-    return sum(own) / iters / 1e3 if own else None
+    for retakes in range(SESSIONS):
+        evs = device_events(lambda: (flush.zero_(), fn()), iters)
+        own = [us for n, us in evs if n not in flush_names]
+        if not own or (outliers and max(own) > 5 * statistics.median(own)):
+            continue
+        return sum(own) / iters / 1e3, retakes
+    return None, SESSIONS
 
 
 def bound(bytes_moved: float, ops: float, peak_ops: float):
@@ -159,7 +183,7 @@ def bound(bytes_moved: float, ops: float, peak_ops: float):
 
 def epilogue_ops(spec, params) -> int:
     """f32 operations of one silu epilogue element under ``spec``, counted
-    from csrc/epilogue.cu: silu wiring 4, |x| 1, saturate and sign 3, and
+    from csrc/approximant.cuh: silu wiring 4, |x| 1, saturate and sign 3, and
     the scheme's block: index split 6 for the LUT schemes; cr_spline basis
     22 + 4-tap MAC 7; pwl one MAC 2; poly Horner 2 per degree; rational
     clamp + square 2, two Horner chains 4 per step, x multiply 1, seed 2,
@@ -259,8 +283,11 @@ def phase_kernel_checks(torch, epi, dev):
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     worst = {(k, s): 0.0 for k in REPLACES for s in SCHEMES}
-    cases = [((256, 3072), torch.float32), ((4, 3072), torch.float32),
-             ((37, 1000), torch.float32), ((256, 3072), torch.bfloat16)]
+    # f32 and bf16 at every row count the main path gives elementwise_2d
+    # (decode SLOTS, prefill MAX_PROMPT, GLU_PREFILL_MAX), and ragged
+    cases = [((r, 3072), dt) for r in ROWS_TIMED
+             for dt in (torch.float32, torch.bfloat16)] \
+        + [((4, 3072), torch.float32), ((37, 1000), torch.float32)]
     K, N = 1024, 3072
     for scheme in SCHEMES:
         for act in acts_of(epi, scheme):
@@ -346,34 +373,36 @@ def phase_accuracy(torch, epi, dev):
 def phase_kernel_times(torch, epi, dev, flush):
     """Kernel, plain version and library yardstick at the main path's
     shapes (bf16), for every scheme on the same inputs: decode rows =
-    SLOTS, and the longest prefill (one 128-token bucket); glu_2d also at
-    GLU_PREFILL_MAX rows. All per-call event times are taken before the
-    first profiler session: a profiled process keeps paying per-launch
-    tracing costs afterwards."""
+    SLOTS, the longest prefill (one 128-token bucket) and GLU_PREFILL_MAX
+    rows; elementwise_2d beside a copy of the same bytes. All per-call
+    event times are taken before the first profiler session: a profiled
+    process keeps paying per-launch tracing costs afterwards."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     K, N = 1024, 3072
     cases = {}
-    for rows in (SLOTS, MAX_PROMPT, GLU_PREFILL_MAX):
+    for rows in ROWS_TIMED:
         x = torch.randn((rows, N), generator=gen, device=dev).to(torch.bfloat16)
+        y = torch.empty_like(x)
         xg, wg, wu = glu_operands(torch, gen, dev, rows, K, N, torch.bfloat16)
         for scheme in SCHEMES:
             spec, p = scheme_spec(torch, epi, scheme, "silu", dev)
-            if rows != GLU_PREFILL_MAX:
-                cases[("elementwise_2d", scheme, rows)] = dict(
-                    shape=[rows, N],
-                    bound=bound(2 * x.numel() * 2 + p.numel() * 4,
-                                epilogue_ops(spec, p) * x.numel(), F32_FLOPS),
-                    fns={"kernel": lambda x=x, s=spec, p=p:
-                             epi.elementwise_2d(x, p, spec=s, act="silu"),
-                         "plain": lambda x=x, s=spec, p=p:
-                             epi.elementwise_2d_plain(x, p, spec=s,
-                                                      act="silu")})
+            cases[("elementwise_2d", scheme, rows)] = dict(
+                shape=[rows, N],
+                extra=dict(geometry=list(epi._elementwise_geometry(
+                    rows, N, x.dtype))),
+                bound=bound(2 * x.numel() * 2 + p.numel() * 4,
+                            epilogue_ops(spec, p) * x.numel(), F32_FLOPS),
+                fns={"kernel": lambda x=x, s=spec, p=p:
+                         epi.elementwise_2d(x, p, spec=s, act="silu"),
+                     "plain": lambda x=x, s=spec, p=p:
+                         epi.elementwise_2d_plain(x, p, spec=s, act="silu"),
+                     "copy": lambda x=x, y=y: y.copy_(x)})
             nbytes = (xg.numel() + wg.numel() + wu.numel() + rows * N) * 2 \
                 + p.numel() * 4
             a = (xg, wg, wu)
             cases[("glu_2d", scheme, rows)] = dict(
-                shape=[rows, K, N],
+                shape=[rows, K, N], extra={},
                 bound=bound(nbytes, 4.0 * rows * N * K, BF16_TC_FLOPS),
                 fns={"kernel": lambda a=a, s=spec, p=p: epi.glu_2d(
                          *a, p, spec=s),
@@ -386,17 +415,30 @@ def phase_kernel_times(torch, epi, dev, flush):
     timings = {}
     for key, c in cases.items():
         fns = c["fns"]
-        dev_ms = {role: device_ms(fn, flush) for role, fn in fns.items()}
-        how = "profiler" if dev_ms["kernel"] is not None else "events"
-        if how == "events":          # the trace held no device activity
+        traced = {role: device_ms(fn, flush, outliers=role == "copy")
+                  for role, fn in fns.items()}
+        dev_ms = {role: ms for role, (ms, _) in traced.items()}
+        how = "profiler" if None not in dev_ms.values() else "events"
+        if how == "events":          # a role's trace held no device activity
             dev_ms = {role: calls[(key, role)] for role in fns}
         before = dict(epi.GLU_VARIANTS)
         got = fns["kernel"]()
-        err = float((got.float() - fns["plain"]().float()).abs().max())
-        extra = {}
+        plain = fns["plain"]()
+        err = float((got.float() - plain.float()).abs().max())
+        # the timed inputs hold to the same tolerance as phase 2's checks
         if key[0] == "glu_2d":
-            extra = dict(variant=[v for v in before
-                                  if epi.GLU_VARIANTS[v] != before[v]][0])
+            torch.testing.assert_close(got.float(), plain.float(),
+                                       rtol=1e-2, atol=1e-3)
+        else:
+            assert bf16_ulp_ok(got, plain), (key, err)
+        extra = dict(c["extra"], retakes={r: n for r, (_, n) in
+                                          traced.items()})
+        if key[0] == "glu_2d":
+            extra["variant"] = [v for v in before
+                                if epi.GLU_VARIANTS[v] != before[v]][0]
+        else:
+            extra.update(copy_ms=dev_ms["copy"],
+                         copy_call_ms=calls[(key, "copy")])
         t = dict(shape=c["shape"], dtype="bfloat16", max_abs_err=err,
                  ms=dev_ms["kernel"], plain_ms=dev_ms["plain"],
                  bound_ms=c["bound"][0], bound_by=c["bound"][1],
@@ -406,8 +448,27 @@ def phase_kernel_times(torch, epi, dev, flush):
                  library_call_ms=calls.get((key, "library")), **extra)
         timings[key] = t
         emit({"phase": "kernel_time", "kernel": key[0], "scheme": key[1],
-              "where": "decode" if key[2] == SLOTS else "prefill", **t})
+              "where": "decode" if key[2] == SLOTS else "prefill",
+              "rows": key[2], **t})
     return timings
+
+
+def elementwise_aims(timings) -> None:
+    """elementwise_2d's design aims, from this run's timings: ``ms`` over
+    ``copy_ms`` at each row count, and the spread of the schemes' decode
+    ``ms`` (slowest over fastest, less one). Information, not a gate."""
+    over = {rows: {s: timings[("elementwise_2d", s, rows)]["ms"]
+                   / timings[("elementwise_2d", s, rows)]["copy_ms"]
+                   for s in SCHEMES} for rows in ROWS_TIMED}
+    decode = [timings[("elementwise_2d", s, SLOTS)]["ms"] for s in SCHEMES]
+    spread = max(decode) / min(decode) - 1.0
+    emit({"phase": "elementwise_aims", "ms_over_copy_ms": over,
+          "aim_over_copy": AIM_OVER_COPY,
+          "over_copy_met": {rows: all(r <= AIM_OVER_COPY
+                                      for r in by.values())
+                            for rows, by in over.items()},
+          "decode_scheme_spread": spread, "aim_decode_spread":
+          AIM_DECODE_SPREAD, "spread_met": spread <= AIM_DECODE_SPREAD})
 
 
 def serve(torch, cfg, params, prompts, dev):
@@ -614,6 +675,7 @@ def main() -> int:
     # 4. kernel timings, then where a decode step's time goes
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
     timings = phase_kernel_times(torch, epi, dev, flush)
+    elementwise_aims(timings)
     for name, _, _, cfg in deployments:
         phase_trace(torch, name, cfg, served[name]["params"], prompts, dev,
                     served[name]["line"])
@@ -636,14 +698,22 @@ def main() -> int:
 
     # 6. the kernels line: one entry per (kernel, scheme), its launches on
     #    its own deployment's run, its timings at the decode shape (the
-    #    main path's most frequent launch)
+    #    main path's most frequent launch) and at every timed row count
     kernels = []
+    by_keys = {"elementwise_2d": ("ms", "copy_ms", "call_ms", "plain_ms",
+                                  "bound_ms", "max_abs_err", "geometry"),
+               "glu_2d": ("ms", "call_ms", "plain_ms", "library_ms",
+                          "bound_ms", "max_abs_err", "variant")}
     for name, scheme, kernel, _ in deployments:
         t = timings[(kernel, scheme, SLOTS)]
+        by_rows = {rows: {k: timings[(kernel, scheme, rows)][k]
+                          for k in by_keys[kernel]} for rows in ROWS_TIMED}
+        own = ({"variant": t["variant"]} if kernel == "glu_2d"
+               else {"copy_ms": t["copy_ms"]})
         kernels.append({
             "name": kernel if scheme == "cr_spline" else
             f"{kernel}[{scheme}]", "scheme": scheme, "route": "cuda",
-            "source": "src/repro_torch/csrc/epilogue.cu",
+            "source": SOURCES[kernel],
             "replaces": f"src/repro/kernels/epilogue.py:{REPLACES[kernel]}",
             "launches": served[name]["launches"][kernel],
             "max_abs_err": t["max_abs_err"],
@@ -653,7 +723,7 @@ def main() -> int:
             "dtype": t["dtype"], "timing": t["timing"],
             "call_ms": t["call_ms"],
             "max_abs_err_checks": worst[(kernel, scheme)],
-            **({"variant": t["variant"]} if kernel == "glu_2d" else {})})
+            **own, "by_rows": by_rows})
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

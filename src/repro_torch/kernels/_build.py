@@ -1,9 +1,11 @@
 """Build and load the hand-written CUDA kernels of ``repro_torch/csrc``.
 
-At first use, ``nvcc`` compiles every ``csrc/*.cu`` source into one shared
-library with a plain C interface, cached under ``build/repro_torch/`` in
-the repository checkout and keyed by a hash of the sources and flags, so
-an edited kernel is rebuilt and an unchanged one is loaded as it is. The
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` source into an object,
+one process per source, all started together, and links the objects into
+one shared library with a plain C interface, cached under
+``build/repro_torch/`` in the repository checkout and keyed by a hash of
+the sources (headers included) and flags, so an edited kernel is rebuilt
+and an unchanged one is loaded as it is. The
 library is loaded with ``ctypes``: every pointer and the stream are
 ``c_void_p``, every int is ``c_int``, every float ``c_float``, and each
 entry point returns ``cudaGetLastError()`` as an int.
@@ -26,15 +28,16 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 # function the kernels need (cuTensorMapEncodeTiled) comes through the
 # runtime's cudaGetDriverEntryPoint.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# entry point -> argtypes (see csrc/epilogue.cu)
+# entry point -> argtypes (see csrc/elementwise.cu, csrc/epilogue.cu)
 SIGNATURES = {
     # x, params, y, rows, cols, scheme, p_rows, p_cols, epi, dtype,
-    # inv_period, x_max, saturation, stream
+    # inv_period, x_max, saturation, blocks, threads, elems_per_thread,
+    # stream
     "repro_elementwise_2d": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                             _F, _F, _F, _P),
+                             _F, _F, _F, _I, _I, _I, _P),
     # x, w_gate, w_up, params, out, M, N, K, scheme, p_rows, p_cols, epi,
     # dtype, inv_period, x_max, saturation, variant, stream
     "repro_glu_2d": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -65,19 +68,38 @@ def _key(extra: tuple[str, ...]) -> str:
 def build(extra: tuple[str, ...] = ()) -> Path:
     """Compile the sources (with ``extra`` nvcc flags, e.g. a ``-D`` of a
     diagnostic build) if this exact set has no library yet; returns the
-    library's path."""
+    library's path. Each ``.cu`` compiles in its own ``nvcc`` process, all
+    at once; the link waits for every one of them."""
     out = BUILD_DIR / f"libepilogue_{_key(extra)}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cus = [str(s) for s in sources() if s.suffix == ".cu"]
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, *extra, "-o", str(tmp), *cus],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
+    stem = f"{out.stem}.{os.getpid()}"
+    cus = [s for s in sources() if s.suffix == ".cu"]
+    objs = [BUILD_DIR / f"{stem}.{cu.stem}.o" for cu in cus]
+    procs = [subprocess.Popen(
+        [_nvcc(), *NVCC_FLAGS, *extra, "-c", "-o", str(obj), str(cu)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for cu, obj in zip(cus, objs)]
+    # communicate() waits for its process, so every nvcc has ended below
+    logs = [(cu.name, *proc.communicate(), proc.returncode)
+            for cu, proc in zip(cus, procs)]
+    try:
+        failed = [f"{name} ({rc}):\n{so}\n{se}"
+                  for name, so, se, rc in logs if rc != 0]
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-shared", "-o",
+                               str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return out
 
 

@@ -16,13 +16,14 @@ Counterpart of ``repro/kernels/epilogue.py``. It owns:
         out = epilogue(x @ w_gate) * (x @ w_up) on the f32 accumulators.
 
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor
-it launches its kernel (``csrc/epilogue.cu``, built by ``_build``) or
-raises. There is no other route. ``LAUNCHES[name]`` counts the kernel's
-launches and nothing else; ``GLU_VARIANTS`` splits ``glu_2d``'s launches
-by the variant ``_glu_variant`` chose (TMA + wgmma for bf16, wmma for bf16
-operands TMA cannot address, SIMT for f32). Both kernels carry every
-registered scheme (``cr_spline``, ``pwl``, ``poly``, ``rational``), chosen
-per launch.
+it launches its kernel (``csrc/elementwise.cu``, ``csrc/epilogue.cu``,
+built by ``_build``) or raises. There is no other route.
+``_elementwise_geometry`` sets ``elementwise_2d``'s launch geometry by
+shape. ``LAUNCHES[name]`` counts the kernel's launches and nothing else;
+``GLU_VARIANTS`` splits ``glu_2d``'s launches by the variant
+``_glu_variant`` chose (TMA + wgmma for bf16, wmma for bf16 operands TMA
+cannot address, SIMT for f32). Both kernels carry every registered scheme
+(``cr_spline``, ``pwl``, ``poly``, ``rational``), chosen per launch.
 """
 from __future__ import annotations
 
@@ -52,8 +53,9 @@ GLU_VARIANTS = {"tma_wgmma": 0, "wmma": 0, "simt_f32": 0}
 _DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
 _GLU_VARIANT_IDS = {"wmma": 0, "tma_wgmma": 1, "simt_f32": 2}  # csrc GLU_*
 _SCHEME_IDS = {"cr_spline": 0, "pwl": 1, "poly": 2, "rational": 3}
-_MAX_PARAMS = 2048    # csrc/epilogue.cu MAX_PARAMS: f32 params in shared memory
-_MAX_POLY_DEGREE = 7  # csrc/epilogue.cu MAX_POLY_COLS - 1
+_MAX_PARAMS = 2048    # csrc/approximant.cuh MAX_PARAMS: f32 params in shared memory
+_MAX_POLY_DEGREE = 7  # csrc/approximant.cuh MAX_POLY_COLS - 1
+_EW_THREADS = 128     # threads of an elementwise_2d block
 
 
 def table_for(act: str, x_max: float, depth: int) -> cr.SplineTable:
@@ -235,6 +237,28 @@ def elementwise_2d_plain(x, params, *, spec: TableSpec, act: str = "tanh",
     return epi(x.to(torch.float32), params.to(torch.float32)).to(x.dtype)
 
 
+def _elementwise_geometry(rows: int, cols: int, dtype,
+                          aligned: bool = True) -> tuple[int, int, int]:
+    """(blocks, threads, elems_per_thread) of one ``elementwise_2d`` launch
+    over a contiguous [rows, cols] array. Thread g takes elements
+    [g * ept, g * ept + ept) below n = rows * cols, and blocks * threads *
+    ept covers n with no block past it (the C side refuses anything else,
+    and the wrapper raises).
+
+    ept is one 16-byte vector (8 bf16, 4 f32) and a block has 128 threads,
+    at every shape: [2, 3072] bf16 (decode) is 6 blocks, [128, 3072] 384.
+    Spreading decode over 48 blocks of 2-element threads measured slower
+    on the card (see csrc/elementwise.cu). ``aligned`` (x and y 16-byte
+    aligned) does not change the geometry, so the wrapper does not pass
+    it: the kernel reads a misaligned array's vectors element by
+    element."""
+    if dtype not in _DTYPE_IDS:
+        raise TypeError(f"kernel takes float32 or bfloat16, got {dtype}")
+    del aligned
+    ept = 16 // dtype.itemsize
+    return max(1, -(-(rows * cols) // (_EW_THREADS * ept))), _EW_THREADS, ept
+
+
 def elementwise_2d(x, params, *, spec: TableSpec, act: str = "tanh",
                    lookup: str = "onehot"):
     """Apply one approximant epilogue to a 2D tensor in ONE kernel launch
@@ -252,11 +276,11 @@ def elementwise_2d(x, params, *, spec: TableSpec, act: str = "tanh",
     rows, cols = x.shape
     if rows * cols == 0:
         return y
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    geometry = _elementwise_geometry(rows, cols, x.dtype)
     rc = _build.library().repro_elementwise_2d(
         x.data_ptr(), params.data_ptr(), y.data_ptr(), rows, cols, *args,
-        stream)
-    _raise_on(rc, "elementwise_2d")
+        *geometry, _raw_stream(x.device))
+    _raise_on(rc, f"elementwise_2d {geometry}")
     LAUNCHES["elementwise_2d"] += 1
     return y
 

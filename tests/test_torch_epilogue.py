@@ -226,6 +226,63 @@ def test_glu_cpu_call_runs_plain_and_counts_nothing(dtype, mkn):
     assert torch.equal(y, tepi.glu_2d_plain(x, wg, wu, p, spec=spec))
 
 
+# --- elementwise_2d's launch geometry ---------------------------------------
+
+# csrc/elementwise.cu: its __launch_bounds__, and its elements per thread
+# (one 16-byte vector)
+_EW_MAX_THREADS = 256
+_EW_EPT = {torch.float32: 4, torch.bfloat16: 8}
+
+
+def _elementwise_walk(n, blocks, threads, ept):
+    """How many times csrc/elementwise.cu's grid writes each of the n
+    elements: thread g takes [g * ept, g * ept + ept), the ones below n.
+    Also returns the elements it would have written past n."""
+    first = np.arange(blocks * threads, dtype=np.int64) * ept
+    idx = (first[:, None] + np.arange(ept, dtype=np.int64)).reshape(-1)
+    return np.bincount(idx[idx < n], minlength=n), int((idx >= n).sum())
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,cols", [
+    (1, 1), (1, 7), (1, 8), (1, 9), (2, 3072), (37, 1000), (128, 3072),
+    (256, 3072), (1, 2 ** 16)])
+def test_elementwise_geometry_covers_every_element_once(rows, cols, dtype,
+                                                        aligned):
+    dt = getattr(torch, dtype)
+    n = rows * cols
+    blocks, threads, ept = tepi._elementwise_geometry(rows, cols, dt,
+                                                      aligned)
+    # what the C side accepts: whole warps within the launch bound, its
+    # ept, no block wholly past n
+    assert threads % 32 == 0 and 32 <= threads <= _EW_MAX_THREADS
+    assert ept == _EW_EPT[dt]
+    assert blocks >= 1 and (blocks - 1) * threads * ept < n
+    counts, past = _elementwise_walk(n, blocks, threads, ept)
+    assert counts.min() == 1 and counts.max() == 1
+    # every element past n belongs to the last block, masked by the kernel
+    assert past == blocks * threads * ept - n < threads * ept
+
+
+def test_elementwise_geometry_by_shape():
+    """Decode spreads over more than the 3 blocks the first slice's kernel
+    took, each thread on one 16-byte vector; alignment does not change the
+    geometry; float16 has no kernel."""
+    assert tepi._elementwise_geometry(2, 3072, torch.bfloat16, True) \
+        == (6, 128, 8)
+    assert tepi._elementwise_geometry(128, 3072, torch.bfloat16, True) \
+        == (384, 128, 8)
+    assert tepi._elementwise_geometry(256, 3072, torch.float32, True) \
+        == (1536, 128, 4)
+    for rows, cols in ((2, 3072), (128, 3072), (1, 9)):
+        for dt in (torch.float32, torch.bfloat16):
+            assert tepi._elementwise_geometry(rows, cols, dt, False) \
+                == tepi._elementwise_geometry(rows, cols, dt, True)
+    with pytest.raises(TypeError):
+        tepi._elementwise_geometry(2, 3072, torch.float16, True)
+
+
 # --- the pwl / poly / rational schemes -------------------------------------
 
 # (scheme, geometry): the reference's representative geometry of each

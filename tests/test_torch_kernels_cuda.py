@@ -47,32 +47,66 @@ def _table(act, dev):
         table.windows, dtype=torch.float32, device=dev)
 
 
+# decode, prefill and the largest ragged prefill of the served model, a
+# single element, a ragged edge inside one thread's vector, and odd shapes
+ELEMENTWISE_SHAPES = ((2, 3072), (128, 3072), (256, 3072), (1, 1), (1, 9),
+                      (37, 1000), (1, 3), (3, 5))
+
+
+def _check_elementwise(spec, p, act, x):
+    """One launch (counted once) against the plain version: f32 bitwise,
+    bf16 within one ulp; then a second launch gives the same bits."""
+    n0 = tepi.LAUNCHES["elementwise_2d"]
+    y = tepi.elementwise_2d(x, p, spec=spec, act=act)
+    torch.cuda.synchronize()
+    assert tepi.LAUNCHES["elementwise_2d"] == n0 + 1
+    yp = tepi.elementwise_2d_plain(x, p, spec=spec, act=act)
+    if x.dtype == torch.float32:
+        assert torch.equal(y, yp), float((y - yp).abs().max())
+    else:
+        assert_within_bf16_ulp(y, yp)
+    assert torch.equal(tepi.elementwise_2d(x, p, spec=spec, act=act), y)
+
+
 @pytest.mark.parametrize("act", EPILOGUES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_elementwise_kernel_matches_plain(cuda, act, dtype):
     dt = getattr(torch, dtype)
     spec, p = _table(act, cuda)
-    for shape in ((256, 3072), (37, 1000), (1, 3), (3, 5)):
+    for shape in ELEMENTWISE_SHAPES:
         x = torch.from_numpy(rand(shape, seed=shape[0])).to(cuda, dt)
-        n0 = tepi.LAUNCHES["elementwise_2d"]
-        y = tepi.elementwise_2d(x, p, spec=spec, act=act)
-        torch.cuda.synchronize()
-        assert tepi.LAUNCHES["elementwise_2d"] == n0 + 1
-        yp = tepi.elementwise_2d_plain(x, p, spec=spec, act=act)
-        if dt == torch.float32:
-            torch.testing.assert_close(y, yp, rtol=1e-5, atol=1e-6)
-        else:
-            assert_within_bf16_ulp(y, yp)
+        _check_elementwise(spec, p, act, x)
 
 
-def test_elementwise_unaligned_input_takes_scalar_path(cuda):
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_elementwise_unaligned_input_takes_scalar_path(cuda, dtype):
+    """An input one element past 16-byte alignment, at a decode and at a
+    prefill shape: the kernel reads and writes it element by element."""
+    dt = getattr(torch, dtype)
     spec, p = _table("silu", cuda)
-    base = torch.from_numpy(rand((1000,), seed=2)).to(cuda)
-    x = base[1:].reshape(1, 999)        # contiguous, 4 bytes past alignment
-    assert x.data_ptr() % 16 != 0
-    y = tepi.elementwise_2d(x, p, spec=spec, act="silu")
-    torch.testing.assert_close(y, tepi.elementwise_2d_plain(
-        x, p, spec=spec, act="silu"), rtol=1e-5, atol=1e-6)
+    for rows, cols in ((1, 999), (128, 3072)):
+        base = torch.from_numpy(rand((rows * cols + 1,), seed=2)).to(cuda, dt)
+        x = base[1:].reshape(rows, cols)   # contiguous, one element off
+        assert x.data_ptr() % 16 != 0
+        _check_elementwise(spec, p, "silu", x)
+
+
+@pytest.mark.parametrize("geometry", [(5, 128, 8), (7, 128, 8), (12, 128, 4),
+                                      (16, 48, 8), (3, 288, 8)],
+                         ids=["short", "block-past-n", "ept-4", "threads-48",
+                              "threads-288"])
+def test_elementwise_refused_geometry_raises(cuda, monkeypatch, geometry):
+    """The C side refuses a geometry that does not cover n, has a block
+    wholly past n, an ept it has no kernel for, or threads that are not
+    whole warps within the launch bound; the wrapper raises and counts
+    nothing."""
+    spec, p = _table("silu", cuda)
+    x = torch.zeros((2, 3072), dtype=torch.bfloat16, device=cuda)
+    monkeypatch.setattr(tepi, "_elementwise_geometry", lambda *a: geometry)
+    n0 = tepi.LAUNCHES["elementwise_2d"]
+    with pytest.raises(RuntimeError, match="elementwise_2d"):
+        tepi.elementwise_2d(x, p, spec=spec, act="silu")
+    assert tepi.LAUNCHES["elementwise_2d"] == n0
 
 
 @pytest.mark.parametrize("act", EPILOGUES)
@@ -149,17 +183,9 @@ def _scheme(scheme, act, dev, **geom):
 def test_scheme_elementwise_kernel_matches_plain(cuda, scheme, act, dtype):
     dt = getattr(torch, dtype)
     spec, p = _scheme(scheme, act, cuda)
-    for shape in ((256, 3072), (37, 1000), (1, 3)):
+    for shape in ELEMENTWISE_SHAPES:
         x = torch.from_numpy(rand(shape, seed=shape[0] + 1)).to(cuda, dt)
-        n0 = tepi.LAUNCHES["elementwise_2d"]
-        y = tepi.elementwise_2d(x, p, spec=spec, act=act)
-        torch.cuda.synchronize()
-        assert tepi.LAUNCHES["elementwise_2d"] == n0 + 1
-        yp = tepi.elementwise_2d_plain(x, p, spec=spec, act=act)
-        if dt == torch.float32:
-            assert torch.equal(y, yp), float((y - yp).abs().max())
-        else:
-            assert_within_bf16_ulp(y, yp)
+        _check_elementwise(spec, p, act, x)
 
 
 @pytest.mark.parametrize("scheme,act", SCHEME_ACTS)
