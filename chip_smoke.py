@@ -25,9 +25,18 @@ lines:
      per scheme: ``fused_of(act_impl_of(cfg, scheme))``, where every FFN
      goes through ``glu_2d``, and ``act_impl_of(cfg, scheme,
      use_kernel=True)``, where every FFN SiLU goes through
-     ``elementwise_2d``. The kernel of the path must launch exactly 28 x
-     (prefills + decode steps) times, the other kernel not at all, and
-     every ``glu_2d`` launch must take the ``tma_wgmma`` variant. The
+     ``elementwise_2d``. Each deployment serves on the default paged
+     cache (page size 16: the 160-token ring is 10 pages) and again on
+     ``cache="slot"``; the ``paged_vs_slot`` line gates identical tokens.
+     In every served run the kernel of the path must launch exactly 28 x
+     (prefill batches + prefill chunks + decode steps) times, the other
+     kernel not at all, and every bf16 ``glu_2d`` launch must take the
+     ``tma_wgmma`` variant. For the two cr_spline deployments, at bf16
+     and at f32 compute: ``serve_prefix`` (4 requests sharing a 4-page
+     prefix, serial admission: 192 prompt tokens from cached pages, all
+     pages back after the run, f32 tokens identical to prefix_cache=False)
+     and ``serve_chunked`` (chunk_prefill=32 on the main prompts: f32
+     tokens identical to one-shot admission; TTFT and ITL p99). The
      weights are built once; only their ``act`` leaf differs by scheme.
   4. kernel timings at the main path's shapes (decode 2 rows, prefill 128
      rows, and 256 rows, the largest ragged prefill two slots form),
@@ -41,9 +50,10 @@ lines:
      reads and writes the same bytes, the floor the kernel is held to (it
      computes another function: the port never calls it). The
      ``elementwise_aims`` line sets ``ms`` against ``copy_ms`` and the
-     schemes against each other (information, not a gate). Then one decode chunk of
-     each deployment under the profiler: device busy time and idle share
-     per decode step; and one decode chunk that must make no host sync
+     schemes against each other (information, not a gate). Then one decode
+     chunk of each deployment on each cache under the profiler: device
+     busy time, idle share and the top kernels per decode step; and one
+     decode chunk (paged: with its write mask) that must make no host sync
      (CUDA's sync debug mode raises on any). Profiling comes after
      serving because a profiled process keeps paying tracing costs on
      every later launch.
@@ -105,6 +115,11 @@ GLU_PREFILL_MAX = 2 * MAX_PROMPT    # the largest ragged prefill two slots form
 ROWS_TIMED = (SLOTS, MAX_PROMPT, GLU_PREFILL_MAX)   # decode, prefill, 2 x prefill
 PROMPT_LENS = (17, 40, 64, 100)
 MAX_NEW = 16
+PAGE_SIZE = 16                  # 160 = 10 pages: the paged ring is the slot ring
+# serve_prefix: 4 requests share a 4-page prefix, distinct tails
+PREFIX_PAGES, PREFIX_TAILS = 4, (7, 19, 33, 50)
+CHUNK_PREFILL = 32              # serve_chunked's prefill chunk
+TOP_KERNELS = 5                 # device kernels named per trace line
 
 
 def emit(obj) -> None:
@@ -471,29 +486,32 @@ def elementwise_aims(timings) -> None:
           AIM_DECODE_SPREAD, "spread_met": spread <= AIM_DECODE_SPREAD})
 
 
-def serve(torch, cfg, params, prompts, dev):
+def serve(torch, cfg, params, prompts, dev, max_new=MAX_NEW, **ecfg):
     from repro_torch.serve import EngineConfig, ServeEngine
     ecfg = EngineConfig(slots=SLOTS, max_prompt_len=MAX_PROMPT,
-                        max_len=MAX_LEN, chunk=CHUNK, cache="slot")
+                        max_len=MAX_LEN, chunk=CHUNK, page_size=PAGE_SIZE,
+                        **ecfg)
     eng = ServeEngine(cfg, params, ecfg, device=dev)
     for pr in prompts:
-        eng.submit(pr, max_new=MAX_NEW)
+        eng.submit(pr, max_new=max_new)
     done = eng.run()
     return done, eng
 
 
-def phase_serve(torch, epi, name, cfg, params, prompts, dev, card, kernel):
-    """Warm up, then drive the main path with the launch counts zeroed
-    just before and read just after."""
-    serve(torch, cfg, params, prompts[:1], dev)            # warm-up
+def drive(torch, epi, cfg, params, prompts, dev, kernel, **ecfg):
+    """One served run with the launch counts zeroed just before and read
+    just after. The kernel of the path must launch exactly n_layers x
+    forwards times (forwards: prefill batches + prefill chunks + decode
+    steps, from the run's EngineStats), the other kernel not at all.
+    Returns (token lists, engine, launches, glu variants)."""
     for counts in (epi.LAUNCHES, epi.GLU_VARIANTS):
         for k in counts:
             counts[k] = 0
-    done, eng = serve(torch, cfg, params, prompts, dev)
+    done, eng = serve(torch, cfg, params, prompts, dev, **ecfg)
     launches = dict(epi.LAUNCHES)
     variants = dict(epi.GLU_VARIANTS)
     st = eng.stats
-    forwards = st.prefill_batches + st.decode_steps
+    forwards = st.prefill_batches + st.prefill_chunks + st.decode_steps
     assert len(done) == len(prompts), done
     for c in done:
         assert len(c.tokens) == MAX_NEW and c.finish_reason == "length", c
@@ -501,35 +519,142 @@ def phase_serve(torch, epi, name, cfg, params, prompts, dev, card, kernel):
     other = "elementwise_2d" if kernel == "glu_2d" else "glu_2d"
     assert launches[kernel] == cfg.n_layers * forwards, (launches, forwards)
     assert launches[other] == 0, launches
+    if eng.paged:
+        assert eng.snapshot().pages_in_use == 0 and eng._pool.reserved == 0
+    return [c.tokens for c in done], eng, launches, variants
+
+
+def agreement(a, b) -> float:
+    return sum(x == y for ra, rb in zip(a, b) for x, y in zip(ra, rb)) \
+        / sum(map(len, a))
+
+
+def phase_serve(torch, epi, name, cfg, params, prompts, dev, card, kernel,
+                cache):
+    """Warm up (every prompt, 2 tokens: every prefill bucket and insert
+    shape once), then drive the main path on ``cache`` with the launch
+    counts zeroed just before and read just after."""
+    serve(torch, cfg, params, prompts, dev, max_new=2, cache=cache)
+    toks, eng, launches, variants = drive(torch, epi, cfg, params, prompts,
+                                          dev, kernel, cache=cache)
     # every bf16 FFN of the served model goes through the TMA + wgmma kernel
     assert variants == {"tma_wgmma": launches["glu_2d"], "wmma": 0,
                         "simt_f32": 0}, (variants, launches)
-    line = {"phase": name, "card": card, "requests": len(done),
-          "prefill_batches": st.prefill_batches,
-          "decode_steps": st.decode_steps, "launches": launches,
-          "glu_variants": variants,
-          "prefill_tokens": st.prefill_tokens, "prefill_s": st.prefill_s,
-          "insert_s": st.insert_s, "decode_tokens": st.decode_tokens,
-          "decode_s": st.decode_s,
-          "prefill_tokens_per_s": st.prefill_tokens_per_s,
-          "decode_tokens_per_s": st.decode_tokens_per_s}
+    st = eng.stats
+    line = {"phase": name if cache == "paged" else f"{name}_slot",
+            "card": card, "cache": cache, "requests": len(toks),
+            "prefill_batches": st.prefill_batches,
+            "decode_steps": st.decode_steps, "launches": launches,
+            "glu_variants": variants,
+            "prefill_tokens": st.prefill_tokens, "prefill_s": st.prefill_s,
+            "insert_s": st.insert_s, "decode_tokens": st.decode_tokens,
+            "decode_s": st.decode_s,
+            "prefill_tokens_per_s": st.prefill_tokens_per_s,
+            "decode_tokens_per_s": st.decode_tokens_per_s,
+            "pages_peak": st.pages_peak}
     emit(line)
-    return [c.tokens for c in done], launches, line
+    return toks, launches, line
 
 
-def phase_trace(torch, name, cfg, params, prompts, dev, serve_line):
+def latency(done_eng):
+    """TTFT and ITL p99 (ms) of each completion of an engine's run."""
+    done = sorted(done_eng.completions, key=lambda c: c.uid)
+    return ([c.ttft_s * 1e3 for c in done], [c.itl_p99_s * 1e3 for c in done])
+
+
+def phase_prefix(torch, epi, name, cfg, params32, dev, card, kernel):
+    """4 requests sharing a PREFIX_PAGES-page prefix, serial admission:
+    requests 1-3 prefill only their tails over the cached pages. Gates
+    prefix_hit_tokens == 3 x the prefix, every page back, exact launch
+    counts, and at f32 compute the same tokens as prefix_cache=False; at
+    bf16 the agreement is printed."""
+    import numpy as np
+    rng = np.random.RandomState(2)
+    shared = rng.randint(0, cfg.vocab_size, (PREFIX_PAGES * PAGE_SIZE,))
+    prompts = [np.concatenate([shared, rng.randint(0, cfg.vocab_size, (n,))])
+               .astype(np.int32) for n in PREFIX_TAILS]
+    hit = (len(prompts) - 1) * PREFIX_PAGES * PAGE_SIZE       # 192
+    out = {"phase": "serve_prefix_" + name, "card": card,
+           "prompt_lens": [len(p) for p in prompts]}
+    for dtype in ("bfloat16", "float32"):
+        c = dataclasses.replace(cfg, compute_dtype=dtype)
+        p = with_act(torch, params32, c, dev)
+        serve(torch, c, p, prompts[:1], dev)                   # warm-up
+        warm, eng, launches, _ = drive(torch, epi, c, p, prompts, dev,
+                                       kernel, admission="serial")
+        cold, ceng, _, _ = drive(torch, epi, c, p, prompts, dev, kernel,
+                                 admission="serial", prefix_cache=False)
+        st = eng.stats
+        assert st.prefix_hit_tokens == hit, (st.prefix_hit_tokens, hit)
+        assert ceng.stats.prefix_hit_tokens == 0
+        agree = agreement(warm, cold)
+        if dtype == "float32":
+            assert warm == cold, (name, "prefix hit != cold at f32")
+        out[dtype] = {"prefix_hit_tokens": st.prefix_hit_tokens,
+                      "prefix_hit_rate": st.prefix_hit_rate,
+                      "prefill_tokens": st.prefill_tokens,
+                      "cold_prefill_tokens": ceng.stats.prefill_tokens,
+                      "launches": launches[kernel],
+                      "pages_peak": st.pages_peak,
+                      "pages_in_use_after": eng.snapshot().pages_in_use,
+                      "prefill_s": st.prefill_s,
+                      "cold_prefill_s": ceng.stats.prefill_s,
+                      "admitted_tokens_per_s": st.admitted_tokens_per_s,
+                      "cold_admitted_tokens_per_s":
+                      ceng.stats.admitted_tokens_per_s,
+                      "token_agreement_vs_cold": agree}
+        del p
+    emit(out)
+
+
+def phase_chunked(torch, epi, name, cfg, params32, prompts, dev, card,
+                  kernel, one_shot_bf16):
+    """chunk_prefill=CHUNK_PREFILL on the main prompts: prefill chunks
+    interleaved with decode. Gates prefill_chunks > 0, exact launch
+    counts, and at f32 the one-shot tokens; at bf16 the agreement with
+    the main paged run is printed, with TTFT and ITL p99."""
+    out = {"phase": "serve_chunked_" + name, "card": card,
+           "chunk_prefill": CHUNK_PREFILL}
+    for dtype in ("bfloat16", "float32"):
+        c = dataclasses.replace(cfg, compute_dtype=dtype)
+        p = with_act(torch, params32, c, dev)
+        serve(torch, c, p, prompts[:1], dev,
+              chunk_prefill=CHUNK_PREFILL)                     # warm-up
+        got, eng, launches, _ = drive(torch, epi, c, p, prompts, dev, kernel,
+                                      chunk_prefill=CHUNK_PREFILL)
+        st = eng.stats
+        assert st.prefill_chunks > 0, st
+        if dtype == "float32":
+            base, _, _, _ = drive(torch, epi, c, p, prompts, dev, kernel)
+            assert got == base, (name, "chunked != one-shot at f32")
+        else:
+            base = one_shot_bf16
+        ttft, itl = latency(eng)
+        out[dtype] = {"prefill_chunks": st.prefill_chunks,
+                      "decode_steps": st.decode_steps,
+                      "launches": launches[kernel],
+                      "decode_tokens_per_s": st.decode_tokens_per_s,
+                      "ttft_ms": ttft, "itl_p99_ms": itl,
+                      "token_agreement_vs_one_shot": agreement(got, base)}
+        del p
+    emit(out)
+
+
+def phase_trace(torch, name, cfg, params, prompts, dev, serve_line, cache):
     """Where a decode step's time goes: one decode chunk of the same
     engine under the profiler (device activity only). Device busy time
     per step against the unprofiled wall time per step of the main run
     gives the device's idle share; the repro kernels' share is the FFN
-    kernel's part. Then one more decode chunk under CUDA's sync debug
-    mode, which fails the run if the chunk makes the host wait."""
+    kernel's part; ``top_kernels`` names the TOP_KERNELS device kernels
+    with the most time a step. Then one more decode chunk (with its write
+    mask when paged) under CUDA's sync debug mode, which fails the run if
+    the chunk makes the host wait."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve import EngineConfig, ServeEngine
     from repro_torch.serve.engine import make_decode_chunk
     eng = ServeEngine(cfg, params, EngineConfig(
         slots=SLOTS, max_prompt_len=MAX_PROMPT, max_len=MAX_LEN,
-        chunk=CHUNK, cache="slot"), device=dev)
+        chunk=CHUNK, page_size=PAGE_SIZE, cache=cache), device=dev)
     for pr in prompts[:SLOTS]:
         eng.submit(pr, max_new=MAX_NEW)
     eng.step()                          # admission + first decode chunk
@@ -539,7 +664,7 @@ def phase_trace(torch, name, cfg, params, prompts, dev, serve_line):
     steps = eng.stats.decode_steps - steps0
     # a decode chunk enqueues all its steps without one host sync: any
     # sync inside (a copy from host memory, .item(), ...) raises here
-    chunk = make_decode_chunk(cfg, CHUNK)
+    chunk = make_decode_chunk(cfg, CHUNK, paged=eng.paged)
     torch.cuda.set_sync_debug_mode("error")
     try:
         chunk(eng.params, eng.cache, eng.state, 0, [0] * SLOTS,
@@ -550,16 +675,26 @@ def phase_trace(torch, name, cfg, params, prompts, dev, serve_line):
     evs = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     wall_step = serve_line["decode_s"] / serve_line["decode_steps"]
-    out = {"phase": "trace_" + name, "decode_steps": steps,
+    out = {"phase": "trace_" + name + ("" if cache == "paged" else "_slot"),
+           "cache": cache, "decode_steps": steps,
            "decode_chunk_host_syncs": 0,
            "wall_ms_per_step": wall_step * 1e3, "device_events": len(evs)}
     if evs and steps:
         busy = sum(us for _, us in evs) / steps / 1e3
         mine = sum(us for n, us in evs if "repro_" in n) / steps / 1e3
+        by_name = {}
+        for n, us in evs:
+            t, k = by_name.get(n, (0.0, 0))
+            by_name[n] = (t + us, k + 1)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP_KERNELS]
         out.update(device_busy_ms_per_step=busy,
                    device_idle_share=1.0 - busy / (wall_step * 1e3),
                    repro_kernel_ms_per_step=mine,
-                   kernels_per_step=len(evs) / steps)
+                   kernels_per_step=len(evs) / steps,
+                   top_kernels=[{"name": n[:120],
+                                 "ms_per_step": t / steps / 1e3,
+                                 "launches_per_step": k / steps}
+                                for n, (t, k) in top])
     emit(out)
 
 
@@ -659,26 +794,48 @@ def main() -> int:
     served = {}
     for name, scheme, kernel, cfg in deployments:
         params = with_act(torch, weights, cfg, dev)
-        toks, launches, line = phase_serve(
-            torch, epi, "serve_" + name, cfg, params, prompts, dev, card,
-            kernel)
+        # the two caches run in turns, paged first in every other
+        # deployment, so neither always meets a colder host
+        order = ("paged", "slot") if len(served) % 2 == 0 \
+            else ("slot", "paged")
+        runs = {cache: phase_serve(torch, epi, "serve_" + name, cfg, params,
+                                   prompts, dev, card, kernel, cache)
+                for cache in order}
+        (toks, launches, line), (stoks, _, sline) = runs["paged"], \
+            runs["slot"]
+        emit({"phase": "paged_vs_slot", "deployment": name,
+              "tokens_identical": toks == stoks,
+              "decode_tokens_per_s": {"paged": line["decode_tokens_per_s"],
+                                      "slot": sline["decode_tokens_per_s"]},
+              "prefill_tokens_per_s": {
+                  "paged": line["prefill_tokens_per_s"],
+                  "slot": sline["prefill_tokens_per_s"]}})
+        # page_size divides the capacity: the gathered ring has the slot
+        # ring's width, order and values, so the arithmetic is the same
+        assert toks == stoks, (name, "paged != slot tokens")
         served[name] = dict(toks=toks, launches=launches, line=line,
-                            params=params)
+                            slot_line=sline, params=params)
     agree = {}
     for scheme in SCHEMES:
         f, k = [served[n]["toks"] for n, s, _, _ in deployments if s == scheme]
-        agree[scheme] = sum(a == b for ra, rb in zip(f, k)
-                            for a, b in zip(ra, rb)) / sum(map(len, f))
+        agree[scheme] = agreement(f, k)
     emit({"phase": "token_agreement", "fused_vs_kernelized": agree,
           "note": "bf16 deployments differ by design; information only"})
+    # prefix sharing and chunked prefill on the cr_spline pair, bf16 and f32
+    for name, scheme, kernel, cfg in deployments:
+        if scheme == "cr_spline":
+            phase_prefix(torch, epi, name, cfg, weights, dev, card, kernel)
+            phase_chunked(torch, epi, name, cfg, weights, prompts, dev, card,
+                          kernel, served[name]["toks"])
 
     # 4. kernel timings, then where a decode step's time goes
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
     timings = phase_kernel_times(torch, epi, dev, flush)
     elementwise_aims(timings)
     for name, _, _, cfg in deployments:
-        phase_trace(torch, name, cfg, served[name]["params"], prompts, dev,
-                    served[name]["line"])
+        for cache, key in (("paged", "line"), ("slot", "slot_line")):
+            phase_trace(torch, name, cfg, served[name]["params"], prompts,
+                        dev, served[name][key], cache)
         del served[name]["params"]
     del flush
     torch.cuda.empty_cache()

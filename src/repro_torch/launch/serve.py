@@ -9,9 +9,11 @@ engine requests, decode runs as on-device chunks with on-device sampling,
 and the returned tokens/stats follow the reference's lockstep contract.
 The weights are random (``materialize_params``, torch's generator) and
 the prompts are drawn with numpy from ``--seed``; neither matches the
-reference's ``jax.random`` draws. Flags of parts not yet ported
-(``--model-parallel``, ``--replicas``, ``--autoscale``,
-``--chunk-prefill``, ``--token-budget``, ``--cache paged``, ...) raise.
+reference's ``jax.random`` draws. The engine serves on the paged cache
+by default (``--cache slot`` for per-slot rings; ``--page-size``,
+``--no-prefix-cache``, ``--chunk-prefill``, ``--token-budget`` shape the
+paged path). Flags of parts not yet ported (``--model-parallel``,
+``--replicas``, ``--autoscale``, ...) raise.
 """
 from __future__ import annotations
 
@@ -68,9 +70,13 @@ def serve_batch(cfg, params, prompts, gen_tokens: int, *,
                 temperature: float = 0.0, seed: int = 0,
                 capacity: int | None = None, slots: int | None = None,
                 chunk: int = 8, eos_id: int | None = None,
-                cache: str = "slot", device="cuda"):
+                cache: str = "paged", page_size: int = 16,
+                prefix_cache: bool = True, chunk_prefill: int = 0,
+                token_budget: int | None = None, device="cuda"):
     """prompts: int [B, S]. Returns (tokens int32 [B, gen] on the CPU,
-    stats). Always a continuous-batching ServeEngine on ``device``. An
+    stats). Always a continuous-batching ServeEngine on ``device``
+    (``cache`` / ``page_size`` / ``prefix_cache`` pick its cache contract,
+    ``chunk_prefill`` / ``token_budget`` its token-budget schedule). An
     explicit ``capacity`` overrides the default S + gen_tokens cache
     sizing (it must still fit every request). With ``eos_id``, rows that
     emit it stop early and are right-padded with 0 to gen_tokens."""
@@ -85,7 +91,10 @@ def serve_batch(cfg, params, prompts, gen_tokens: int, *,
         max_len = capacity
     ecfg = EngineConfig(slots=slots or B, max_prompt_len=S, max_len=max_len,
                         chunk=max(1, min(chunk, gen_tokens - 1) or 1),
-                        cache=cache, seed=seed)
+                        cache=cache, page_size=page_size,
+                        prefix_cache=prefix_cache,
+                        chunk_prefill=chunk_prefill,
+                        token_budget=token_budget, seed=seed)
     engine = ServeEngine(cfg, params, ecfg, device=device)
     for b in range(B):
         engine.submit(prompts[b], gen_tokens, temperature=temperature,
@@ -107,10 +116,6 @@ _UNPORTED_FLAGS = {
     "autoscale": (None, "Queue A item 10"),
     "router_queue": (64, "Queue A item 10"),
     "router_policy": ("reject", "Queue A item 10"),
-    "chunk_prefill": (0, "Queue A item 8"),
-    "token_budget": (None, "Queue A item 8"),
-    "page_size": (16, "Queue A item 8"),
-    "no_prefix_cache": (False, "Queue A item 8"),
 }
 
 
@@ -138,8 +143,22 @@ def main(argv=None):
                    help="decode steps per host sync")
     p.add_argument("--eos-id", type=int, default=None,
                    help="stop rows early on this token id")
-    p.add_argument("--cache", choices=("paged", "slot"), default="slot",
-                   help="KV cache contract (only 'slot' is ported)")
+    p.add_argument("--cache", choices=("paged", "slot"), default="paged",
+                   help="KV cache contract: shared page pool (default) "
+                        "or per-slot rings")
+    p.add_argument("--page-size", type=int, default=16,
+                   help="tokens per KV page (--cache paged)")
+    p.add_argument("--no-prefix-cache", action="store_true",
+                   help="disable prefix page sharing (--cache paged)")
+    p.add_argument("--chunk-prefill", type=int, default=0,
+                   help="prompt tokens per prefill chunk; > 0 switches "
+                        "the engine to the token-budget schedule that "
+                        "interleaves chunked prefill with decode "
+                        "(--cache paged)")
+    p.add_argument("--token-budget", type=int, default=None,
+                   help="token budget per engine iteration (requires "
+                        "--chunk-prefill; default slots*chunk + "
+                        "chunk_prefill)")
     p.add_argument("--device", default="cuda",
                    help="torch device to serve on (cuda, or cpu)")
     p.add_argument("--json", default=None, help="write stats JSON here")
@@ -149,19 +168,12 @@ def main(argv=None):
     p.add_argument("--autoscale", default=None)
     p.add_argument("--router-queue", type=int, default=64)
     p.add_argument("--router-policy", default="reject")
-    p.add_argument("--chunk-prefill", type=int, default=0)
-    p.add_argument("--token-budget", type=int, default=None)
-    p.add_argument("--page-size", type=int, default=16)
-    p.add_argument("--no-prefix-cache", action="store_true")
     args = p.parse_args(argv)
 
     for name, (default, item) in _UNPORTED_FLAGS.items():
         if getattr(args, name) != default:
             raise SystemExit(f"--{name.replace('_', '-')} is not ported yet "
                              f"(ROADMAP.md, {item})")
-    if args.cache == "paged":
-        raise SystemExit("--cache paged is not ported yet (ROADMAP.md, "
-                         "Queue A item 8)")
     cfg = registry.get(args.arch, smoke=args.smoke)
     if args.activation:
         cfg = dataclasses.replace(
@@ -187,7 +199,10 @@ def main(argv=None):
     tokens, stats = serve_batch(
         cfg, params, prompts, args.gen, temperature=args.temperature,
         seed=args.seed, slots=args.slots, chunk=args.chunk,
-        eos_id=args.eos_id, cache=args.cache, device=args.device)
+        eos_id=args.eos_id, cache=args.cache, page_size=args.page_size,
+        prefix_cache=not args.no_prefix_cache,
+        chunk_prefill=args.chunk_prefill, token_budget=args.token_budget,
+        device=args.device)
     print(f"[serve] prefill {stats.prefill_tokens_per_s:,.0f} tok/s "
           f"({stats.prefill_s*1e3:.0f} ms), decode "
           f"{stats.decode_tokens_per_s:,.0f} tok/s "

@@ -1,7 +1,9 @@
 """Step builders (counterpart of ``repro/launch/steps.py``, serving half).
 
-  prefill_step: forward, returns (last logits, filled cache);
-  serve_step:   one-token decode against the cache.
+  prefill_step:       forward, returns (last logits, filled cache);
+  prefill_chunk_step: one chunk of one paged slot's prompt (chunked
+                      admission);
+  serve_step:         one-token decode against the cache.
 
 The train step (``TrainHyper`` / ``make_train_step``) arrives with the
 training slice (ROADMAP.md, Queue A item 7).
@@ -63,6 +65,23 @@ def make_prefill_step(cfg: ModelConfig, capacity: int | None = None):
         return M.prefill_fn(params, batch, cfg, engine, capacity=capacity)
 
     return prefill_step
+
+
+def make_prefill_chunk_step(cfg: ModelConfig, page_size: int):
+    """Chunked-admission prefill step (paged serving): resume one slot's
+    ragged prefill at offset ``pos``, attending over its previously
+    written ring and scattering the chunk's k/v into the slot's pool
+    pages in place. (params, batch{tokens [1,S]}, pool_kv, tbl_row [n],
+    k_pos_row [W], pos, clen) -> (last-token logits [1, V], new k_pos
+    row). The serve engine wraps this in its chunk step
+    (serve/engine.py::make_chunk_prefill)."""
+    engine = _make_engine(cfg)
+
+    def chunk_step(params, batch, pool_kv, tbl_row, k_pos_row, pos, clen):
+        return M.prefill_chunk_fn(params, batch, cfg, engine, pool_kv,
+                                  tbl_row, k_pos_row, pos, clen, page_size)
+
+    return chunk_step
 
 
 def make_serve_step(cfg: ModelConfig):

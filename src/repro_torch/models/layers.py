@@ -9,7 +9,7 @@ flash-style online softmax over KV chunks inside a loop over Q chunks
 bounded temporaries. GQA head h is served by kv-head h // G.
 
 Not ported yet: mrope, MoE, Mamba and the hybrid block (ROADMAP.md,
-Queue A item 9), the paged decode contract (item 8). Each raises.
+Queue A item 9). Each raises.
 """
 from __future__ import annotations
 
@@ -358,26 +358,52 @@ class BlockIO:
 def _attn_branch(p, xn, io: BlockIO, cfg: ModelConfig, engine):
     new_cache = {}
     if io.mode == "decode":
-        if "page_tbl" in io.cache:
-            raise NotImplementedError("the paged cache is not ported yet "
-                                      "(ROADMAP.md, Queue A item 8)")
         q, k_new, v_new = _qkv(p, xn, io.positions, cfg)
-        # slot contract: k/v [B, W, KV, hd] are views into the stacked
-        # cache and are written in place (the reference returns updated
-        # copies; in place saves a full cache copy per step)
         kc, vc = io.cache["k"], io.cache["v"]
-        rows = torch.arange(kc.shape[0], device=kc.device)
-        slot = io.cache["slot"]                             # [B]
-        kc[rows, slot] = k_new[:, 0].to(kc.dtype)
-        vc[rows, slot] = v_new[:, 0].to(vc.dtype)
-        ctx = decode_attention(q, kc, vc, io.q_pos, io.k_pos, cfg, engine)
+        if "page_tbl" in io.cache:
+            # paged contract: k/v are views of the shared page pool
+            # [P, ps, KV, hd], written in place; the row's ring is
+            # reassembled by gathering its page table. Writes of dead or
+            # unallocated rows land on the trash page (page 0), which
+            # k_pos == -1 masks out.
+            page, off = io.cache["page"], io.cache["off"]      # [B]
+            tbl = io.cache["page_tbl"]                         # [B, n]
+            kc[page, off] = k_new[:, 0].to(kc.dtype)
+            vc[page, off] = v_new[:, 0].to(vc.dtype)
+            B, n = tbl.shape
+            ring = (B, n * kc.shape[1]) + tuple(kc.shape[2:])  # [B, W, KV, hd]
+            ctx = decode_attention(q, kc[tbl].reshape(ring),
+                                   vc[tbl].reshape(ring), io.q_pos,
+                                   io.k_pos, cfg, engine)
+        else:
+            # slot contract: k/v [B, W, KV, hd] are views into the
+            # stacked cache and are written in place (the reference
+            # returns updated copies; in place saves a full cache copy
+            # per step)
+            rows = torch.arange(kc.shape[0], device=kc.device)
+            slot = io.cache["slot"]                             # [B]
+            kc[rows, slot] = k_new[:, 0].to(kc.dtype)
+            vc[rows, slot] = v_new[:, 0].to(vc.dtype)
+            ctx = decode_attention(q, kc, vc, io.q_pos, io.k_pos, cfg,
+                                   engine)
         new_cache = {"k": kc, "v": vc}
     else:
-        if io.cache is not None and "k_pre" in io.cache:
-            raise NotImplementedError("prefix-cached prefill is not ported "
-                                      "yet (ROADMAP.md, Queue A item 8)")
         q, k, v = _qkv(p, xn, io.positions, cfg)
-        ctx = flash_attention(q, k, v, io.q_pos, io.k_pos, cfg, engine)
+        if io.cache is not None and "k_pre" in io.cache:
+            # prefix-cached prefill: suffix queries attend over the
+            # shared prefix k/v (gathered from the page pool, the same
+            # for every row) followed by this row's own suffix keys
+            kp, vp = io.cache["k_pre"], io.cache["v_pre"]      # [Lp, KV, hd]
+            B = k.shape[0]
+
+            def full(pre, own):
+                pre = pre.to(own.dtype)[None].expand((B,) + tuple(pre.shape))
+                return torch.cat([pre, own], dim=1)
+
+            ctx = flash_attention(q, full(kp, k), full(vp, v), io.q_pos,
+                                  io.k_pos, cfg, engine)
+        else:
+            ctx = flash_attention(q, k, v, io.q_pos, io.k_pos, cfg, engine)
         if io.mode == "prefill":
             new_cache = {"k": k, "v": v}
     return attention_out(p, ctx, cfg), new_cache

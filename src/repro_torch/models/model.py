@@ -8,10 +8,18 @@ Layer parameters are stacked on a leading layer axis under
 parameter tree carries over one to one, see ``params_from_numpy``); the
 stack runners loop over layers in Python where the reference scans.
 
-Cache contract (slot only in this slice): ``{"layers": {"k", "v":
-[L, B, W, KV, hd]}, "cur": [B] or scalar, "k_pos": [B, W] or [W]}``.
-Ring slot of absolute position p is p % W; k_pos = -1 marks an empty or
-padded slot. Decode writes the new key and value into the cache in
+Slot cache contract: ``{"layers": {"k", "v": [L, B, W, KV, hd]}, "cur":
+[B] or scalar, "k_pos": [B, W] or [W]}``. Ring slot of absolute position
+p is p % W; k_pos = -1 marks an empty or padded slot.
+
+Paged cache contract (the serve engine's default): ``layers.k/v`` are
+one shared page pool [L, P, page_size, KV, hd] and ``page_tbl`` [B, n]
+maps each slot's logical ring pages to pool pages; ``k_pos`` is
+[B, n * page_size]. Logical ring slot j of row b lives at page
+``page_tbl[b, j // page_size]``, offset ``j % page_size``. Physical page
+0 is the trash page: dead and unallocated logical pages map there.
+
+Decode, chunked prefill and the engine's inserts write the cache in
 place.
 """
 from __future__ import annotations
@@ -238,15 +246,117 @@ def _prefill_slot_positions_ragged(capacity: int, lengths):
     return torch.where(valid, p, -1)
 
 
-def run_stack_decode(params, x, cfg: ModelConfig, engine, cache):
+def run_stack_prefill_prefix(params, x, cfg: ModelConfig, engine,
+                             prefix_kv, prefix_len: int, capacity: int,
+                             page_size: int, lengths):
+    """Ragged prefill of prompt *suffixes* against an already-cached,
+    page-aligned shared prefix (prefix caching).
+
+    ``x`` embeds the suffix tokens (right-padded to S); ``prefix_kv`` is
+    the per-layer prefix k/v gathered from the page pool ({"k"/"v"}:
+    [L, prefix_len, KV, hd], shared by every row). Each layer attends
+    suffix queries over [prefix ++ suffix] keys — causal masking hides
+    the row's pad keys exactly as in the cold ragged path — and returns
+    the suffix k/v padded to whole pages, in sequence order (suffix page
+    j holds positions prefix_len + [j*ps, (j+1)*ps)). Requires no
+    sliding window, so ring order is sequence order and the returned
+    ``cur``/``k_pos`` cover positions [0, prefix_len + len_b)."""
+    S = x.shape[1]
+    dev = x.device
+    ar = torch.arange(S, dtype=torch.int32, device=dev)
+    io = BlockIO(mode="prefill",
+                 positions=_positions_for(cfg, S, dev, offset=prefix_len),
+                 q_pos=prefix_len + ar,
+                 k_pos=torch.arange(prefix_len + S, dtype=torch.int32,
+                                    device=dev))
+    pad = (-S) % page_size
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        io.cache = {"k_pre": prefix_kv["k"][i], "v_pre": prefix_kv["v"][i]}
+        x, cache, _ = apply_block(_layer(params["blocks"], i), x, io, cfg,
+                                  engine)
+        for out, name in ((ks, "k"), (vs, "v")):
+            kv = cache[name]
+            out.append(torch.nn.functional.pad(kv, (0, 0, 0, 0, 0, pad))
+                       if pad else kv)
+    total = prefix_len + lengths.to(torch.int32)                 # [B]
+    j = torch.arange(capacity, dtype=torch.int32, device=dev)[None, :]
+    k_pos = torch.where(j < total[:, None], j, -1)
+    return x, {"layers": {"k": torch.stack(ks), "v": torch.stack(vs)},
+               "cur": total, "k_pos": k_pos}
+
+
+def run_stack_prefill_chunk(params, x, cfg: ModelConfig, engine, pool_kv,
+                            tbl_row, k_pos_row, pos: int, clen: int,
+                            page_size: int):
+    """Resume a ragged prefill at prompt offset ``pos`` for ONE paged slot
+    (chunked admission: serve/engine.py interleaves these chunks with
+    decode chunks under a token budget).
+
+    ``x`` embeds the chunk's tokens right-padded to S; the chunk covers
+    absolute positions [pos, pos + clen) (host ints). ``pool_kv`` is the
+    shared page pool ({"k"/"v"}: [L, P, ps, KV, hd]), written in place;
+    ``tbl_row`` [n] the slot's page table and ``k_pos_row`` [n*ps] its
+    current ring validity row (the caller resets it on the first chunk;
+    a prefix-cache hit starts with the shared pages' positions marked).
+
+    Each layer gathers the slot's FULL padded ring through its page table
+    as k_pre/v_pre, before this chunk's writes, and the flash mask
+    (causal + sliding window + k_pos >= 0) decides what is visible, so no
+    page alignment is imposed on the chunk and sliding-window rings work
+    unchanged: a ring entry this chunk overwrites (position p - W) is
+    masked for every query that could see the gathered stale value. The
+    chunk's k/v then scatter into the pool token by token, pad lanes
+    redirected to the trash page.
+
+    Returns (x, new k_pos row)."""
+    S = x.shape[1]
+    dev = x.device
+    ps = page_size
+    W = tbl_row.shape[0] * ps                          # padded ring width
+    i = torch.arange(S, dtype=torch.int32, device=dev)
+    own_pos = pos + i
+    real = i < clen
+    io = BlockIO(mode="prefill",
+                 positions=_positions_for(cfg, S, dev, offset=pos),
+                 q_pos=own_pos,
+                 k_pos=torch.cat([k_pos_row, torch.where(real, own_pos, -1)]))
+    ring_slot = torch.remainder(own_pos, W).to(torch.int64)
+    tbl = tbl_row.to(torch.int64)
+    w_page = torch.where(real, tbl[ring_slot // ps], 0)   # pads -> trash
+    w_off = ring_slot % ps
+    for li in range(cfg.n_layers):
+        pool_k, pool_v = pool_kv["k"][li], pool_kv["v"][li]
+        ring = (W,) + tuple(pool_k.shape[2:])
+        io.cache = {"k_pre": pool_k[tbl].reshape(ring),
+                    "v_pre": pool_v[tbl].reshape(ring)}
+        x, cache, _ = apply_block(_layer(params["blocks"], li), x, io, cfg,
+                                  engine)
+        pool_k[w_page, w_off] = cache["k"][0].to(pool_k.dtype)
+        pool_v[w_page, w_off] = cache["v"][0].to(pool_v.dtype)
+    new_row = k_pos_row.clone()
+    new_row[ring_slot[:clen]] = own_pos[:clen].to(new_row.dtype)
+    return x, new_row
+
+
+def run_stack_decode(params, x, cfg: ModelConfig, engine, cache,
+                     write_mask=None):
     """One-token step. x: [B,1,d]. Returns (x, new_cache).
 
     ``cur`` is either a scalar (lockstep batch) or int [B] (per-slot);
     ``k_pos`` correspondingly [W] or [B, W]; the returned cache keeps the
-    structure it was given. The layers' k/v are updated in place."""
-    if "page_tbl" in cache:
-        raise NotImplementedError("the paged cache is not ported yet "
-                                  "(ROADMAP.md, Queue A item 8)")
+    structure it was given. The layers' k/v are updated in place.
+
+    Paged contract (the cache carries ``page_tbl`` [B, n]): logical ring
+    slot ``cur % W`` lives at page ``page_tbl[b, slot // ps]``, offset
+    ``slot % ps``; decode scatters one token through the table and
+    gathers the row's W keys back out, all on the device. With
+    ``write_mask`` [B] bool (paged only), masked rows keep their cache
+    bit for bit: their k/v writes land on the trash page, their k_pos row
+    is untouched and their ``cur`` does not advance. The chunked-prefill
+    engine decodes while some slots are mid-prefill; without the mask
+    every decode step would scribble ring slots their chunks have yet to
+    fill."""
     B = x.shape[0]
     cur = cache["cur"]
     per_slot = cur.dim() > 0
@@ -254,19 +364,35 @@ def run_stack_decode(params, x, cfg: ModelConfig, engine, cache):
     k_pos_vec = cache["k_pos"]
     W = k_pos_vec.shape[-1]
     slot = torch.remainder(cur_b, W).to(torch.int64)
+    tbl = cache.get("page_tbl")
+    wm = write_mask if tbl is not None else None
+    lcache_extra = {"slot": slot}
+    if tbl is not None:
+        ps = cache["layers"]["k"].shape[2]                 # [L,P,ps,KV,hd]
+        tbl64 = tbl.to(torch.int64)
+        page = torch.gather(tbl64, 1, (slot // ps)[:, None])[:, 0]
+        if wm is not None:
+            page = torch.where(wm, page, 0)
+        lcache_extra = {"page": page, "off": slot % ps, "page_tbl": tbl64}
     positions = cur_b[:, None].to(torch.int32)                     # [B, 1]
     kp = k_pos_vec if k_pos_vec.dim() == 2 else k_pos_vec[None, :].expand(B, W)
     upd = torch.arange(W, device=x.device)[None, :] == slot[:, None]
+    if wm is not None:
+        upd = upd & wm[:, None]
     k_pos_new = torch.where(upd, cur_b[:, None].to(kp.dtype), kp)  # [B, W]
     layers = cache["layers"]
     for i in range(cfg.n_layers):
-        lcache = {"k": layers["k"][i], "v": layers["v"][i], "slot": slot}
+        lcache = {"k": layers["k"][i], "v": layers["v"][i], **lcache_extra}
         io = BlockIO(mode="decode", positions=positions, q_pos=cur_b,
                      k_pos=k_pos_new, cache=lcache)
         x, _, _ = apply_block(_layer(params["blocks"], i), x, io, cfg, engine)
-    return x, {"layers": layers, "cur": cur + 1,
-               "k_pos": k_pos_new if (per_slot or k_pos_vec.dim() == 2)
-               else k_pos_new[0]}
+    adv = 1 if wm is None else wm.to(cur.dtype)
+    new_cache = {"layers": layers, "cur": cur + adv,
+                 "k_pos": k_pos_new if (per_slot or k_pos_vec.dim() == 2)
+                 else k_pos_new[0]}
+    if tbl is not None:
+        new_cache["page_tbl"] = tbl
+    return x, new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -297,6 +423,34 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
     return {"layers": layers,
             "cur": torch.zeros((), dtype=torch.int32, device=device),
             "k_pos": torch.full((W,), -1, dtype=torch.int32, device=device)}
+
+
+def pages_per_slot(cfg: ModelConfig, seq_len: int, page_size: int) -> int:
+    """Logical pages per decode slot: the ring capacity rounded up to
+    whole pages. The paged ring width is pages_per_slot * page_size;
+    padding the ring is free because attention validity is decided by
+    the mask (k_pos), not by the width."""
+    return -(-cache_capacity(cfg, seq_len) // page_size)
+
+
+def init_paged_cache(cfg: ModelConfig, slots: int, n_pages: int,
+                     page_size: int, seq_len: int, device="cuda"):
+    """Zero page pool k/v [L, n_pages, page_size, KV, hd]; every page
+    table entry [slots, pages_per_slot] points at the trash page
+    (physical page 0), every k_pos [slots, pages_per_slot * page_size] is
+    -1 (masked) and every ``cur`` is 0."""
+    check_ported(cfg)
+    L, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim_
+    n_slot = pages_per_slot(cfg, seq_len, page_size)
+    cdt = dtype_of(cfg)
+    layers = {name: torch.zeros((L, n_pages, page_size, KV, hd), dtype=cdt,
+                                device=device) for name in ("k", "v")}
+    return {"layers": layers,
+            "cur": torch.zeros((slots,), dtype=torch.int32, device=device),
+            "k_pos": torch.full((slots, n_slot * page_size), -1,
+                                dtype=torch.int32, device=device),
+            "page_tbl": torch.zeros((slots, n_slot), dtype=torch.int32,
+                                    device=device)}
 
 
 # ---------------------------------------------------------------------------
@@ -336,9 +490,50 @@ def prefill_fn(params, batch, cfg: ModelConfig, engine: ActivationEngine,
     return logits, cache
 
 
+def prefill_prefix_fn(params, batch, cfg: ModelConfig,
+                      engine: ActivationEngine, prefix_kv, prefix_len: int,
+                      capacity: int, page_size: int):
+    """Prefix-cached admission step: ragged prefill of prompt suffixes
+    over a shared page-aligned prefix (run_stack_prefill_prefix). Logits
+    are read at each row's last real *suffix* token; the returned cache
+    covers only the suffix (page-shaped k/v) — prefix pages are already
+    in the pool and are never rewritten."""
+    lengths = batch["lengths"]
+    engine = _bind_engine(engine, params)
+    x = embed_tokens(params, batch["tokens"], cfg)
+    x, cache = run_stack_prefill_prefix(params, x, cfg, engine, prefix_kv,
+                                        prefix_len, capacity, page_size,
+                                        lengths)
+    x = apply_norm(params["ln_f"], x, cfg)
+    rows = torch.arange(x.shape[0], device=x.device)
+    last = x[rows, (lengths - 1).to(torch.int64)][:, None]       # [B, 1, d]
+    return lm_logits(params, last, cfg)[:, 0], cache
+
+
+def prefill_chunk_fn(params, batch, cfg: ModelConfig,
+                     engine: ActivationEngine, pool_kv, tbl_row, k_pos_row,
+                     pos: int, clen: int, page_size: int):
+    """Chunked-admission step: one chunk of one slot's prompt resumed at
+    offset ``pos`` (run_stack_prefill_chunk; the pool is written in
+    place). Logits are read at the chunk's last real token — meaningful
+    only on the final chunk, where the engine samples the first generated
+    token from them. Returns (logits [1, V], new k_pos row)."""
+    engine = _bind_engine(engine, params)
+    x = embed_tokens(params, batch["tokens"], cfg)                # [1, S, d]
+    x, new_row = run_stack_prefill_chunk(params, x, cfg, engine, pool_kv,
+                                         tbl_row, k_pos_row, pos, clen,
+                                         page_size)
+    x = apply_norm(params["ln_f"], x, cfg)
+    last = x[:, clen - 1:clen]                                    # [1, 1, d]
+    return lm_logits(params, last, cfg)[:, 0], new_row
+
+
 def decode_fn(params, batch, cache, cfg: ModelConfig, engine: ActivationEngine):
+    """One decode step. A paged cache honours ``batch["write_mask"]``
+    (run_stack_decode)."""
     engine = _bind_engine(engine, params)
     x = embed_tokens(params, batch["tokens"], cfg)         # [B, 1, d]
-    x, cache = run_stack_decode(params, x, cfg, engine, cache)
+    x, cache = run_stack_decode(params, x, cfg, engine, cache,
+                                write_mask=batch.get("write_mask"))
     x = apply_norm(params["ln_f"], x, cfg)
     return lm_logits(params, x, cfg)[:, 0], cache

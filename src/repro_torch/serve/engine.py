@@ -1,36 +1,60 @@
-"""Continuous-batching serve engine, slot contract (counterpart of
+"""Continuous-batching serve engine (counterpart of
 ``repro/serve/engine.py``).
 
-The engine owns one per-slot KV cache [L, B=slots, W, KV, hd] (cache
-contract: models/model.py — ``cur`` [B], ``k_pos`` [B, W]) and runs decode
-as a loop of ``chunk`` steps with embedding, stack, sampling and per-slot
-EOS/budget masking all on the device: the host enqueues the whole chunk
-and syncs once, on the chunk's tokens. Between chunks the host harvests
-finished slots and admits queued requests into the freed rows.
+The engine owns the device KV cache (cache contracts: models/model.py)
+and runs decode as a loop of ``chunk`` steps with embedding, stack,
+sampling and per-slot EOS/budget masking all on the device: the host
+enqueues the whole chunk and syncs once, on the chunk's tokens. Between
+chunks the host harvests finished slots and admits queued requests into
+the freed rows.
 
-Admission is batched by bucket: the scheduler pops up to
+Cache contracts. By default (``EngineConfig(cache="paged")``) the KV
+ring lives in one page pool [L, n_pages, page_size, KV, hd] shared by
+all slots, with per-slot page tables mapping logical ring pages to pool
+pages. Admission is bounded by *free pages*, not free slots: prompt
+pages are allocated at admission (plus a worst-case reservation, so
+lazy growth during decode can never deadlock), grown chunk by chunk as
+generation advances, and released at completion. Page-aligned common
+prompt prefixes are shared through a refcounted host-side registry
+(paging.py): a hit admits those tokens without prefilling them, the
+suffix queries attending over the cached pages. The host keeps the page
+table and uploads it once before a decode chunk when it changed.
+``cache="slot"`` keeps one full ring per slot, the reference's A/B
+baseline.
+
+Admission is batched by key: the scheduler pops up to
 ``len(free_slots)`` queued requests that share a power-of-two prefill
-bucket and the engine prefills them in ONE ragged batch, samples every
-admitted row's first token on the device, and syncs only the [N] token
-vector. The admitted rows are then scattered into the big cache; a slot
-write replaces the entire row (all W positions), so no state of the
+bucket (and, paged, the same matched prefix chain) and the engine
+prefills them in ONE ragged batch, samples every admitted row's first
+token on the device, and syncs only the [N] token vector. The admitted
+rows are then scattered into the big cache; a slot write replaces the
+entire row (all W positions, or the row's pages), so no state of the
 previous occupant leaks into the new request's attention.
+
+Token-budget schedule (``EngineConfig(chunk_prefill=N)``, paged only):
+each ``step()`` packs a token budget with one decode chunk over the
+decode-phase slots and one prefill chunk of at most N prompt tokens per
+mid-prompt slot (scheduler.py::plan_step). Admission binds a slot and
+reserves pages without running any prompt tokens; the chunks resume the
+prompt from the slot's pages, and the final chunk samples the first
+token and arms the slot's decode state on the device. The decode chunk
+is enqueued first and the chunks after it; a decode step's write mask
+keeps mid-prefill slots' pages and positions untouched.
 
 Sampling is schedule-invariant: greedy rows take the argmax (first index
 on ties); a row with temperature > 0 draws with a ``torch.Generator``
 seeded from (engine seed, uid, token index), a pure function of the
 request and the token position. The host derives the index without a
-sync: a slot's k-th chunk step draws token ``len(run.tokens) + k``. The
-draws cannot match the reference's ``jax.random`` streams.
+sync: a slot's k-th chunk step draws token ``len(run.tokens) + k``. So
+one-shot, chunked and drain-trimmed schedules draw the same tokens at
+any temperature. The draws cannot match the reference's ``jax.random``
+streams.
 
 Timing is honest on the card: every span in ``EngineStats`` ends at a
 host sync on the work it times (the token pull, or an explicit
-``torch.cuda.synchronize`` after the insert), never at enqueue.
-
-Not ported yet (ROADMAP.md, Queue A item 8): the paged cache, prefix
-reuse and chunked prefill. ``EngineConfig(cache="paged")`` raises; under
-``cache="slot"`` the reference itself ignores ``prefix_cache`` and
-``chunk_prefill``, and so does the port.
+``torch.cuda.synchronize`` after the insert), never at enqueue — except
+chunked prefill, whose chunks are not synced (their time lands in the
+next decode sync), as in the reference.
 """
 from __future__ import annotations
 
@@ -45,6 +69,7 @@ from repro_torch.launch import steps as steps_mod
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 
+from .paging import PagePool, SlotPages
 from .scheduler import (Completion, Request, SlotRun, TokenBudgetScheduler,
                         bucket_len)
 
@@ -131,14 +156,75 @@ def make_slot_insert(cfg: ModelConfig):
     return insert
 
 
-def make_decode_chunk(cfg: ModelConfig, n_steps: int):
+def make_paged_insert(cfg: ModelConfig, page_size: int):
+    """Batched admission for the paged cache contract, in place: reshape
+    each admitted row's k/v into pages and scatter them into the shared
+    pool at ``write_rows`` [N, n_w] (physical page ids; trash-padded rows
+    write harmlessly into page 0), install the rows' page tables
+    ``tbl_rows`` [N, pages_per_slot] and per-slot vectors at ``slots``
+    [N]. On a prefix hit ``write_rows`` covers only the suffix pages, so
+    shared prefix pages are never rewritten."""
+
+    def insert(cache, state, slots, small_cache, slot_vals, tbl_rows,
+               write_rows):
+        for name, pool in cache["layers"].items():       # [L, P, ps, KV, hd]
+            sm = small_cache["layers"][name]              # [L, N, n_w*ps, KV, hd]
+            L, N, Wx = sm.shape[:3]
+            pool[:, write_rows] = sm.to(pool.dtype).reshape(
+                (L, N, Wx // page_size, page_size) + tuple(sm.shape[3:]))
+        cache["cur"][slots] = small_cache["cur"].to(cache["cur"].dtype)
+        cache["k_pos"][slots] = small_cache["k_pos"].to(cache["k_pos"].dtype)
+        cache["page_tbl"][slots] = tbl_rows.to(cache["page_tbl"].dtype)
+        for name, val in slot_vals.items():
+            state[name][slots] = val.to(state[name].dtype)
+        return cache, state
+
+    return insert
+
+
+def make_prefix_prefill_sample(cfg: ModelConfig, page_size: int,
+                               capacity: int):
+    """Prefix-hit admission step: gather the shared prefix pages out of
+    the pool, ragged-prefill only the suffixes against them, and sample
+    first tokens on the device — the contract of make_prefill_sample,
+    but the batch carries *suffix* tokens/lengths. (params, pool_kv,
+    pages [n_pre], batch, uids, seed, temperature) -> (tok0 [N], small
+    cache): its k_pos width is ``capacity`` (the padded ring) and its
+    k/v are the suffix pages only."""
+    engine = steps_mod.make_engine(cfg)
+
+    def prefill_sample(params, pool_kv, pages, batch, uids, seed,
+                       temperature):
+        prefix_len = pages.shape[0] * page_size
+        prefix = {}
+        for name in ("k", "v"):
+            sel = pool_kv[name][:, pages]             # [L, n_pre, ps, KV, hd]
+            prefix[name] = sel.reshape((sel.shape[0], prefix_len)
+                                       + tuple(sel.shape[3:]))
+        logits, cache = M.prefill_prefix_fn(params, batch, cfg, engine,
+                                            prefix, prefix_len, capacity,
+                                            page_size)
+        return sample_tokens_indexed(seed, uids, [0] * len(uids), logits,
+                                     temperature), cache
+
+    return prefill_sample
+
+
+def make_decode_chunk(cfg: ModelConfig, n_steps: int, paged: bool = False):
     """(params, cache, state, seed, uids, emitted0, temps) ->
     (cache, state, toks [T, B]): ``n_steps`` decode steps enqueued on the
     device with no host sync inside. Rows record their sampled token while
     active and 0 afterwards; ``emitted`` / ``active`` advance so the host
     can replay termination exactly (EOS or budget). ``uids`` /
     ``emitted0`` / ``temps`` are the host's per-slot request ids, tokens
-    drawn so far and temperatures (sampling keys only)."""
+    drawn so far and temperatures (sampling keys only).
+
+    With ``paged``, ``active`` is also each step's write mask: inactive
+    rows leave their cache bit for bit as it was (writes land on the
+    trash page, k_pos and cur stay; models/model.py). For plain
+    continuous batching that is hygiene, but the chunked schedule
+    decodes while some slots are mid-prefill, and those slots' pages
+    must not be scribbled by the shared decode chunk."""
     engine = steps_mod.make_engine(cfg)
 
     def chunk(params, cache, state, seed, uids, emitted0, temps):
@@ -146,8 +232,10 @@ def make_decode_chunk(cfg: ModelConfig, n_steps: int):
         budget, eos = state["budget"], state["eos"]
         toks = []
         for t in range(n_steps):
-            logits, cache = M.decode_fn(params, {"tokens": tok[:, None]},
-                                        cache, cfg, engine)
+            batch = {"tokens": tok[:, None]}
+            if paged:
+                batch["write_mask"] = active
+            logits, cache = M.decode_fn(params, batch, cache, cfg, engine)
             # an active row's token index is emitted0 + t: the same key
             # no matter how steps are cut into chunks
             nxt = sample_tokens_indexed(seed, uids,
@@ -164,6 +252,51 @@ def make_decode_chunk(cfg: ModelConfig, n_steps: int):
     return chunk
 
 
+def make_chunk_prefill(cfg: ModelConfig, page_size: int):
+    """Chunked-admission step: advance ONE slot's prefill by ``clen``
+    prompt tokens (models/model.py::run_stack_prefill_chunk, in place)
+    and, on the final chunk, arm the slot's decode state on the device.
+
+    (params, cache, state, batch{tokens [1, S]}, slot, pos, clen, first,
+    final, uid, seed, temp, budget, eos) -> (cache, state, tok0), every
+    argument after ``batch`` a host value. Every chunk samples tok0 from
+    the logits at its last real token; a non-final chunk's tok0 is a
+    throwaway the host never reads. The slot's ``active`` stays False
+    until the final chunk, so interleaved decode chunks leave its pages
+    untouched (write mask). The final chunk's first token samples with
+    the (uid, 0) key — what one-shot admission would have drawn."""
+    step = steps_mod.make_prefill_chunk_step(cfg, page_size)
+
+    def chunk(params, cache, state, batch, slot, pos, clen, first, final,
+              uid, seed, temp, budget, eos):
+        if first:
+            # forget the slot's previous occupant. A prefix hit starts at
+            # pos = prefix_len with the shared pages' positions valid
+            # (ring order is sequence order: prefix caching excludes
+            # sliding windows); a cold start (pos = 0) resets to -1
+            k_pos = cache["k_pos"]
+            j = torch.arange(k_pos.shape[1], dtype=k_pos.dtype,
+                             device=k_pos.device)
+            row = torch.where(j < pos, j, -1)
+        else:
+            row = cache["k_pos"][slot]
+        pool_kv = {"k": cache["layers"]["k"], "v": cache["layers"]["v"]}
+        logits, new_row = step(params, batch, pool_kv,
+                               cache["page_tbl"][slot], row, pos, clen)
+        tok0 = sample_tokens_indexed(seed, [uid], [0], logits, [temp])[0]
+        cache["cur"][slot] = pos + clen
+        cache["k_pos"][slot] = new_row
+        if final:
+            state["tok"][slot] = tok0
+            state["emitted"][slot] = 1
+            state["active"][slot] = (tok0 != eos) if budget > 1 else False
+            state["budget"][slot] = budget
+            state["eos"][slot] = eos
+        return cache, state, tok0
+
+    return chunk
+
+
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     slots: int = 4              # decode batch width (fixed)
@@ -176,14 +309,27 @@ class EngineConfig:
                                 # one request per prefill
     trim_drain: bool = True     # cap the final decode chunks at the
                                 # largest remaining per-slot budget
-    cache: str = "slot"         # "slot": one full ring per slot. "paged"
-                                # (the reference's default) is not
-                                # ported yet and raises
-    page_size: int = 16         # paged only
-    n_pages: int | None = None  # paged only
-    prefix_cache: bool = True   # paged only (ignored under "slot")
-    chunk_prefill: int = 0      # paged only (ignored under "slot")
-    token_budget: int | None = None  # chunked schedule only
+    cache: str = "paged"        # "paged": shared page pool + per-slot
+                                # page tables, admission by free pages
+                                # (grown lazily, freed at completion);
+                                # "slot": one full ring per slot, the
+                                # reference's A/B baseline
+    page_size: int = 16         # tokens per page (paged only)
+    n_pages: int | None = None  # physical pool size incl. the trash
+                                # page; None = slots * pages_per_slot
+                                # + 1, the slot contract's memory
+    prefix_cache: bool = True   # share page-aligned common prompt
+                                # prefixes across requests (paged, no
+                                # sliding window)
+    chunk_prefill: int = 0      # > 0: admission streams each prompt in
+                                # chunks of at most this many tokens,
+                                # interleaved with decode under the
+                                # token budget (paged only; clamped to
+                                # the padded ring). 0 = one-shot
+    token_budget: int | None = None  # per-iteration token cap of the
+                                # chunked schedule: decode steps x
+                                # decode slots + prefill chunk tokens.
+                                # None = slots * chunk + chunk_prefill
     seed: int = 0
 
     def __post_init__(self):
@@ -199,10 +345,6 @@ class EngineConfig:
         if self.cache not in ("paged", "slot"):
             raise ValueError(f"cache must be 'paged' or 'slot', "
                              f"got {self.cache!r}")
-        if self.cache == "paged":
-            raise NotImplementedError(
-                "the paged cache is not ported yet (ROADMAP.md, Queue A "
-                "item 8); use cache='slot'")
         if self.page_size < 1:
             raise ValueError(f"page_size ({self.page_size}) must be >= 1")
         if self.n_pages is not None and self.n_pages < 2:
@@ -230,19 +372,23 @@ class EngineStats:
     prefill_requests: int = 0      # requests admitted across prefills
     insert_s: float = 0.0          # slot-insert time (the other half of
                                    # admission)
-    prefill_chunks: int = 0        # chunked admission (not ported): 0
+    prefill_chunks: int = 0        # chunked admission: prefill chunks
+                                   # (never synced, so chunked prefill_s
+                                   # counts enqueue time only; their
+                                   # compute lands in decode_s)
     decode_s: float = 0.0
     decode_chunks: int = 0
     decode_steps: int = 0          # sum of per-chunk decode steps (one
                                    # forward each)
     decode_tokens: int = 0         # real tokens emitted during decode
-    pages_in_use: int = 0          # paged only (not ported): 0
-    pages_peak: int = 0
-    prefix_hit_tokens: int = 0
+    pages_in_use: int = 0          # paged only: live (ref > 0) pool pages
+    pages_peak: int = 0            # paged only: high-water mark of the above
+    prefix_hit_tokens: int = 0     # prompt tokens admitted straight from
+                                   # cached prefix pages (never prefilled)
     # live-occupancy gauges, filled by ServeEngine.snapshot()
     slots_in_use: int = 0
     queue_depth: int = 0
-    pages_free: int = 0
+    pages_free: int = 0            # PagePool.available() (0 = slot cache)
 
     def delta(self, prev: "EngineStats") -> "EngineStats":
         """Interval view: counters become (self - prev), gauges keep
@@ -271,14 +417,43 @@ class EngineStats:
         return self.prefill_tokens / denom if denom else 0.0
 
     @property
+    def admitted_tokens_per_s(self):
+        """All admitted prompt tokens (computed + prefix hits) over the
+        admission path: exceeds admission_tokens_per_s by the hit tokens'
+        worth of skipped prefill."""
+        denom = self.prefill_s + self.insert_s
+        return ((self.prefill_tokens + self.prefix_hit_tokens) / denom
+                if denom else 0.0)
+
+    @property
+    def prefix_hit_rate(self):
+        """Fraction of admitted prompt tokens served from cached pages."""
+        total = self.prefill_tokens + self.prefix_hit_tokens
+        return self.prefix_hit_tokens / total if total else 0.0
+
+    @property
     def decode_tokens_per_s(self):
         return self.decode_tokens / self.decode_s if self.decode_s else 0.0
 
 
+# gauges describe "now" and are copied (not differenced) by delta()
 _STAT_GAUGES = frozenset({
     "slots_in_use", "queue_depth", "pages_free",
     "pages_in_use", "pages_peak",
 })
+
+
+class StatsWindow:
+    """Rolling interval reader over EngineStats snapshots: each tick()
+    returns the delta since the previous tick (first tick: since boot)."""
+
+    def __init__(self):
+        self._prev = EngineStats()
+
+    def tick(self, snap: EngineStats) -> EngineStats:
+        delta = snap.delta(self._prev)
+        self._prev = snap
+        return delta
 
 
 def _sync(device: torch.device) -> None:
@@ -313,11 +488,46 @@ class ServeEngine:
         self.cfg = cfg
         self.ecfg = ecfg or EngineConfig()
         self.capacity = M.cache_capacity(cfg, self.ecfg.max_len)
+        # every block the port serves has a KV ring to page (pure-SSM
+        # stacks, which would keep the slot contract, are not ported)
+        self.paged = self.ecfg.cache == "paged" and cfg.has_attention
+        # prefix pages replay cached k/v verbatim; sliding-window rings
+        # are not in sequence order, so they opt out
+        self.prefix_enabled = (self.paged and self.ecfg.prefix_cache
+                               and cfg.sliding_window is None)
+        # chunked prefill resumes a prompt from its pages mid-stream
+        self.chunked = self.ecfg.chunk_prefill > 0 and self.paged
         B = self.ecfg.slots
-        self.params = M.compute_params(_to_device(params, self.device), cfg)
-        self.cache = M.init_cache(cfg, B, self.ecfg.max_len, per_slot=True,
-                                  device=self.device)
         dev = self.device
+        self.params = M.compute_params(_to_device(params, dev), cfg)
+        ps = self.ecfg.page_size
+        if self.paged:
+            self._n_per_slot = M.pages_per_slot(cfg, self.ecfg.max_len, ps)
+            self._w_pad = self._n_per_slot * ps       # padded ring width
+            n_pages = self.ecfg.n_pages
+            if n_pages is None:
+                n_pages = B * self._n_per_slot + 1    # slot-contract memory
+            if n_pages - 1 < self._n_per_slot:
+                raise ValueError(
+                    f"n_pages={n_pages} cannot hold one worst-case request "
+                    f"({self._n_per_slot} pages + the trash page): the "
+                    "queue head could never be admitted")
+            self._n_pages = n_pages
+            self._pool = PagePool(n_pages, ps)
+            # host copy of the device page table, authoritative; rows
+            # start at trash. Uploaded once before a chunk when changed
+            self._tbl = np.zeros((B, self._n_per_slot), np.int32)
+            self._tbl_dirty = False
+            self._slot_pages: dict[int, SlotPages] = {}
+            self.cache = M.init_paged_cache(cfg, B, n_pages, ps,
+                                            self.ecfg.max_len, device=dev)
+            prefill_capacity = self._w_pad
+            self._insert = make_paged_insert(cfg, ps)
+        else:
+            self.cache = M.init_cache(cfg, B, self.ecfg.max_len,
+                                      per_slot=True, device=dev)
+            prefill_capacity = self.capacity
+            self._insert = make_slot_insert(cfg)
         self.state = {
             "tok": torch.zeros((B,), dtype=torch.int32, device=dev),
             "emitted": torch.zeros((B,), dtype=torch.int32, device=dev),
@@ -325,8 +535,17 @@ class ServeEngine:
             "budget": torch.zeros((B,), dtype=torch.int32, device=dev),
             "eos": torch.full((B,), -1, dtype=torch.int32, device=dev),
         }
-        self._prefill = make_prefill_sample(cfg, self.capacity)
-        self._insert = make_slot_insert(cfg)
+        self._prefill = make_prefill_sample(cfg, prefill_capacity)
+        if self.prefix_enabled:
+            self._prefix_prefill = make_prefix_prefill_sample(
+                cfg, ps, self._w_pad)
+        if self.chunked:
+            # a chunk wider than the padded ring would collide with its
+            # own scatter (two chunk tokens sharing a ring slot)
+            self._chunk_tokens = min(self.ecfg.chunk_prefill, self._w_pad)
+            self._token_budget = (self.ecfg.token_budget
+                                  or B * self.ecfg.chunk + self._chunk_tokens)
+            self._chunk_prefill = make_chunk_prefill(cfg, ps)
         self._decode_fns: dict = {}    # decode steps -> chunk function
         self._decode_at(self.ecfg.chunk)
         self.sched = TokenBudgetScheduler(B)
@@ -338,8 +557,8 @@ class ServeEngine:
         """The decode chunk running ``n_steps`` steps, built on demand."""
         fn = self._decode_fns.get(n_steps)
         if fn is None:
-            fn = self._decode_fns[n_steps] = make_decode_chunk(self.cfg,
-                                                               n_steps)
+            fn = self._decode_fns[n_steps] = make_decode_chunk(
+                self.cfg, n_steps, paged=self.paged)
         return fn
 
     # -- request intake ----------------------------------------------------
@@ -376,7 +595,7 @@ class ServeEngine:
         s = dataclasses.replace(self.stats)
         s.slots_in_use = len(self.sched.active_slots())
         s.queue_depth = len(self.sched.queue)
-        s.pages_free = 0
+        s.pages_free = self._pool.available() if self.paged else 0
         return s
 
     # -- admission ---------------------------------------------------------
@@ -385,32 +604,150 @@ class ServeEngine:
         return bucket_len(length, min_bucket=self.ecfg.min_bucket,
                           max_len=self.ecfg.max_prompt_len)
 
+    def _chunk_bucket(self, length: int) -> int:
+        """Padded chunk length: the reference's chunk buckets, so both
+        packages run the same shapes."""
+        return bucket_len(
+            length, min_bucket=min(self.ecfg.min_bucket, self._chunk_tokens),
+            max_len=self._chunk_tokens)
+
+    def _match_of(self, req: Request) -> list:
+        """Cached prefix page chain for a request (possibly empty),
+        capped so the suffix is never empty — admission needs at least
+        one real token to read first-token logits from."""
+        if not self.prefix_enabled:
+            return []
+        limit = (len(req.tokens) - 1) // self.ecfg.page_size
+        return self._pool.match(req.tokens, limit=limit)
+
     def _admit_key(self, req: Request):
-        return self._bucket_of(len(req.tokens))
+        """Requests admitted in one ragged prefill must agree on both the
+        (suffix) prefill bucket and the matched prefix chain."""
+        match = self._match_of(req)
+        sbucket = self._bucket_of(
+            len(req.tokens) - len(match) * self.ecfg.page_size)
+        return (sbucket, tuple(match))
+
+    def _page_cost(self, req: Request) -> int:
+        """Worst-case NEW pages this request could ever need (prompt plus
+        full generation budget, minus its cached prefix). Admitting by
+        this bound lets growth draw on reservations instead of failing
+        mid-decode."""
+        ps = self.ecfg.page_size
+        L = len(req.tokens)
+        gen = min(req.max_new, self.ecfg.max_len - L)
+        worst = min(-(-(L + gen) // ps), self._n_per_slot)
+        return max(worst - len(self._match_of(req)), 0)
+
+    def _reserve_pages(self, reqs: list):
+        """Pin each request's matched prefix, allocate its prompt pages
+        and reserve its worst-case growth, in queue order. A request
+        that no longer fits (the evictable pool shrank since the batch
+        was sized) rolls back and returns to the queue front along with
+        everything behind it. Returns (admitted requests, their plans)."""
+        ps = self.ecfg.page_size
+        taken, plans = [], []
+        for i, req in enumerate(reqs):
+            match = self._match_of(req)
+            if match:
+                # pin before any alloc below could evict the chain
+                self._pool.share(match)
+            L = len(req.tokens)
+            gen = min(req.max_new, self.ecfg.max_len - L)
+            n_now = min(-(-L // ps), self._n_per_slot)   # prompt pages
+            worst = min(-(-(L + gen) // ps), self._n_per_slot)
+            new = self._pool.alloc(n_now - len(match))
+            ok = new is not None and self._pool.reserve(worst - n_now)
+            if not ok:
+                if new is not None:
+                    self._pool.release(new)
+                if match:
+                    self._pool.release(match)
+                self.sched.queue.extendleft(reversed(reqs[i:]))
+                break
+            taken.append(req)
+            plans.append(SlotPages(pages=match + new,
+                                   n_shared=len(match), worst=worst))
+        return taken, plans
+
+    def _release_plan(self, sp: SlotPages) -> None:
+        self._pool.release(sp.pages)
+        self._pool.unreserve(sp.worst - len(sp.pages))
+
+    def _admit_chunked(self, slots: list, reqs: list) -> bool:
+        """Chunked admission: reserve pages and bind the slot, but run
+        ZERO prompt tokens — the prefill cursor starts past any prefix
+        hit and ``_step_chunked`` advances it one budgeted chunk per
+        iteration. Nothing runs on the device here, so requests of one
+        round need not share an admission key."""
+        reqs, plans = self._reserve_pages(reqs)
+        if not reqs:
+            return False
+        self.stats.pages_in_use = self._pool.in_use
+        self.stats.pages_peak = self._pool.pages_peak
+        ps = self.ecfg.page_size
+        now = time.perf_counter()
+        for b, req, sp in zip(slots, reqs, plans):
+            sp.prefill_pos = sp.n_shared * ps
+            sp.prefill_done = False
+            sp.first_chunk = True
+            self._tbl[b, :len(sp.pages)] = sp.pages
+            self._tbl[b, len(sp.pages):] = 0
+            self._tbl_dirty = True
+            self.stats.prefix_hit_tokens += sp.n_shared * ps
+            self.stats.prefill_requests += 1
+            self.sched.bind(b, SlotRun(request=req, tokens=[],
+                                       admitted_at=now))
+            self._slot_pages[b] = sp
+        return True
 
     def _admit(self, slots: list, reqs: list) -> bool:
-        """Admit ``reqs`` (same bucket) into free rows ``slots[:N]``: one
-        ragged prefill with on-device first-token sampling, one multi-row
-        insert. Only the [N] tok0 vector is synced."""
+        """Admit ``reqs`` (same admission key) into free rows
+        ``slots[:N]``: one ragged prefill with on-device first-token
+        sampling (a prefix hit prefills only the suffix against the
+        cached pages), one multi-row insert. Only the [N] tok0 vector is
+        synced. Returns False when nothing could be admitted (page
+        exhaustion: admission waits until decode frees pages)."""
+        plans = None
+        if self.paged:
+            reqs, plans = self._reserve_pages(reqs)
+            if not reqs:
+                return False
+            self.stats.pages_in_use = self._pool.in_use
+            self.stats.pages_peak = self._pool.pages_peak
         N = len(reqs)
-        lens = [len(r.tokens) for r in reqs]
+        ps = self.ecfg.page_size
+        n_pre = plans[0].n_shared if plans else 0
+        pre_len = n_pre * ps
+        lens = [len(r.tokens) - pre_len for r in reqs]     # suffix lengths
         bucket = self._bucket_of(lens[0])
         padded = np.zeros((N, bucket), np.int32)
         for i, r in enumerate(reqs):
-            padded[i, :lens[i]] = np.asarray(r.tokens, np.int32)
-        batch = {"tokens": torch.as_tensor(padded, device=self.device),
+            padded[i, :lens[i]] = np.asarray(r.tokens[pre_len:], np.int32)
+        dev = self.device
+        batch = {"tokens": torch.as_tensor(padded, device=dev),
                  "lengths": torch.as_tensor(lens, dtype=torch.int32,
-                                            device=self.device)}
+                                            device=dev)}
         uids = [r.uid for r in reqs]
         temps = [float(r.temperature) for r in reqs]
 
         t0 = time.perf_counter()
-        tok0, small_cache = self._prefill(self.params, batch, uids,
-                                          self.ecfg.seed, temps)
+        if n_pre:
+            pool_kv = {"k": self.cache["layers"]["k"],
+                       "v": self.cache["layers"]["v"]}
+            pages = torch.as_tensor(plans[0].pages[:n_pre],
+                                    dtype=torch.int64, device=dev)
+            tok0, small_cache = self._prefix_prefill(
+                self.params, pool_kv, pages, batch, uids, self.ecfg.seed,
+                temps)
+        else:
+            tok0, small_cache = self._prefill(self.params, batch, uids,
+                                              self.ecfg.seed, temps)
         tok0 = tok0.cpu().numpy()                      # [N] ints; syncs
         now = time.perf_counter()
         self.stats.prefill_s += now - t0
         self.stats.prefill_tokens += sum(lens)
+        self.stats.prefix_hit_tokens += N * pre_len
         self.stats.prefill_padded_tokens += N * bucket
         self.stats.prefill_batches += 1
         self.stats.prefill_requests += N
@@ -418,8 +755,8 @@ class ServeEngine:
         budgets = [min(r.max_new, self.ecfg.max_len - len(r.tokens))
                    for r in reqs]
         # single-token requests finish at admission; their dead rows ride
-        # the batched insert (active=False) and are fully overwritten by
-        # the slot's next occupant
+        # the batched insert (active=False, page-table row all trash) and
+        # are fully overwritten by the slot's next occupant
         live = np.ones(N, bool)
         for i, (req, t, budget) in enumerate(zip(reqs, tok0, budgets)):
             if int(t) == req.eos_id or budget <= 1:
@@ -427,9 +764,12 @@ class ServeEngine:
                 self._complete(req, [int(t)], reason, admitted_at=now,
                                token_times=[now])
                 live[i] = False
+                if plans:
+                    self._release_plan(plans[i])
         if not live.any():
+            if self.paged:
+                self.stats.pages_in_use = self._pool.in_use
             return True                 # requests completed: progress
-        dev = self.device
         slot_vals = {
             "tok": torch.as_tensor(tok0.astype(np.int32), device=dev),
             "emitted": torch.ones((N,), dtype=torch.int32, device=dev),
@@ -439,15 +779,44 @@ class ServeEngine:
                                    dtype=torch.int32, device=dev),
         }
         rows = torch.as_tensor(slots[:N], dtype=torch.int64, device=dev)
+        insert_args = [self.cache, self.state, rows, small_cache, slot_vals]
+        if self.paged:
+            # logical -> physical rows for the insert: the full table per
+            # row (unallocated tail maps to trash) plus the pages the
+            # small cache writes — the whole padded ring when cold, only
+            # the suffix pages on a prefix hit (shared prefix pages are
+            # never rewritten)
+            tbl_rows = np.zeros((N, self._n_per_slot), np.int32)
+            n_w = self._n_per_slot if n_pre == 0 else -(-bucket // ps)
+            write_rows = np.zeros((N, n_w), np.int64)
+            for i, sp in enumerate(plans):
+                if not live[i]:
+                    continue
+                tbl_rows[i, :len(sp.pages)] = sp.pages
+                own = sp.pages[n_pre:]
+                write_rows[i, :min(len(own), n_w)] = own[:n_w]
+            insert_args += [torch.as_tensor(tbl_rows, device=dev),
+                            torch.as_tensor(write_rows, device=dev)]
         t0 = time.perf_counter()
-        self.cache, self.state = self._insert(self.cache, self.state, rows,
-                                              small_cache, slot_vals)
+        self.cache, self.state = self._insert(*insert_args)
         _sync(dev)        # the insert's cost lands in insert_s, not decode
         self.stats.insert_s += time.perf_counter() - t0
+        if self.paged:
+            self._tbl[slots[:N]] = tbl_rows    # host copy == device now
+            if self.prefix_enabled:
+                # every fully written prompt page becomes (or extends) a
+                # registered chain; duplicate keys keep the first page
+                for i, (req, sp) in enumerate(zip(reqs, plans)):
+                    if live[i]:
+                        n_full = len(req.tokens) // ps
+                        self._pool.register(req.tokens[:n_full * ps],
+                                            sp.pages[:n_full])
         for i in np.nonzero(live)[0]:
             self.sched.bind(slots[i], SlotRun(
                 request=reqs[i], tokens=[int(tok0[i])],
                 admitted_at=now, token_times=[now]))
+            if self.paged:
+                self._slot_pages[slots[i]] = plans[i]
         return True
 
     def _admit_ready(self) -> None:
@@ -456,9 +825,23 @@ class ServeEngine:
             if not free or not self.sched.queue:
                 return
             # early-completed requests leave their slots free, so the loop
-            # re-checks free slots and the new queue head's bucket
+            # re-checks free slots and the new queue head's key each round
             width = 1 if self.ecfg.admission == "serial" else len(free)
-            reqs = self.sched.next_batch(width, self._admit_key)
+            if self.chunked:
+                # nothing runs at admission -> no admission-key
+                # constraint; the page budget still gates the batch
+                reqs = self.sched.next_batch(
+                    width, lambda r: 0, cost_of=self._page_cost,
+                    budget=self._pool.available())
+                if not reqs or not self._admit_chunked(free, reqs):
+                    return
+                continue
+            if self.paged:
+                reqs = self.sched.next_batch(
+                    width, self._admit_key, cost_of=self._page_cost,
+                    budget=self._pool.available())
+            else:
+                reqs = self.sched.next_batch(width, self._admit_key)
             if not reqs or not self._admit(free, reqs):
                 return
 
@@ -474,32 +857,94 @@ class ServeEngine:
             arrival_s=req.arrival_s or req.submitted_at,
             ttft_s=ttft, itl_p99_s=itl))
 
+    # -- page lifecycle (paged contract only) ------------------------------
+
+    def _grow_pages(self, active: list, n_steps: int) -> None:
+        """Allocate the pages the coming chunk will write into, drawn
+        from each slot's admission-time reservation (cannot fail). A row
+        that exhausts its budget mid-chunk keeps writing — past its last
+        allocated page those writes land on the trash page."""
+        ps = self.ecfg.page_size
+        for b in active:
+            run = self.sched.slots[b]
+            sp = self._slot_pages[b]
+            L = len(run.request.tokens)
+            g = len(run.tokens)                  # generated so far (tok0..)
+            # chunk inputs sit at positions L+g-1 .. L+g-2+n_steps
+            need = min(-(-(L + g - 1 + n_steps) // ps),
+                       self._n_per_slot, sp.worst)
+            delta = need - len(sp.pages)
+            if delta > 0:
+                new = self._pool.alloc_reserved(delta)
+                self._tbl[b, len(sp.pages):need] = new
+                sp.pages.extend(new)
+                self._tbl_dirty = True
+        self.stats.pages_in_use = self._pool.in_use
+        self.stats.pages_peak = self._pool.pages_peak
+
+    def _free_slot(self, b: int) -> None:
+        """Return an evicted slot's pages — decref shared prefix pages,
+        park registered ref-0 pages as evictable cache, free the rest —
+        and point its table row back at trash."""
+        self._release_plan(self._slot_pages.pop(b))
+        self._tbl[b] = 0
+        self._tbl_dirty = True
+        self.stats.pages_in_use = self._pool.in_use
+
+    def _push_tbl(self) -> None:
+        """Upload the host page table if it changed (page growth or slot
+        free): one host-to-device copy between chunks, never inside one."""
+        if not self._tbl_dirty:
+            return
+        self.cache["page_tbl"].copy_(torch.from_numpy(self._tbl))
+        self._tbl_dirty = False
+
     # -- decode loop -------------------------------------------------------
 
-    def step(self) -> bool:
-        """One engine iteration: admit, then one decode chunk. Returns
-        False when idle."""
-        self._admit_ready()
-        active = self.sched.active_slots()
-        if not active:
-            return False
+    def _decode_keys(self, rows):
+        """Sampling keys of a decode chunk: per-slot uid, tokens drawn so
+        far and temperature of ``rows`` (other slots: greedy dummies)."""
+        runs = self.sched.slots
+        B = len(runs)
+        uids, emitted0, temps = [0] * B, [0] * B, [0.0] * B
+        for b in rows:
+            run = runs[b]
+            uids[b] = run.request.uid
+            emitted0[b] = len(run.tokens)
+            temps[b] = float(run.request.temperature)
+        return uids, emitted0, temps
+
+    def _drain_cap(self, rows) -> int:
+        """Decode steps for the coming chunk: ``chunk``, or with
+        trim_drain, capped at the largest remaining budget of ``rows``
+        (EOS can only end a row earlier; keys derive from (uid, token
+        index), so trimming is token-identical at any temperature)."""
         n_steps = self.ecfg.chunk
         if self.ecfg.trim_drain:
-            # drain cap: when every surviving slot's remaining budget is
-            # below the chunk size, run a shorter final chunk (EOS can only
-            # end a row earlier; keys derive from (uid, token index), so
-            # trimming is token-identical at any temperature)
             need = max(
                 min(run.request.max_new,
                     self.ecfg.max_len - len(run.request.tokens))
                 - len(run.tokens)
-                for run in (self.sched.slots[b] for b in active))
+                for run in (self.sched.slots[b] for b in rows))
             n_steps = max(1, min(n_steps, need))
-        runs = self.sched.slots
-        uids = [r.request.uid if r else 0 for r in runs]
-        emitted0 = [len(r.tokens) if r else 0 for r in runs]
-        temps = [float(r.request.temperature) if r else 0.0 for r in runs]
+        return n_steps
+
+    def step(self) -> bool:
+        """One engine iteration. Chunked engines pack a token budget
+        (decode chunk + one prefill chunk per mid-prompt slot); the others
+        admit, then run one decode chunk. Returns False when idle."""
+        if self.chunked:
+            return self._step_chunked()
+        self._admit_ready()
+        active = self.sched.active_slots()
+        if not active:
+            return False
+        n_steps = self._drain_cap(active)
         decode = self._decode_at(n_steps)
+        if self.paged:
+            self._grow_pages(active, n_steps)
+            self._push_tbl()
+        uids, emitted0, temps = self._decode_keys(active)
         t0 = time.perf_counter()
         self.cache, self.state, toks = decode(
             self.params, self.cache, self.state, self.ecfg.seed, uids,
@@ -526,12 +971,112 @@ class ServeEngine:
                 self.stats.decode_tokens += 1
                 if tok == req.eos_id or len(run.tokens) >= budget:
                     self.sched.evict(b)
+                    if self.paged:
+                        self._free_slot(b)
                     self._complete(
                         req, run.tokens,
                         "eos" if tok == req.eos_id else "length",
                         admitted_at=run.admitted_at,
                         token_times=run.token_times)
                     break
+
+    def _step_chunked(self) -> bool:
+        """One token-budget iteration: plan decode steps + prefill
+        chunks, enqueue the decode chunk FIRST, then one prefill chunk
+        per mid-prompt slot, sync the decode tokens, harvest. Final-chunk
+        slots sample their first token on the device inside the chunk and
+        flip active there, so they join the NEXT iteration's decode
+        chunk."""
+        self._admit_ready()
+        active = self.sched.active_slots()
+        if not active:
+            return False
+        pf = [b for b in active if not self._slot_pages[b].prefill_done]
+        pf.sort(key=lambda b: self.sched.slots[b].request.uid)
+        dec = [b for b in active if self._slot_pages[b].prefill_done]
+        n_steps = self._drain_cap(dec) if dec else self.ecfg.chunk
+        plan = self.sched.plan_step(
+            budget=self._token_budget, chunk_tokens=self._chunk_tokens,
+            decode_steps=n_steps if dec else 0, n_decode=len(dec),
+            prefill_left=[
+                (b, len(self.sched.slots[b].request.tokens)
+                 - self._slot_pages[b].prefill_pos) for b in pf])
+
+        if dec:
+            self._grow_pages(dec, plan.decode_steps)
+        self._push_tbl()        # one upload covers decode AND chunks
+        # the chunks' tokens go to the device before the decode chunk is
+        # enqueued: a copy from host memory waits for the stream
+        chunk_tokens = []
+        for b, c in plan.chunks:
+            req = self.sched.slots[b].request
+            pos = self._slot_pages[b].prefill_pos
+            padded = np.zeros((1, self._chunk_bucket(c)), np.int32)
+            padded[0, :c] = np.asarray(req.tokens[pos:pos + c], np.int32)
+            chunk_tokens.append(torch.as_tensor(padded, device=self.device))
+        toks = None
+        if dec:
+            decode = self._decode_at(plan.decode_steps)
+            uids, emitted0, temps = self._decode_keys(dec)
+            t0 = time.perf_counter()
+            self.cache, self.state, toks = decode(
+                self.params, self.cache, self.state, self.ecfg.seed, uids,
+                emitted0, temps)
+
+        finals = []
+        for (b, c), tokens in zip(plan.chunks, chunk_tokens):
+            req = self.sched.slots[b].request
+            sp = self._slot_pages[b]
+            pos = sp.prefill_pos
+            final = pos + c == len(req.tokens)
+            gen = min(req.max_new, self.ecfg.max_len - len(req.tokens))
+            tc = time.perf_counter()
+            self.cache, self.state, tok0 = self._chunk_prefill(
+                self.params, self.cache, self.state, {"tokens": tokens},
+                b, pos, c, sp.first_chunk, final, req.uid, self.ecfg.seed,
+                float(req.temperature), gen, req.eos_id)
+            # enqueue time only: chunks are never synced here, their
+            # compute lands in the next decode sync (decode_s)
+            self.stats.prefill_s += time.perf_counter() - tc
+            self.stats.prefill_chunks += 1
+            self.stats.prefill_tokens += c
+            self.stats.prefill_padded_tokens += tokens.shape[1]
+            sp.prefill_pos = pos + c
+            sp.first_chunk = False
+            if final:
+                sp.prefill_done = True
+                finals.append((b, tok0))
+
+        if toks is not None:
+            toks = toks.cpu().numpy()                      # [T, B]; syncs
+            now = time.perf_counter()
+            self.stats.decode_s += now - t0
+            self.stats.decode_chunks += 1
+            self.stats.decode_steps += toks.shape[0]
+            self._harvest(dec, toks, now)
+
+        ps = self.ecfg.page_size
+        for b, tok0 in finals:
+            t = int(tok0.cpu())                            # syncs
+            now = time.perf_counter()
+            run = self.sched.slots[b]
+            req = run.request
+            sp = self._slot_pages[b]
+            if self.prefix_enabled:
+                n_full = len(req.tokens) // ps
+                self._pool.register(req.tokens[:n_full * ps],
+                                    sp.pages[:n_full])
+            run.tokens.append(t)
+            run.token_times.append(now)
+            gen = min(req.max_new, self.ecfg.max_len - len(req.tokens))
+            if t == req.eos_id or gen <= 1:
+                self.sched.evict(b)
+                self._free_slot(b)
+                self._complete(req, run.tokens,
+                               "eos" if t == req.eos_id else "length",
+                               admitted_at=run.admitted_at,
+                               token_times=run.token_times)
+        return True
 
     def run(self) -> list[Completion]:
         """Serve until queue and slots drain. Completions in uid order."""

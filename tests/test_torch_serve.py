@@ -224,15 +224,28 @@ def test_single_token_requests_complete_at_admission(smoke):
 
 
 def test_engine_config_rejects_unported_and_invalid():
-    with pytest.raises(NotImplementedError, match="paged"):
-        EngineConfig(cache="paged")
-    with pytest.raises(ValueError):
-        EngineConfig(max_prompt_len=64, max_len=64)
-    with pytest.raises(ValueError):
-        EngineConfig(admission="bogus")
-    assert EngineConfig().cache == "slot"
+    """The reference's defaults (the paged cache first) and its
+    validation errors."""
+    assert EngineConfig().cache == "paged"
+    assert dataclasses.asdict(EngineConfig()) == \
+        dataclasses.asdict(JEngineConfig())
     assert {f.name for f in dataclasses.fields(EngineConfig)} == \
         {f.name for f in dataclasses.fields(JEngineConfig)}
+    for kw, match in (({"cache": "bogus"}, "cache"),
+                      ({"max_prompt_len": 64, "max_len": 64},
+                       "max_prompt_len"),
+                      ({"admission": "bogus"}, "admission"),
+                      ({"slots": 0}, "slots"),
+                      ({"page_size": 0}, "page_size"),
+                      ({"n_pages": 1}, "n_pages"),
+                      ({"chunk_prefill": -1}, "chunk_prefill"),
+                      ({"token_budget": 8}, "token_budget"),
+                      ({"chunk_prefill": 4, "token_budget": 0},
+                       "token_budget")):
+        with pytest.raises(ValueError, match=match):
+            EngineConfig(**kw)
+        with pytest.raises(ValueError, match=match):
+            JEngineConfig(**kw)
 
 
 def test_launcher_main_on_cpu(tmp_path, capsys):
@@ -251,9 +264,22 @@ def test_launcher_main_on_cpu(tmp_path, capsys):
             assert st.decode_steps == 2
         assert f"act_impl={scheme}" in capsys.readouterr().out
     for flags in (["--model-parallel", "2"], ["--replicas", "2"],
-                  ["--chunk-prefill", "8"], ["--cache", "paged"]):
+                  ["--autoscale", "1:2"]):
         with pytest.raises(SystemExit):
             tserve.main(["--smoke", "--device", "cpu"] + flags)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--cache", "slot"], ["--cache", "paged", "--page-size", "4"],
+    ["--no-prefix-cache"], ["--chunk-prefill", "3"],
+    ["--chunk-prefill", "3", "--token-budget", "2"]],
+    ids=lambda f: "_".join(a.lstrip("-") for a in f))
+def test_launcher_main_on_cpu_cache_flags(flags):
+    """The cache and schedule flags reach the engine: every request is
+    served in full under each."""
+    st = tserve.main(["--smoke", "--device", "cpu", "--batch", "2",
+                      "--prompt-len", "8", "--gen", "4"] + flags)
+    assert st.decode_tokens == 2 * 3 and st.decode_steps >= 3
 
 
 # --- scheduler (host Python, ported whole) ---------------------------------
