@@ -15,11 +15,16 @@ lines:
      card, at stated tolerances, for every scheme and epilogue at the
      deployment geometry (depth 32, degree 3), and at every float
      geometry ``benchmarks/dse.py`` sweeps. ``glu_2d``'s TMA + wgmma
-     variant at M = 1, 2, 64, 65, 128, 256 (K=1024, N=3072) and at a
+     variant at M = 1, 2, 64, 65, 128, 256, 512, 1000 and 1024 (K=1024,
+     N=3072; above 256 rows the grid loops over 256-row M tiles) and at a
      ragged K=1000, N=3000, and its wmma variant at N=3001, for every
      scheme and epilogue: each case asserts the variant it took and that
-     a repeated launch gives the same bits. Then each scheme's kernel
-     tanh over the whole 2^16-point Q2.13 input grid, within 0.03 of tanh.
+     a repeated launch gives the same bits. Then gradients through both
+     kernels (``ops.act`` / ``ops.fused_glu``: the kernel forward, the
+     plain recompute backward) for every scheme at f32 and bf16, at the
+     training row count (1024) and a ragged 1000: bitwise equal to
+     autograd through the plain version. Then each scheme's kernel tanh
+     over the whole 2^16-point Q2.13 input grid, within 0.03 of tanh.
   3. serve qwen3-0.6b at full width (28 layers, random weights from seed
      0, bf16 compute) through the port's ServeEngine, in two deployments
      per scheme: ``fused_of(act_impl_of(cfg, scheme))``, where every FFN
@@ -36,33 +41,49 @@ lines:
      prefix, serial admission: 192 prompt tokens from cached pages, all
      pages back after the run, f32 tokens identical to prefix_cache=False)
      and ``serve_chunked`` (chunk_prefill=32 on the main prompts: f32
-     tokens identical to one-shot admission; TTFT and ITL p99). The
-     weights are built once; only their ``act`` leaf differs by scheme.
+     tokens identical to one-shot admission; TTFT and ITL p99). Then
+     ``train_fused`` / ``train_kernelized``: the cr_spline pair trains at
+     full width (bf16 compute, batch 8 x seq 128) through ``TrainDriver``
+     and the port's pipeline, 5 steps without remat and 2 under
+     remat="block": finite losses, nothing skipped, the path's kernel
+     exactly 28 launches a step (56 under "block", whose checkpoint reruns
+     each block's forward), the other none; step wall ms, tokens/s, peak
+     memory, and one step that must make no host sync (CUDA's sync debug
+     mode).
+     The weights are built once; only their ``act`` leaf differs by
+     scheme.
   4. kernel timings at the main path's shapes (decode 2 rows, prefill 128
-     rows, and 256 rows, the largest ragged prefill two slots form),
-     beside the bound from the card's data-sheet rates, the plain version
-     and the library yardstick (``ms`` / ``plain_ms`` / ``library_ms``:
-     device time from a profiler trace, the sum of one call's kernel
-     durations, mean of 30 calls with L2 flushed before each; ``call_ms``:
-     median time between CUDA events around one call, host dispatch
-     included). Beside every ``elementwise_2d`` case, ``copy_ms``: the same
-     measure of ``y.copy_(x)`` into a preallocated ``y``, one launch that
-     reads and writes the same bytes, the floor the kernel is held to (it
-     computes another function: the port never calls it). The
-     ``elementwise_aims`` line sets ``ms`` against ``copy_ms`` and the
-     schemes against each other (information, not a gate). Then one decode
-     chunk of each deployment on each cache under the profiler: device
-     busy time, idle share and the top kernels per decode step; and one
-     decode chunk (paged: with its write mask) that must make no host sync
-     (CUDA's sync debug mode raises on any). Profiling comes after
-     serving because a profiled process keeps paying tracing costs on
-     every later launch.
+     rows, 256 rows, the largest ragged prefill two slots form, and 1024,
+     a training step's rows), beside the bound from the card's data-sheet
+     rates, the plain version and the library yardstick (``ms`` /
+     ``plain_ms`` / ``library_ms``: device time from a profiler trace, the
+     sum of one call's kernel durations, mean of 30 calls with L2 flushed
+     before each; ``call_ms``: median time between CUDA events around one
+     call, host dispatch included). Beside every ``elementwise_2d`` case,
+     ``copy_ms``: the same measure of ``y.copy_(x)`` into a preallocated
+     ``y``, one launch that reads and writes the same bytes, the floor the
+     kernel is held to (it computes another function: the port never
+     calls it). The ``elementwise_aims`` line sets ``ms`` against
+     ``copy_ms`` and the schemes against each other (information, not a
+     gate). Then one decode chunk of each deployment on each cache under
+     the profiler: device busy time, idle share and the top kernels per
+     decode step; and one decode chunk (paged: with its write mask) that
+     must make no host sync (CUDA's sync debug mode raises on any); and
+     one train step of each trained deployment under the profiler
+     (``trace_train_*``). Profiling comes after serving and training
+     because a profiled process keeps paying tracing costs on every later
+     launch.
   5. f32 prefill logits of every deployment on the card (kernels) against
-     the CPU (plain versions) on the same weights.
+     the CPU (plain versions) on the same weights; then
+     ``train_f32_vs_cpu``: one f32 train step (batch 1, seq 32, full
+     width) of each trained deployment on the card and on the CPU: loss,
+     gnorm and the gradients of the FFN stacks and the act leaf (per knot:
+     ``knot_grad``) within 1e-4 relative.
   6. the ``{"kernels": [...]}`` line: one entry per (kernel, scheme), its
      top-level times at decode and ``by_rows`` at every timed row count;
      ``elementwise_2d``'s entries add ``copy_ms``, ``glu_2d``'s the
-     ``variant`` its decode launch took.
+     ``variant`` its decode launch took; the trained deployments' entries
+     add ``train_launches`` (per remat run).
 
 Then the card's ``nvidia-smi`` name/power line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises, exits non-zero and
@@ -72,6 +93,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -106,13 +128,21 @@ SESSIONS = 3                    # profiler traces device_ms takes at most
 # glu_2d checks of the TMA + wgmma variant: every decode and prefill row
 # count the engine forms (M = 65 crosses a warpgroup boundary), a ragged K
 # and N (TMA's out-of-bounds fill), and N = 3001, which TMA cannot address
-GLU_TMA_ROWS = (1, 2, 64, 65, 128, 256)
+GLU_TMA_ROWS = (1, 2, 64, 65, 128, 256, 512, 1000, 1024)
 GLU_RAGGED = ((2, 1000, 3000), (65, 1000, 3000))
 GLU_WMMA_CASE = (3, 1024, 3001)
 
 SLOTS, MAX_PROMPT, MAX_LEN, CHUNK = 2, 128, 160, 8
 GLU_PREFILL_MAX = 2 * MAX_PROMPT    # the largest ragged prefill two slots form
-ROWS_TIMED = (SLOTS, MAX_PROMPT, GLU_PREFILL_MAX)   # decode, prefill, 2 x prefill
+# training (the launcher's defaults): batch 8 x seq 128 = 1024 rows a
+# kernel launch; 5 steps without remat, then 2 under remat="block"
+TRAIN_BATCH, TRAIN_SEQ = 8, 128
+TRAIN_ROWS = TRAIN_BATCH * TRAIN_SEQ
+TRAIN_RUNS = (("none", 5, 1), ("block", 2, 2))   # (remat, steps, fwd/layer)
+# decode, prefill, 2 x prefill, a training step
+ROWS_TIMED = (SLOTS, MAX_PROMPT, GLU_PREFILL_MAX, TRAIN_ROWS)
+GRAD_ROWS = (TRAIN_ROWS, 1000)      # kernel gradient checks: train + ragged
+TRAIN_F32_BATCH, TRAIN_F32_SEQ = 1, 32    # train_f32_vs_cpu
 PROMPT_LENS = (17, 40, 64, 100)
 MAX_NEW = 16
 PAGE_SIZE = 16                  # 160 = 10 pages: the paged ring is the slot ring
@@ -385,6 +415,78 @@ def phase_accuracy(torch, epi, dev):
           "max_abs_err_vs_tanh": out})
 
 
+def _route_grads(torch, fn, inputs, g):
+    """(output, gradients of <output, g> for every input) of ``fn``."""
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    y = fn(*leaves)
+    return y.detach(), torch.autograd.grad(y, leaves, g)
+
+
+def phase_kernel_grads(torch, epi, ops, dev):
+    """Gradients through each kernel, for every scheme, at f32 and bf16, at
+    the training row count and a ragged one: ``ops.act`` / ``ops.fused_glu``
+    on the card (the kernel in the forward, the recompute of the plain
+    version in the backward) against autograd through the plain version
+    on the same inputs and upstream gradient. The gradients for x, w_gate,
+    w_up and the params must be bitwise equal (both backwards run the same
+    recompute); the forward outputs hold to phase 2's tolerances; each
+    route launches its kernel once."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    K, N = 1024, 3072
+    for scheme in SCHEMES:
+        spec, p = scheme_spec(torch, epi, scheme, "silu", dev)
+        out = {}
+        for dt in (torch.float32, torch.bfloat16):
+            for M in GRAD_ROWS:
+                x = (torch.randn((M, N), generator=gen, device=dev) * 3).to(dt)
+                xg, wg, wu = glu_operands(torch, gen, dev, M, K, N, dt)
+                g = torch.randn((M, N), generator=gen, device=dev).to(dt)
+                cases = {
+                    "elementwise_2d": (
+                        (x, p),
+                        lambda x, p: ops.act(x, "silu", spec=spec, params=p),
+                        lambda x, p: epi.elementwise_2d_plain(
+                            x, p, spec=spec, act="silu", lookup="take")),
+                    "glu_2d": (
+                        (xg, wg, wu, p),
+                        lambda x, wg, wu, p: ops.fused_glu(
+                            x, wg, wu, spec=spec, params=p),
+                        lambda x, wg, wu, p: epi.glu_2d_plain(
+                            x, wg, wu, p, spec=spec, act="silu",
+                            lookup="take"))}
+                for kernel, (inputs, route, plain) in cases.items():
+                    n0 = epi.LAUNCHES[kernel]
+                    y, gk = _route_grads(torch, route, inputs, g)
+                    torch.cuda.synchronize()
+                    assert epi.LAUNCHES[kernel] == n0 + 1, kernel
+                    yp, gp = _route_grads(torch, plain, inputs, g)
+                    for a, b in zip(gk, gp):
+                        assert torch.equal(a, b), (kernel, scheme, dt, M,
+                                                   float((a.float() - b.float())
+                                                         .abs().max()))
+                    if kernel == "glu_2d":
+                        tol = (1e-4, 1e-5) if dt == torch.float32 \
+                            else (1e-2, 1e-3)
+                        torch.testing.assert_close(y.float(), yp.float(),
+                                                   rtol=tol[0], atol=tol[1])
+                    elif dt == torch.float32:
+                        torch.testing.assert_close(y, yp, rtol=1e-5,
+                                                   atol=1e-6)
+                    else:
+                        assert bf16_ulp_ok(y, yp), (kernel, scheme, M)
+                    out[f"{kernel} M={M} {dt}"] = {
+                        "grads_bitwise_equal": True,
+                        "max_abs_err_fwd": float(
+                            (y.float() - yp.float()).abs().max()),
+                        "max_abs_grad": [float(a.float().abs().max())
+                                         for a in gk]}
+        emit({"phase": "kernel_grad_check", "scheme": scheme, "act": "silu",
+              "wrt": {"elementwise_2d": ["x", "params"],
+                      "glu_2d": ["x", "w_gate", "w_up", "params"]},
+              "cases": out})
+
+
 def phase_kernel_times(torch, epi, dev, flush):
     """Kernel, plain version and library yardstick at the main path's
     shapes (bf16), for every scheme on the same inputs: decode rows =
@@ -463,7 +565,8 @@ def phase_kernel_times(torch, epi, dev, flush):
                  library_call_ms=calls.get((key, "library")), **extra)
         timings[key] = t
         emit({"phase": "kernel_time", "kernel": key[0], "scheme": key[1],
-              "where": "decode" if key[2] == SLOTS else "prefill",
+              "where": {SLOTS: "decode", TRAIN_ROWS: "train"}.get(
+                  key[2], "prefill"),
               "rows": key[2], **t})
     return timings
 
@@ -698,6 +801,221 @@ def phase_trace(torch, name, cfg, params, prompts, dev, serve_line, cache):
     emit(out)
 
 
+def train_opt():
+    from repro_torch.optim import adamw
+    return adamw.AdamWConfig(warmup_steps=2, decay_steps=100)
+
+
+def train_pipe(cfg, batch, seq, device):
+    """The launcher's pipeline (seed 1, vocab capped at 4096)."""
+    from repro_torch.data import DataConfig, SyntheticPipeline
+    return SyntheticPipeline(cfg, DataConfig(
+        seed=1, vocab_size=min(cfg.vocab_size, 4096)), batch, seq,
+        device=device)
+
+
+def host_syncs(torch, fn) -> int:
+    """How many times ``fn`` made the host wait for the device, as CUDA's
+    sync debug mode reports them (one warning each)."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # the mode's own notice ("Synchronization debug mode is a prototype
+    # ...") is not a sync
+    return sum("called a synchronizing CUDA operation" in str(w.message)
+               for w in caught)
+
+
+def phase_train(torch, epi, name, cfg, weights, dev, card, kernel):
+    """Train at full width through the port's TrainDriver and pipeline:
+    TRAIN_RUNS (5 steps without remat, then 2 under remat="block",
+    continuing the same run), each with the launch counts zeroed just
+    before and read just after. The path's kernel must launch n_layers x
+    steps times without remat and twice that under "block" (the
+    checkpoint reruns each block's forward in the backward; the
+    recompute backward of the kernels launches none), the other kernel
+    never, every bf16 glu_2d launch on tma_wgmma; every loss finite,
+    nothing skipped. Then one more step under CUDA's sync debug mode must
+    make no host sync. Returns the line."""
+    import tempfile
+    from repro_torch.ft import FTConfig, TrainDriver
+    from repro_torch.launch import steps as TS
+    from repro_torch.optim import adamw
+    params = with_act(torch, weights, cfg, dev)
+    opt = adamw.init_state(params)
+    pipe = train_pipe(cfg, TRAIN_BATCH, TRAIN_SEQ, dev)
+    line = {"phase": "train_" + name, "card": card, "arch": cfg.name,
+            "layers": cfg.n_layers, "vocab": cfg.vocab_size,
+            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "compute_dtype": cfg.compute_dtype, "scheme": cfg.act_impl
+            or cfg.activation.impl, "runs": {}}
+    other = "elementwise_2d" if kernel == "glu_2d" else "glu_2d"
+    step = 0
+    with tempfile.TemporaryDirectory() as ckpt:
+        ft = FTConfig(ckpt_dir=ckpt, ckpt_every=10 ** 9, log_every=0)
+        for remat, n_steps, per_layer in TRAIN_RUNS:
+            step_fn = TS.make_train_step(cfg, TS.TrainHyper(
+                remat=remat, opt=train_opt()))
+            drv = TrainDriver(step_fn, pipe, params, opt, ft,
+                              start_step=step, log=lambda *_: None)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for counts in (epi.LAUNCHES, epi.GLU_VARIANTS):
+                for k in counts:
+                    counts[k] = 0
+            drv.run(n_steps)
+            launches = dict(epi.LAUNCHES)
+            variants = dict(epi.GLU_VARIANTS)
+            peak = torch.cuda.max_memory_allocated()
+            recs = drv.history
+            assert [r.step for r in recs] == list(range(step, step + n_steps))
+            assert all(math.isfinite(r.loss) and not r.skipped
+                       for r in recs), \
+                [(r.loss, r.skipped) for r in recs]
+            assert launches[kernel] == per_layer * cfg.n_layers * n_steps, \
+                (remat, launches)
+            assert launches[other] == 0, launches
+            if kernel == "glu_2d":
+                assert variants == {"tma_wgmma": launches["glu_2d"],
+                                    "wmma": 0, "simt_f32": 0}, variants
+            walls = [r.wall_s * 1e3 for r in recs]
+            steady = statistics.median(walls[1:] if len(walls) > 1
+                                       else walls)
+            line["runs"][remat] = {
+                "steps": n_steps, "first_step": step,
+                "losses": [r.loss for r in recs],
+                "gnorms": [r.gnorm for r in recs],
+                "skipped": sum(r.skipped for r in recs),
+                "launches": launches, "glu_variants": variants,
+                "launches_per_step": launches[kernel] / n_steps,
+                "step_wall_ms": walls, "step_wall_ms_median": steady,
+                "train_tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / steady * 1e3,
+                "max_memory_allocated_gb": peak / 1e9}
+            params, opt, step = drv.params, drv.opt_state, drv.step
+        step_fn = TS.make_train_step(cfg, TS.TrainHyper(remat="none",
+                                                        opt=train_opt()))
+        batch = pipe(step)
+        torch.cuda.synchronize()
+        line["host_syncs_per_step"] = host_syncs(
+            torch, lambda: step_fn(params, opt, batch, step))
+        torch.cuda.synchronize()
+    emit(line)
+    # the step enqueues its work without waiting: the driver's read of
+    # the loss is the step's one sync
+    assert line["host_syncs_per_step"] == 0, line["host_syncs_per_step"]
+    return line
+
+
+def phase_train_trace(torch, name, cfg, weights, dev, train_line):
+    """Where a train step's time goes: one step (remat none) under the
+    profiler, after one warm step, against the unprofiled median wall
+    time per step of the train run: device busy ms, idle share, kernels
+    per step and the top kernels with their launches."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import steps as TS
+    from repro_torch.optim import adamw
+    params = with_act(torch, weights, cfg, dev)
+    opt = adamw.init_state(params)
+    batch = train_pipe(cfg, TRAIN_BATCH, TRAIN_SEQ, dev)(0)
+    step_fn = TS.make_train_step(cfg, TS.TrainHyper(remat="none",
+                                                    opt=train_opt()))
+    params, opt, m = step_fn(params, opt, batch, 1)
+    float(m["loss"])
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, _, m = step_fn(params, opt, batch, 2)
+        float(m["loss"])
+    evs = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    wall = train_line["runs"]["none"]["step_wall_ms_median"]
+    busy = sum(us for _, us in evs) / 1e3
+    by_name = {}
+    for n, us in evs:
+        t, k = by_name.get(n, (0.0, 0))
+        by_name[n] = (t + us, k + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP_KERNELS]
+    emit({"phase": "trace_train_" + name, "remat": "none",
+          "wall_ms_per_step": wall, "device_busy_ms_per_step": busy,
+          "device_idle_share": 1.0 - busy / wall if evs else None,
+          "repro_kernel_ms_per_step": sum(us for n, us in evs
+                                          if "repro_" in n) / 1e3,
+          "kernels_per_step": len(evs),
+          "top_kernels": [{"name": n[:120], "ms_per_step": t / 1e3,
+                           "launches_per_step": k}
+                          for n, (t, k) in top]})
+
+
+def knot_grad(torch, g):
+    """The gradient per knot of a CR window leaf's gradient ([depth, 4]:
+    window k holds knots k-1 .. k+2): the sum over the entries that hold
+    the same knot, in f64. Per entry, the gradient moves a whole
+    element's contribution from window k's third entry to window k+1's
+    second when the element's input crosses the knot between them, so a
+    difference in the last bits of a gate value (another GEMM's sum order)
+    moves it by up to ~1% of its largest entry at full width; per knot it
+    is continuous."""
+    depth = g.shape[0]
+    idx = (torch.arange(depth)[:, None] + torch.arange(4)[None, :]).reshape(-1)
+    return torch.zeros(depth + 3, dtype=torch.float64).index_add_(
+        0, idx, g.double().reshape(-1))
+
+
+def phase_train_f32_vs_cpu(torch, M, TS, name, cfg, weights, weights_cpu,
+                           dev, tol):
+    """One f32 train step (step 1: at step 0 the warmup learning rate is
+    0) on the card (kernels) and on the CPU (plain versions), on the same
+    weights and batch, at full width: the loss and gnorm of the step, and
+    the gradients of the loss for the FFN stacks and the act leaf (per
+    knot, ``knot_grad``; per window entry printed), each against the CPU
+    within ``tol`` relative (max |diff| over max |cpu|)."""
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    cpu_batch = train_pipe(cfg32, TRAIN_F32_BATCH, TRAIN_F32_SEQ, "cpu")(0)
+    engine = TS.make_engine(cfg32)
+    step_fn = TS.make_train_step(cfg32, TS.TrainHyper(remat="none",
+                                                      opt=train_opt()))
+    got = {}
+    for where, tree in ((dev, weights), ("cpu", weights_cpu)):
+        params = with_act(torch, tree, cfg32, where)
+        batch = {k: v.to(where) for k, v in cpu_batch.items()}
+        _, _, m = step_fn(params, adamw.init_state(params), batch, 1)
+        leaf = tree_map(lambda t: t.detach().requires_grad_(), params)
+        loss, _ = M.loss_fn(leaf, batch, cfg32, engine, remat="none")
+        leaves = tree_leaves(leaf)
+        by_id = dict(zip(map(id, leaves), torch.autograd.grad(loss, leaves)))
+        grads = tree_map(lambda t: by_id[id(t)], leaf)
+        got[str(where)] = {
+            "loss": float(m["loss"]), "gnorm": float(m["gnorm"]),
+            "grads": {f"ffn/{k}": v.cpu() for k, v in
+                      grads["blocks"]["ffn"].items()}
+            | {f"act/{k}": v.cpu() for k, v in grads["act"].items()}}
+        del params, leaf, grads, by_id, leaves
+    card, cpu = got[str(dev)], got["cpu"]
+    rel = {k: abs(card[k] - cpu[k]) / abs(cpu[k]) for k in ("loss", "gnorm")}
+    windows_rel = {}
+    for k, g in cpu["grads"].items():
+        a = card["grads"][k]
+        if k.startswith("act/"):
+            windows_rel[k] = float((a - g).abs().max() / g.abs().max())
+            a, g = knot_grad(torch, a), knot_grad(torch, g)
+        rel["grad " + k] = float((a - g).abs().max() / g.abs().max())
+    line = {"phase": "train_f32_vs_cpu", "deployment": name,
+            "layers": cfg.n_layers, "batch": TRAIN_F32_BATCH,
+            "seq": TRAIN_F32_SEQ, "step": 1,
+            "loss": {"card": card["loss"], "cpu": cpu["loss"]},
+            "gnorm": {"card": card["gnorm"], "cpu": cpu["gnorm"]},
+            "rel": rel, "tolerance_rel": tol,
+            "act_grad_compared": "per knot",
+            "act_grad_per_window_entry_rel": windows_rel}
+    emit(line)
+    assert all(v <= tol for v in rel.values()), (name, rel)
+
+
 def phase_f32_vs_cpu(torch, np, M, TS, cfg, params, params_cpu, dev):
     """One ragged f32 prefill on the card (kernels) and on the CPU (plain
     versions), same weights; returns the relative max-norm difference."""
@@ -753,6 +1071,7 @@ def main() -> int:
     from repro_torch.configs.common import act_impl_of, fused_of
     from repro_torch.kernels import _build
     from repro_torch.kernels import epilogue as epi
+    from repro_torch.kernels import ops
     from repro_torch.launch import steps as TS
     from repro_torch.models import model as M
 
@@ -770,6 +1089,7 @@ def main() -> int:
 
     # 2. kernels against their plain versions, and each scheme's accuracy
     worst = phase_kernel_checks(torch, epi, dev)
+    phase_kernel_grads(torch, epi, ops, dev)
 
     phase_accuracy(torch, epi, dev)
 
@@ -827,6 +1147,12 @@ def main() -> int:
             phase_prefix(torch, epi, name, cfg, weights, dev, card, kernel)
             phase_chunked(torch, epi, name, cfg, weights, prompts, dev, card,
                           kernel, served[name]["toks"])
+    # train the cr_spline pair at full width, also before any profiling
+    trained = {name: phase_train(torch, epi, name, cfg, weights, dev, card,
+                                 kernel)
+               for name, scheme, kernel, cfg in deployments
+               if scheme == "cr_spline"}
+    torch.cuda.empty_cache()
 
     # 4. kernel timings, then where a decode step's time goes
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
@@ -837,6 +1163,8 @@ def main() -> int:
             phase_trace(torch, name, cfg, served[name]["params"], prompts,
                         dev, served[name][key], cache)
         del served[name]["params"]
+        if name in trained:
+            phase_train_trace(torch, name, cfg, weights, dev, trained[name])
     del flush
     torch.cuda.empty_cache()
 
@@ -851,6 +1179,11 @@ def main() -> int:
               cfg.n_layers, "max_abs_diff": diff, "max_abs_logit": scale,
               "rel": rel, "tolerance_rel": tol})
         assert rel <= tol, (name, rel)
+    # one f32 train step: card (kernels) vs CPU (plain versions)
+    for name, _, _, cfg in deployments:
+        if name in trained:
+            phase_train_f32_vs_cpu(torch, M, TS, name, cfg, weights,
+                                   weights_cpu, dev, tol)
     del weights, weights_cpu
 
     # 6. the kernels line: one entry per (kernel, scheme), its launches on
@@ -881,6 +1214,10 @@ def main() -> int:
             "call_ms": t["call_ms"],
             "max_abs_err_checks": worst[(kernel, scheme)],
             **own, "by_rows": by_rows})
+        if name in trained:
+            kernels[-1]["train_launches"] = {
+                remat: run["launches"][kernel]
+                for remat, run in trained[name]["runs"].items()}
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

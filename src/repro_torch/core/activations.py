@@ -349,3 +349,9 @@ class ActivationEngine:
 
     def __call__(self, name: str, x):
         return getattr(self, name)(x)
+
+
+def get_engine(cfg: ActivationConfig | dict | None = None) -> ActivationEngine:
+    if isinstance(cfg, dict):
+        cfg = ActivationConfig(**cfg)
+    return ActivationEngine(cfg)

@@ -228,7 +228,9 @@ def _index_t_split(av, spec: ApproxSpec):
     every LUT scheme."""
     u = av * spec.inv_period
     k = torch.clamp(torch.floor(u), 0.0, spec.depth - 1.0)
-    return k.to(torch.int64), u - k
+    # a NaN input takes segment 0 (t, and so the output, stay NaN): its
+    # integer cast would index out of bounds
+    return torch.nan_to_num(k).to(torch.int64), u - k
 
 
 def _gather_columns(tableau, ki, lookup: str):
@@ -238,7 +240,7 @@ def _gather_columns(tableau, ki, lookup: str):
     gather here."""
     if lookup not in ("onehot", "take"):
         raise ValueError(f"unknown lookup {lookup!r}")
-    return tuple(tableau[ki].unbind(-1))
+    return tuple(cr.table_lookup(tableau, ki).unbind(-1))
 
 
 def _finish(y, v, av, spec: ApproxSpec, odd: bool):

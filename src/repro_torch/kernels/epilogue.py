@@ -110,12 +110,17 @@ def _cr_tanh_block(v, win, *, spec: TableSpec, lookup: str = "onehot",
     u = av * spec.inv_period
     k = torch.clamp(torch.floor(u), 0.0, spec.depth - 1.0)
     t = u - k                                        # in [0, 1)
-    p = win[k.to(torch.int64)]                       # [..., 4]
+    # a NaN input takes window 0 (t, and so y, stay NaN): its integer
+    # cast would index out of bounds
+    p = cr.table_lookup(win, torch.nan_to_num(k).to(torch.int64))  # [..., 4]
     p0, p1, p2, p3 = p.unbind(-1)
     w0, w1, w2, w3 = _basis_weights_f32(t)
     y = p0 * w0 + p1 * w1 + p2 * w2 + p3 * w3        # the 4-tap MAC
-    sat = torch.tensor(spec.saturation, dtype=torch.float32, device=v.device)
-    y = torch.where(av >= spec.x_max, sat, y)
+    # the saturation as a Python scalar (rounded to f32 by the op): a
+    # tensor made from it on the card is a copy from host memory, which
+    # makes the host wait for the device (the train step's recompute
+    # backward runs this on the card once a layer)
+    y = torch.where(av >= spec.x_max, approximant._f32(spec.saturation), y)
     if odd:
         y = torch.where(v < 0.0, -y, y)              # odd-symmetry fixup
     return y

@@ -14,11 +14,21 @@ switch.
 The TPU tiling knobs (``block_rows`` / ``block_cols`` / ``block_m`` /
 ``block_n`` / ``block_k``) and ``interpret`` are accepted for call
 compatibility with the reference and have no effect: the Hopper kernels
-pick their own tiles, and the device picks the route. The recompute
-backward (the reference's ``custom_vjp``) arrives with training as a
-``torch.autograd.Function`` (ROADMAP.md, Queue A item 7).
+pick their own tiles, and the device picks the route.
+
+Autodiff: each kernel call is a ``torch.autograd.Function`` (``_ActCore``,
+``_FusedGluCore``; the reference's ``custom_vjp``) whose forward is the
+kernel (CUDA) or its plain version (CPU) and whose backward recomputes
+the kernel's plain version in torch, f32 math with the "take" lookup, and
+differentiates that (``_act_ref_math``, ``_fused_glu_ref_math``). The
+backward launches no kernel and keeps no residual from inside the kernel:
+the forward saves only its inputs, the approximant's params tensor among
+them, so a trainable ``params["act"]`` leaf gets its gradient on every
+route.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -65,6 +75,41 @@ def _resolve_spec_params(act: str, table: cr.SplineTable | None,
                                  device=device).contiguous()
 
 
+def _recompute_grads(fn, inputs, needs, g):
+    """Gradients of ``fn(*inputs)`` against ``g`` for the inputs flagged in
+    ``needs`` (None for the rest), by differentiating a fresh recompute."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(n) for t, n in zip(inputs, needs)]
+        y = fn(*leaves)
+        got = iter(torch.autograd.grad(
+            y, [t for t, n in zip(leaves, needs) if n], g))
+    return tuple(next(got) if n else None for n in needs)
+
+
+def _act_ref_math(spec, act, x, params):
+    """Recompute of the element-wise epilogue for the backward pass: the
+    kernel's plain version (f32 math, "take" lookup, cast to x's dtype)."""
+    return epi.elementwise_2d_plain(x, params, spec=spec, act=act,
+                                    lookup="take")
+
+
+class _ActCore(torch.autograd.Function):
+    """``elementwise_2d`` forward, recompute backward."""
+
+    @staticmethod
+    def forward(ctx, x, params, spec, act, lookup):
+        ctx.spec, ctx.act = spec, act
+        ctx.save_for_backward(x, params)
+        return epi.elementwise_2d(x, params, spec=spec, act=act,
+                                  lookup=lookup)
+
+    @staticmethod
+    def backward(ctx, g):
+        fn = functools.partial(_act_ref_math, ctx.spec, ctx.act)
+        return _recompute_grads(fn, ctx.saved_tensors,
+                                ctx.needs_input_grad[:2], g) + (None,) * 3
+
+
 def act(x, name: str = "tanh", table: cr.SplineTable | None = None, *,
         method: str | None = None, spec: epi.ApproxSpec | None = None,
         params=None, depth: int = 32, degree: int = 3, x_max: float = 4.0,
@@ -80,8 +125,8 @@ def act(x, name: str = "tanh", table: cr.SplineTable | None = None, *,
     shape = x.shape
     cols = shape[-1] if len(shape) else 1          # 0-d: single element
     rows = x.numel() // cols if cols else 0
-    y = epi.elementwise_2d(x.reshape(rows, cols).contiguous(), p, spec=spec,
-                           act=name, lookup=lookup)
+    y = _ActCore.apply(x.reshape(rows, cols).contiguous(), p, spec, name,
+                       lookup)
     return y.reshape(shape)
 
 
@@ -91,6 +136,31 @@ def cr_act(x, table: cr.SplineTable | None = None, *, lookup: str = "onehot",
     """CR-spline tanh; ``table`` defaults to the paper's flagship
     (x_max=4, depth=32)."""
     return act(x, "tanh", table or tanh_table(4.0, 32), lookup=lookup)
+
+
+def _fused_glu_ref_math(spec, act, x, w_gate, w_up, params):
+    """Unfused recompute for the backward pass: the kernel's plain version
+    (f32 matmuls of the upcast inputs, the same epilogue on the gate
+    product, "take" lookup, cast to x's dtype)."""
+    return epi.glu_2d_plain(x, w_gate, w_up, params, spec=spec, act=act,
+                            lookup="take")
+
+
+class _FusedGluCore(torch.autograd.Function):
+    """``glu_2d`` forward, recompute backward."""
+
+    @staticmethod
+    def forward(ctx, x, w_gate, w_up, params, spec, act, lookup):
+        ctx.spec, ctx.act = spec, act
+        ctx.save_for_backward(x, w_gate, w_up, params)
+        return epi.glu_2d(x, w_gate, w_up, params, spec=spec, act=act,
+                          lookup=lookup)
+
+    @staticmethod
+    def backward(ctx, g):
+        fn = functools.partial(_fused_glu_ref_math, ctx.spec, ctx.act)
+        return _recompute_grads(fn, ctx.saved_tensors,
+                                ctx.needs_input_grad[:4], g) + (None,) * 3
 
 
 def fused_glu(x, w_gate, w_up, table: cr.SplineTable | None = None, *,
@@ -107,6 +177,7 @@ def fused_glu(x, w_gate, w_up, table: cr.SplineTable | None = None, *,
     shape = x.shape
     k = shape[-1]
     n = w_gate.shape[-1]
-    y = epi.glu_2d(x.reshape(-1, k).contiguous(), w_gate.contiguous(),
-                   w_up.contiguous(), p, spec=spec, act=act, lookup=lookup)
+    y = _FusedGluCore.apply(x.reshape(-1, k).contiguous(),
+                            w_gate.contiguous(), w_up.contiguous(), p, spec,
+                            act, lookup)
     return y.reshape(tuple(shape[:-1]) + (n,))

@@ -1,19 +1,57 @@
-"""Step builders (counterpart of ``repro/launch/steps.py``, serving half).
+"""Step builders (counterpart of ``repro/launch/steps.py``).
 
+  train_step:         fwd + loss + bwd + clip + (optional int8 error-
+                      feedback compression) + AdamW update;
   prefill_step:       forward, returns (last logits, filled cache);
   prefill_chunk_step: one chunk of one paged slot's prompt (chunked
                       admission);
   serve_step:         one-token decode against the cache.
 
-The train step (``TrainHyper`` / ``make_train_step``) arrives with the
-training slice (ROADMAP.md, Queue A item 7).
+The train step is functional (new params and state, the inputs left as
+they were) and enqueues its work without waiting for the device: its
+metrics are 0-d tensors on the device, and reading them on the host is
+the caller's sync.
 """
 from __future__ import annotations
+
+import dataclasses
+
+import torch
 
 from repro_torch.core import approximant
 from repro_torch.core.activations import ActivationEngine
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
+from repro_torch.optim import adamw, compress
+from repro_torch.optim.adamw import tree_leaves, tree_map
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainHyper:
+    opt: adamw.AdamWConfig = dataclasses.field(
+        default_factory=adamw.AdamWConfig)
+    remat: str = "block"          # none | block | dots
+    grad_compression: bool = False
+    z_loss: float = 1e-4
+    skip_nonfinite: bool = True   # NaN/inf loss or grads -> keep the old
+                                  # params and state
+    microbatches: int = 1         # grad accumulation: split the batch dim
+                                  # into n sequential microbatches; the
+                                  # activations held shrink ~n-fold
+    train_act: bool = False       # unfreeze the approximant params (the
+                                  # params["act"] leaves; launch/train.py
+                                  # --train-act). Frozen by default: grads
+                                  # zeroed before the clip, params and
+                                  # moments restored after the update, so
+                                  # the datapath stays the registry build
+
+
+def opt_state_axes(params_axes):
+    return {
+        "m": params_axes,
+        "v": params_axes,
+        "count": (),
+    }
 
 
 def _make_engine(cfg: ModelConfig) -> ActivationEngine:
@@ -48,6 +86,93 @@ def _make_engine(cfg: ModelConfig) -> ActivationEngine:
                 f"scheme activation engine (got glu={cfg.glu}, "
                 f"mlp_act={cfg.mlp_act!r}, impl={engine.cfg.impl!r})")
     return engine
+
+
+def make_train_step(cfg: ModelConfig, hyper: TrainHyper = TrainHyper()):
+    """``train_step(params, opt_state, batch, step) -> (params, opt_state,
+    metrics)``: ``batch`` is {"tokens", "labels"} [B, S] on the params'
+    device, ``step`` a host int (or a 0-d tensor) that sets the learning
+    rate, and the metrics (0-d tensors) are loss, nll, aux, gnorm, lr and,
+    under ``skip_nonfinite``, skipped."""
+    engine = _make_engine(cfg)
+
+    def grads_of(params, batch):
+        p = tree_map(lambda t: t.detach().requires_grad_(), params)
+        loss, metrics = M.loss_fn(p, batch, cfg, engine, remat=hyper.remat,
+                                  z_loss=hyper.z_loss)
+        leaves = tree_leaves(p)
+        got = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                  materialize_grads=True)
+        by_leaf = dict(zip(map(id, leaves), got))
+        return ((loss.detach(), {k: v.detach() for k, v in metrics.items()}),
+                tree_map(lambda t: by_leaf[id(t)], p))
+
+    def accumulate(params, batch):
+        """Sequential microbatch accumulation: grads, loss and metrics are
+        the mean over microbatches (the same expectation as the monolithic
+        step), summed in the reference's order."""
+        n = hyper.microbatches
+        rows = next(iter(batch.values())).shape[0] // n
+        acc_g = tree_map(lambda t: torch.zeros(t.shape, dtype=torch.float32,
+                                               device=t.device), params)
+        zero = torch.zeros((), dtype=torch.float32,
+                           device=tree_leaves(params)[0].device)
+        acc_l, acc_m = zero, {"nll": zero, "aux": zero}
+        for i in range(n):
+            mb = {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
+            (loss_i, metrics_i), g_i = grads_of(params, mb)
+            acc_g = tree_map(torch.add, acc_g, g_i)
+            acc_l = acc_l + loss_i
+            acc_m = tree_map(torch.add, acc_m, metrics_i)
+        inv = 1.0 / n
+        return ((acc_l * inv, tree_map(lambda v: v * inv, acc_m)),
+                tree_map(lambda v: v * inv, acc_g))
+
+    def train_step(params, opt_state, batch, step):
+        if hyper.microbatches > 1:
+            (loss, metrics), grads = accumulate(params, batch)
+        else:
+            (loss, metrics), grads = grads_of(params, batch)
+        with torch.no_grad():
+            if not hyper.train_act and "act" in grads:
+                # frozen approximant params: zero their grads BEFORE the
+                # global-norm clip (gnorm then matches a model without them)
+                grads = dict(grads,
+                             act=tree_map(torch.zeros_like, grads["act"]))
+            grads, gnorm = adamw.clip_by_global_norm(grads,
+                                                     hyper.opt.clip_norm)
+            if hyper.grad_compression:
+                grads, new_err = compress.compress_grads(grads,
+                                                         opt_state["error"])
+            lr = adamw.cosine_schedule(hyper.opt, step, loss.device)
+            inner = {k: opt_state[k] for k in ("m", "v", "count")}
+            new_params, new_inner = adamw.adamw_update(grads, inner, params,
+                                                       hyper.opt, lr)
+            new_state = dict(new_inner)
+            if not hyper.train_act and "act" in new_params:
+                # AdamW's weight decay would shrink the frozen leaves even
+                # at zero grad: restore params and moments as they were
+                new_params = dict(new_params, act=params["act"])
+                new_state["m"] = dict(new_state["m"],
+                                      act=opt_state["m"]["act"])
+                new_state["v"] = dict(new_state["v"],
+                                      act=opt_state["v"]["act"])
+            if hyper.grad_compression:
+                new_state["error"] = new_err
+            if hyper.skip_nonfinite:
+                # a non-finite loss or gradient norm keeps the old params
+                # and state, chosen on the device; the driver counts the
+                # skips and rolls back if they persist (ft/driver.py)
+                ok = torch.isfinite(loss) & torch.isfinite(gnorm)
+                sel = lambda new, old: tree_map(
+                    lambda n, o: torch.where(ok, n, o), new, old)
+                new_params = sel(new_params, params)
+                new_state = sel(new_state, opt_state)
+                metrics = dict(metrics, skipped=(~ok).to(torch.int32))
+        metrics = dict(metrics, loss=loss, gnorm=gnorm, lr=lr)
+        return new_params, new_state, metrics
+
+    return train_step
 
 
 def make_engine(cfg: ModelConfig) -> ActivationEngine:

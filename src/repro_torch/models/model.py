@@ -1,5 +1,5 @@
 """LM assembly: embeddings -> blocks -> norm -> head, plus the step
-functions serving runs: full-sequence forward, ragged prefill, and
+functions: the train loss, full-sequence forward, ragged prefill, and
 single-token decode against the per-slot KV cache (counterpart of
 ``repro/models/model.py``).
 
@@ -24,6 +24,7 @@ place.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import numpy as np
@@ -135,12 +136,46 @@ def _layer(blocks, i: int):
     return blocks[i]
 
 
+def _layers(blocks, n: int) -> list:
+    """Every layer's parameter subtree at once (``torch.unbind`` of each
+    stacked tensor). Differentiating n ``_layer`` views builds n
+    full-size zero gradients of every stacked tensor and adds them up;
+    ``unbind`` stacks the n slice gradients once."""
+    if isinstance(blocks, dict):
+        per_key = {k: _layers(v, n) for k, v in blocks.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return list(torch.unbind(blocks))
+
+
 # ---------------------------------------------------------------------------
 # embeddings & heads
 # ---------------------------------------------------------------------------
 
+class _EmbedRows(torch.autograd.Function):
+    """``table[ids]`` whose backward adds each row's gradient into a zero
+    table with ``index_add_``: the indexed scatter ``table[ids]``
+    differentiates to sorts the ids and makes the host wait for the
+    device, once a train step. On the card the adds are atomic, so the
+    gradients of a repeated id sum in no fixed order; on the CPU in order."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.table_shape = tuple(table.shape)
+        return table.index_select(0, ids.reshape(-1)).reshape(
+            tuple(ids.shape) + tuple(table.shape[1:]))
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        grad = torch.zeros(ctx.table_shape, dtype=g.dtype, device=g.device)
+        grad.index_add_(0, ids.reshape(-1),
+                        g.reshape((-1,) + ctx.table_shape[1:]))
+        return grad, None
+
+
 def embed_tokens(params, tokens, cfg: ModelConfig):
-    return params["embed"].to(dtype_of(cfg))[tokens.long()]
+    return _EmbedRows.apply(params["embed"].to(dtype_of(cfg)), tokens.long())
 
 
 def lm_logits(params, h, cfg: ModelConfig):
@@ -162,15 +197,53 @@ def _positions_for(cfg: ModelConfig, S: int, device, offset=0):
     return torch.arange(S, dtype=torch.int32, device=device)[None, :] + offset
 
 
-def run_stack_train(params, x, cfg: ModelConfig, engine: ActivationEngine):
-    """Full-sequence stack (forward only in this slice)."""
+# aten matmuls whose outputs remat="dots" keeps (the counterpart of
+# jax.checkpoint_policies.checkpoint_dots); everything else is recomputed
+_DOT_OPS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                      torch.ops.aten.addmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    return (CheckpointPolicy.MUST_SAVE if op in _DOT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_block(block_fn, remat: str):
+    """``block_fn`` under the remat policy: "none" keeps every activation,
+    "block" keeps only the block's input and reruns its forward in the
+    backward, "dots" keeps the matmul outputs and reruns the rest. A rerun
+    forward launches the block's kernels again."""
+    if remat == "none":
+        return block_fn
+    from torch.utils import checkpoint as ckpt
+    if remat == "block":
+        return lambda *a: ckpt.checkpoint(block_fn, *a, use_reentrant=False)
+    if remat == "dots":
+        ctx_fn = functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                   _dots_policy)
+        return lambda *a: ckpt.checkpoint(block_fn, *a, use_reentrant=False,
+                                          context_fn=ctx_fn)
+    raise ValueError(f"unknown remat {remat!r} (none | block | dots)")
+
+
+def run_stack_train(params, x, cfg: ModelConfig, engine: ActivationEngine,
+                    remat: str = "block"):
+    """Full-sequence stack under a remat policy (``_remat_block``). Returns
+    (x, aux loss averaged over layers: a 0-d f32 zero for dense blocks)."""
     S = x.shape[1]
     ar = torch.arange(S, dtype=torch.int32, device=x.device)
     io = BlockIO(mode="train", positions=_positions_for(cfg, S, x.device),
                  q_pos=ar, k_pos=ar)
-    for i in range(cfg.n_layers):
-        x, _, _ = apply_block(_layer(params["blocks"], i), x, io, cfg, engine)
-    return x, 0.0
+
+    def block_fn(x, layer_params):
+        return apply_block(layer_params, x, io, cfg, engine)[0]
+
+    block_fn = _remat_block(block_fn, remat)
+    for layer_params in _layers(params["blocks"], cfg.n_layers):
+        x = block_fn(x, layer_params)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux / cfg.n_layers
 
 
 def run_stack_prefill(params, x, cfg: ModelConfig, engine, capacity: int,
@@ -457,11 +530,28 @@ def init_paged_cache(cfg: ModelConfig, slots: int, n_pages: int,
 # step functions
 # ---------------------------------------------------------------------------
 
+def loss_fn(params, batch, cfg: ModelConfig, engine: ActivationEngine,
+            remat: str = "block", z_loss: float = 1e-4):
+    """Next-token loss of one batch ({"tokens", "labels"} [B, S]):
+    nll + aux + z_loss * mean(lse^2), with the f32 head. Returns (total,
+    {"nll", "aux"}), 0-d f32 tensors."""
+    engine = _bind_engine(engine, params)
+    x = embed_tokens(params, batch["tokens"], cfg)
+    x, aux = run_stack_train(params, x, cfg, engine, remat)
+    x = apply_norm(params["ln_f"], x, cfg)
+    logits = lm_logits(params, x, cfg)                     # f32
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, batch["labels"].long()[..., None])[..., 0]
+    nll = (lse - ll).mean()
+    total = nll + aux + z_loss * (lse ** 2).mean()
+    return total, {"nll": nll, "aux": aux}
+
+
 def forward_fn(params, batch, cfg: ModelConfig, engine: ActivationEngine):
     """Full-sequence logits, no cache (tests / evaluation)."""
     engine = _bind_engine(engine, params)
     x = embed_tokens(params, batch["tokens"], cfg)
-    x, _ = run_stack_train(params, x, cfg, engine)
+    x, _ = run_stack_train(params, x, cfg, engine, remat="none")
     x = apply_norm(params["ln_f"], x, cfg)
     return lm_logits(params, x, cfg)
 

@@ -77,3 +77,36 @@ def test_materialize_default_device_raises_without_cuda():
     from repro_torch.models import model as M
     with pytest.raises(RuntimeError):
         M.materialize_params(registry.get("qwen3-0.6b", smoke=True))
+
+
+# names of the reference's repro.core.__all__ the port does not export
+# yet: the fixed-point datapaths and the error analysis (ROADMAP.md,
+# Queue A item 2)
+CORE_KNOWN_GAPS = {"representable_grid", "FixedTable", "build_fixed_table",
+                   "interpolate_fixed", "PAPER_TABLE_1_2", "ErrorStats",
+                   "table_1_2", "tanh_error"}
+
+
+def _reference_all(path: pathlib.Path) -> list[str]:
+    """``__all__`` of a reference module, read from its source (importing
+    it would import jax)."""
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == "__all__" for t in node.targets):
+            return ast.literal_eval(node.value)
+    raise AssertionError(f"no __all__ in {path}")
+
+
+def test_core_exports_the_reference_names_that_are_ported():
+    import repro_torch.core as core
+    ref = set(_reference_all(ROOT / "src" / "repro" / "core" / "__init__.py"))
+    assert CORE_KNOWN_GAPS <= ref
+    assert set(core.__all__) == ref - CORE_KNOWN_GAPS
+    for name in core.__all__:
+        assert getattr(core, name) is not None, name
+    for name in CORE_KNOWN_GAPS:       # a gap closed: move it to __all__
+        assert not hasattr(core, name), name
+    from repro_torch.core import ActivationEngine, get_engine
+    eng = get_engine({"impl": "cr", "depth": 16})
+    assert isinstance(eng, ActivationEngine) and eng.cfg.depth == 16
+    assert get_engine().cfg.impl == "exact"

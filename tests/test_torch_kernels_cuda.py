@@ -330,3 +330,165 @@ def test_glu_wrapper_raises_when_the_variant_is_refused(cuda, monkeypatch,
     with pytest.raises(RuntimeError, match=forced):
         tepi.glu_2d(x, wg, wu, p, spec=spec)
     assert tepi.LAUNCHES == launches and tepi.GLU_VARIANTS == variants
+
+
+# --- gradients through the kernels and the train step -----------------------
+
+def _route_grads(fn, inputs, g):
+    """(output, gradients of <output, g> for every input) of ``fn``."""
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    y = fn(*leaves)
+    return y.detach(), torch.autograd.grad(y, leaves, g)
+
+
+def _assert_grads_bitwise(got, ref):
+    for a, b in zip(got, ref):
+        assert a.dtype == b.dtype and torch.equal(a, b), float(
+            (a.float() - b.float()).abs().max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("scheme,act", ALL_SCHEME_ACTS)
+def test_act_kernel_route_grads_equal_plain_route(cuda, scheme, act, dtype):
+    """``ops.act`` on a CUDA tensor launches ``elementwise_2d`` once in the
+    forward and none in the backward, which recomputes the plain version:
+    the gradients for x and the params equal autograd through the plain
+    version on the same inputs bit for bit, at the training row count
+    and a ragged one."""
+    dt = getattr(torch, dtype)
+    spec, p = _any_scheme(scheme, act, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for m in (1024, 1000):
+        x = (torch.randn((m, 3072), generator=gen, device=cuda) * 3).to(dt)
+        g = torch.randn((m, 3072), generator=gen, device=cuda).to(dt)
+        n0 = tepi.LAUNCHES["elementwise_2d"]
+        y, gk = _route_grads(
+            lambda x, p: tops.act(x, act, spec=spec, params=p), (x, p), g)
+        torch.cuda.synchronize()
+        assert tepi.LAUNCHES["elementwise_2d"] == n0 + 1
+        yp, gp = _route_grads(
+            lambda x, p: tepi.elementwise_2d_plain(
+                x, p, spec=spec, act=act, lookup="take"), (x, p), g)
+        _assert_grads_bitwise(gk, gp)
+        if dt == torch.float32:
+            assert torch.equal(y, yp)
+        else:
+            assert_within_bf16_ulp(y, yp)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("scheme", ("cr_spline",) + SCHEMES)
+def test_glu_kernel_route_grads_equal_plain_route(cuda, scheme, dtype):
+    """``ops.fused_glu`` likewise: one ``glu_2d`` launch, and gradients for
+    x, w_gate, w_up and the params bitwise those of the plain version, at
+    M = 1024 and 1000 (K = 1024, N = 3072, the training shapes)."""
+    dt = getattr(torch, dtype)
+    spec, p = _any_scheme(scheme, "silu", cuda)
+    for m in (1024, 1000):
+        x, wg, wu = (t.to(dt) for t in _bf16_operands(m, 1024, 3072, cuda))
+        g = torch.from_numpy(rand((m, 3072), scale=1.0, seed=9)).to(cuda, dt)
+        n0 = tepi.LAUNCHES["glu_2d"]
+        y, gk = _route_grads(
+            lambda x, wg, wu, p: tops.fused_glu(x, wg, wu, spec=spec,
+                                                params=p), (x, wg, wu, p), g)
+        torch.cuda.synchronize()
+        assert tepi.LAUNCHES["glu_2d"] == n0 + 1
+        yp, gp = _route_grads(
+            lambda x, wg, wu, p: tepi.glu_2d_plain(
+                x, wg, wu, p, spec=spec, act="silu", lookup="take"),
+            (x, wg, wu, p), g)
+        _assert_grads_bitwise(gk, gp)
+        tol = (1e-4, 1e-5) if dt == torch.float32 else (1e-2, 1e-3)
+        torch.testing.assert_close(y.float(), yp.float(), rtol=tol[0],
+                                   atol=tol[1])
+
+
+def _smoke_deployment(dep, dtype="bfloat16"):
+    from repro_torch.configs import registry
+    from repro_torch.configs.common import act_impl_of, fused_of
+    cfg = registry.get("qwen3-0.6b", smoke=True, compute_dtype=dtype)
+    if dep == "fused":
+        return fused_of(cfg), "glu_2d"
+    return act_impl_of(cfg, "cr_spline", use_kernel=True), "elementwise_2d"
+
+
+@pytest.mark.parametrize("remat,per_layer", [("none", 1), ("block", 2)])
+@pytest.mark.parametrize("dep", ["fused", "kernel"])
+def test_train_step_launch_counts(cuda, dep, remat, per_layer):
+    """Two bf16 train steps of each cr_spline deployment at smoke size:
+    the path's kernel launches n_layers times a step in the forward, twice
+    that under remat="block" (the checkpoint reruns each block's forward
+    in the backward), the other kernel never, every glu_2d launch on
+    tma_wgmma; finite losses, nothing skipped."""
+    from repro_torch.data import DataConfig, SyntheticPipeline
+    from repro_torch.launch import steps as TS
+    from repro_torch.models import model as TM
+    from repro_torch.optim import adamw as TA
+    cfg, kernel = _smoke_deployment(dep)
+    params = TM.materialize_params(cfg, seed=0, device=cuda)
+    opt = TA.init_state(params)
+    step = TS.make_train_step(cfg, TS.TrainHyper(
+        remat=remat, opt=TA.AdamWConfig(lr_peak=1e-2, warmup_steps=2)))
+    pipe = SyntheticPipeline(cfg, DataConfig(seed=1, vocab_size=512), 4, 16,
+                             device=cuda)
+    batches = [pipe(s) for s in (1, 2)]
+    launches, variants = dict(tepi.LAUNCHES), dict(tepi.GLU_VARIANTS)
+    for s, batch in zip((1, 2), batches):
+        params, opt, m = step(params, opt, batch, s)
+        assert np.isfinite(float(m["loss"])) and int(m["skipped"]) == 0
+    got = {k: tepi.LAUNCHES[k] - launches[k] for k in launches}
+    other = "elementwise_2d" if kernel == "glu_2d" else "glu_2d"
+    assert got[kernel] == 2 * cfg.n_layers * per_layer, got
+    assert got[other] == 0, got
+    if kernel == "glu_2d":
+        assert tepi.GLU_VARIANTS["tma_wgmma"] - variants["tma_wgmma"] \
+            == got["glu_2d"]
+
+
+@pytest.mark.parametrize("dep", ["fused", "kernel"])
+def test_loss_grads_on_card_match_cpu(cuda, dep):
+    """The gradient reaches every leaf through the kernels: f32 gradients
+    of the loss on the card (kernels) against the CPU (plain versions) on
+    the same weights and batch, within 1e-4 relative to each leaf's
+    largest |grad|; the FFN weights and the act leaf among them."""
+    from repro_torch.launch import steps as TS
+    from repro_torch.models import model as TM
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    cfg, _ = _smoke_deployment(dep, "float32")
+    cpu_params = TM.materialize_params(cfg, seed=0, device="cpu")
+    toks = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 512, (2, 17)).astype(np.int32))
+    grads = {}
+    for dev in (cuda, torch.device("cpu")):
+        p = tree_map(lambda t: t.to(dev).requires_grad_(), cpu_params)
+        batch = {"tokens": toks[:, :-1].to(dev), "labels": toks[:, 1:].to(dev)}
+        loss, _ = TM.loss_fn(p, batch, cfg, TS.make_engine(cfg), remat="none")
+        leaves = tree_leaves(p)
+        grads[dev.type] = [g.cpu() for g in torch.autograd.grad(loss, leaves)]
+    for gc, gp in zip(grads["cuda"], grads["cpu"]):
+        scale = float(gp.abs().max())
+        assert scale > 0
+        assert float((gc - gp).abs().max()) <= 1e-4 * scale
+
+
+def test_table_lookup_backward_is_deterministic_and_sync_free(cuda):
+    """The plain datapaths' table lookup at the training shape: the same
+    gradient bits on every run, and neither direction makes the host wait
+    (CUDA's sync debug mode raises on a sync)."""
+    from repro_torch.core.catmull_rom import table_lookup
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    table = torch.randn((32, 4), generator=gen, device=cuda,
+                        requires_grad=True)
+    k = torch.randint(0, 32, (1000, 3072), generator=gen, device=cuda)
+    g = torch.randn((1000, 3072, 4), generator=gen, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        grads = [torch.autograd.grad(table_lookup(table, k), table, g)[0]
+                 for _ in range(3)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(torch.equal(grads[0], x) for x in grads[1:])
+    ref, = torch.autograd.grad(table[k], table, g)
+    assert float((grads[0] - ref).abs().max()) <= 1e-5 * float(
+        ref.abs().max())

@@ -1,0 +1,83 @@
+"""Port vs reference: the train step's options, on the reference's own
+weights (``qwen3-0.6b`` smoke, f32): remat="dots", microbatches=2,
+grad_compression, and a non-finite batch that must be skipped with the
+params unchanged. Setup, helpers and tolerances are
+``test_torch_train.py``'s (see its docstring)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.optim import adamw as JA  # noqa: E402
+from repro.optim import compress as JC  # noqa: E402
+from repro_torch.optim import adamw as TA  # noqa: E402
+from repro_torch.optim import compress as TC  # noqa: E402
+from test_torch_train import (PARAM_OVER_LR, REL_MOMENT, assert_leaves,  # noqa: E402
+                              assert_scalars, flat, run_both, setup)
+
+REL_QSTEP = 2 / 127
+
+
+def test_remat_dots_matches_reference():
+    """remat="dots" keeps the matmul outputs and reruns the rest in the
+    backward (the reference's checkpoint_dots policy)."""
+    _, _, jp, tp, jstep, tstep, batch = setup("fused", remat="dots",
+                                              train_act=True)
+    (jp2, jo2, jm), (tp2, to2, tm) = run_both(jp, tp, jstep, tstep, batch)
+    assert_scalars(tm, jm)
+    assert_leaves(tp2, jp2, atol=PARAM_OVER_LR * float(jm["lr"]))
+    assert_leaves(to2["m"], jo2["m"], rel=REL_MOMENT)
+    assert_leaves(to2["v"], jo2["v"], rel=REL_MOMENT)
+
+
+def test_microbatches_match_reference():
+    _, _, jp, tp, jstep, tstep, batch = setup("plain", remat="none",
+                                              microbatches=2)
+    (jp2, jo2, jm), (tp2, to2, tm) = run_both(jp, tp, jstep, tstep, batch)
+    assert_scalars(tm, jm)
+    assert_leaves(tp2, jp2, atol=PARAM_OVER_LR * float(jm["lr"]))
+    assert_leaves(to2["m"], jo2["m"], rel=REL_MOMENT)
+    assert_leaves(to2["v"], jo2["v"], rel=REL_MOMENT)
+
+
+def test_grad_compression_matches_reference():
+    _, _, jp, tp, jstep, tstep, batch = setup("fused", remat="none",
+                                              grad_compression=True)
+    jo = dict(JA.init_state(jp), error=JC.init_error(jp))
+    to = dict(TA.init_state(tp), error=TC.init_error(tp))
+    (jp2, jo2, jm), (tp2, to2, tm) = run_both(jp, tp, jstep, tstep, batch,
+                                              jo, to)
+    assert_scalars(tm, jm)
+    assert_leaves(tp2, jp2, atol=PARAM_OVER_LR * float(jm["lr"]))
+    # an element on a rounding boundary may land one int8 step apart in
+    # the two packages: m and v agree to within that step (1/127 of the
+    # leaf's largest value, twice over two steps)
+    assert_leaves(to2["m"], jo2["m"], rel=REL_QSTEP)
+    assert_leaves(to2["v"], jo2["v"], rel=REL_QSTEP)
+    # the error buffers hold the rounding residual, at most half a step:
+    # they agree to within one step (twice the larger residual)
+    te, je = flat(to2["error"]), flat(jo2["error"])
+    for k in je:
+        step = 2.02 * max(np.abs(te[k]).max(), np.abs(je[k]).max())
+        assert np.abs(te[k] - je[k]).max() <= step, k
+
+
+def test_nonfinite_batch_is_skipped_with_params_unchanged():
+    """An inf embedding row makes the loss non-finite: both packages
+    report the skip, and the port's params and state come back bitwise
+    as they went in."""
+    _, _, jp, tp, jstep, tstep, batch = setup("kernel", remat="none")
+    jp = dict(jp, embed=jp["embed"].at[int(batch["tokens"][0, 0])].set(
+        jnp.inf))
+    tp = dict(tp, embed=tp["embed"].clone())
+    tp["embed"][int(batch["tokens"][0, 0])] = float("inf")
+    topt = TA.init_state(tp)
+    (_, _, jm), (tp2, to2, tm) = run_both(jp, tp, jstep, tstep, batch,
+                                          topt=topt, steps=(1,))
+    assert int(jm["skipped"]) == int(tm["skipped"]) == 1
+    assert not np.isfinite(float(tm["loss"]))
+    for k, v in flat(tp).items():
+        np.testing.assert_array_equal(flat(tp2)[k], v)
+    for k, v in flat(topt).items():
+        np.testing.assert_array_equal(flat(to2)[k], v)
