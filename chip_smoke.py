@@ -25,6 +25,17 @@ lines:
      training row count (1024) and a ragged 1000: bitwise equal to
      autograd through the plain version. Then each scheme's kernel tanh
      over the whole 2^16-point Q2.13 input grid, within 0.03 of tanh.
+     Then the bit-accurate integer datapaths, which have no kernel (int32
+     tensor ops on the card): ``fixed_grid``, each scheme's
+     ``fixed_block`` at its fixed geometry (and CR at depths 8, 16, 64)
+     over the whole Q2.13, Q2.10 and Q2.16 lattice from a ROM on the
+     card, bit-identical to the CPU, with ``tanh_error(...,
+     datapath="fixed")`` per scheme (CR at depth 64 one Q2.13 LSB) and
+     ``table_1_2("qout")`` beside the paper's; ``fixed_engine``, every
+     nonlinearity of each ``*_fixed`` engine on [1024, 3072] f32 and bf16
+     inputs with NaN and ±inf, card = CPU bitwise (softplus, a float
+     spline under every impl, within 1e-6 / one bf16 ulp), and the
+     straight-through gradients in x (1e-6) and in the act leaf (1e-5).
   3. serve qwen3-0.6b at full width (28 layers, random weights from seed
      0, bf16 compute) through the port's ServeEngine, in two deployments
      per scheme: ``fused_of(act_impl_of(cfg, scheme))``, where every FFN
@@ -50,6 +61,13 @@ lines:
      each block's forward), the other none; step wall ms, tokens/s, peak
      memory, and one step that must make no host sync (CUDA's sync debug
      mode).
+     Then ``train_cr_fixed``: 3 steps without remat (quantization-aware,
+     the straight-through gradient), no kernel launch, no host sync; the
+     trainings follow the float serving runs only, so the walls of all
+     three are read under the same conditions. Then
+     ``serve_fixed_<scheme>``: the same served run (paged) under each of
+     ``cr_fixed``, ``pwl_fixed``, ``poly_fixed``, ``rational_fixed``,
+     where neither kernel may launch.
      The weights are built once; only their ``act`` leaf differs by
      scheme.
   4. kernel timings at the main path's shapes (decode 2 rows, prefill 128
@@ -70,7 +88,8 @@ lines:
      decode step; and one decode chunk (paged: with its write mask) that
      must make no host sync (CUDA's sync debug mode raises on any); and
      one train step of each trained deployment under the profiler
-     (``trace_train_*``). Profiling comes after serving and training
+     (``trace_train_*``); the same for the ``*_fixed`` deployments
+     (``trace_fixed_*``, ``trace_train_cr_fixed``). Profiling comes after serving and training
      because a profiled process keeps paying tracing costs on every later
      launch.
   5. f32 prefill logits of every deployment on the card (kernels) against
@@ -78,7 +97,9 @@ lines:
      ``train_f32_vs_cpu``: one f32 train step (batch 1, seq 32, full
      width) of each trained deployment on the card and on the CPU: loss,
      gnorm and the gradients of the FFN stacks and the act leaf (per knot:
-     ``knot_grad``) within 1e-4 relative.
+     ``knot_grad``) within 1e-4 relative. The same for each ``*_fixed``
+     deployment's logits at FIXED_LOGITS_TOL and ``cr_fixed``'s step at
+     FIXED_F32_TOL.
   6. the ``{"kernels": [...]}`` line: one entry per (kernel, scheme), its
      top-level times at decode and ``by_rows`` at every timed row count;
      ``elementwise_2d``'s entries add ``copy_ms``, ``glu_2d``'s the
@@ -150,6 +171,34 @@ PAGE_SIZE = 16                  # 160 = 10 pages: the paged ring is the slot rin
 PREFIX_PAGES, PREFIX_TAILS = 4, (7, 19, 33, 50)
 CHUNK_PREFILL = 32              # serve_chunked's prefill chunk
 TOP_KERNELS = 5                 # device kernels named per trace line
+# the bit-accurate integer datapaths (no kernel: int32 tensor ops)
+FIXED_IMPLS = ("cr_fixed", "pwl_fixed", "poly_fixed", "rational_fixed")
+# each scheme's fixed geometry (the reference's tests/test_fixed_datapath.py
+# FIXED_GEOMS), and CR's other paper depths
+FIXED_GEOMS = {"cr_spline": dict(depth=32, degree=3),
+               "pwl": dict(depth=32, degree=3),
+               "poly": dict(depth=8, degree=3),
+               "rational": dict(depth=32, degree=5)}
+FIXED_CR_DEPTHS = (8, 16, 64)
+FIXED_FORMATS = ((2, 13), (2, 10), (2, 16))      # (int_bits, frac_bits)
+FIXED_FUNCS = ("tanh", "sigmoid", "silu", "gelu_tanh", "softplus")
+FIXED_ENGINE_SHAPE = (1024, 3072)
+# fixed_engine: x's gradient through the straight-through Function, card
+# against the CPU on the same inputs (max |diff| over max |cpu|)
+FIXED_GRAD_TOL = 1e-6
+FIXED_LEAF_GRAD_TOL = 1e-5      # the act leaf's (per knot for CR windows)
+FIXED_TRAIN_RUNS = (("none", 3, 0),)   # train_cr_fixed: 3 steps, no remat
+# f32 logits and one f32 train step of a *_fixed deployment, card against
+# the CPU (relative): the activation is quantized to Q2.13, so a gate
+# value that the card's and the CPU's GEMMs round ~1e-6 apart can land
+# one LSB (1.22e-4) apart, and 28 layers carry that on. Measured on an
+# H100: logits <= 1.5e-5 (rel) over the four deployments, 6e-5 is 4x
+# that and half a Q2.13 LSB; the step's gradients <= 5.1e-5 (the act
+# leaf per knot), where the float deployments' 1e-4 would leave 2x, so
+# the step takes 2.5e-4, ~5x.
+FIXED_LOGITS_TOL = 6e-5
+FIXED_F32_TOL = 2.5e-4
+LSB_Q213 = 2.0 ** -13
 
 
 def emit(obj) -> None:
@@ -605,7 +654,8 @@ def drive(torch, epi, cfg, params, prompts, dev, kernel, **ecfg):
     """One served run with the launch counts zeroed just before and read
     just after. The kernel of the path must launch exactly n_layers x
     forwards times (forwards: prefill batches + prefill chunks + decode
-    steps, from the run's EngineStats), the other kernel not at all.
+    steps, from the run's EngineStats), the other kernel not at all; with
+    ``kernel`` None (a ``*_fixed`` deployment) neither kernel launches.
     Returns (token lists, engine, launches, glu variants)."""
     for counts in (epi.LAUNCHES, epi.GLU_VARIANTS):
         for k in counts:
@@ -619,9 +669,13 @@ def drive(torch, epi, cfg, params, prompts, dev, kernel, **ecfg):
     for c in done:
         assert len(c.tokens) == MAX_NEW and c.finish_reason == "length", c
         assert all(0 <= t < cfg.padded_vocab for t in c.tokens), c.tokens
-    other = "elementwise_2d" if kernel == "glu_2d" else "glu_2d"
-    assert launches[kernel] == cfg.n_layers * forwards, (launches, forwards)
-    assert launches[other] == 0, launches
+    if kernel is None:
+        assert not any(launches.values()), launches
+    else:
+        other = "elementwise_2d" if kernel == "glu_2d" else "glu_2d"
+        assert launches[kernel] == cfg.n_layers * forwards, (launches,
+                                                             forwards)
+        assert launches[other] == 0, launches
     if eng.paged:
         assert eng.snapshot().pages_in_use == 0 and eng._pool.reserved == 0
     return [c.tokens for c in done], eng, launches, variants
@@ -831,7 +885,8 @@ def host_syncs(torch, fn) -> int:
                for w in caught)
 
 
-def phase_train(torch, epi, name, cfg, weights, dev, card, kernel):
+def phase_train(torch, epi, name, cfg, weights, dev, card, kernel,
+                runs=TRAIN_RUNS):
     """Train at full width through the port's TrainDriver and pipeline:
     TRAIN_RUNS (5 steps without remat, then 2 under remat="block",
     continuing the same run), each with the launch counts zeroed just
@@ -840,8 +895,9 @@ def phase_train(torch, epi, name, cfg, weights, dev, card, kernel):
     checkpoint reruns each block's forward in the backward; the
     recompute backward of the kernels launches none), the other kernel
     never, every bf16 glu_2d launch on tma_wgmma; every loss finite,
-    nothing skipped. Then one more step under CUDA's sync debug mode must
-    make no host sync. Returns the line."""
+    nothing skipped. With ``kernel`` None (a ``*_fixed`` deployment) and
+    its ``runs``, neither kernel launches. Then one more step under
+    CUDA's sync debug mode must make no host sync. Returns the line."""
     import tempfile
     from repro_torch.ft import FTConfig, TrainDriver
     from repro_torch.launch import steps as TS
@@ -854,11 +910,10 @@ def phase_train(torch, epi, name, cfg, weights, dev, card, kernel):
             "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
             "compute_dtype": cfg.compute_dtype, "scheme": cfg.act_impl
             or cfg.activation.impl, "runs": {}}
-    other = "elementwise_2d" if kernel == "glu_2d" else "glu_2d"
     step = 0
     with tempfile.TemporaryDirectory() as ckpt:
         ft = FTConfig(ckpt_dir=ckpt, ckpt_every=10 ** 9, log_every=0)
-        for remat, n_steps, per_layer in TRAIN_RUNS:
+        for remat, n_steps, per_layer in runs:
             step_fn = TS.make_train_step(cfg, TS.TrainHyper(
                 remat=remat, opt=train_opt()))
             drv = TrainDriver(step_fn, pipe, params, opt, ft,
@@ -877,9 +932,10 @@ def phase_train(torch, epi, name, cfg, weights, dev, card, kernel):
             assert all(math.isfinite(r.loss) and not r.skipped
                        for r in recs), \
                 [(r.loss, r.skipped) for r in recs]
-            assert launches[kernel] == per_layer * cfg.n_layers * n_steps, \
-                (remat, launches)
-            assert launches[other] == 0, launches
+            for k, n in launches.items():
+                want = per_layer * cfg.n_layers * n_steps if k == kernel \
+                    else 0
+                assert n == want, (remat, launches)
             if kernel == "glu_2d":
                 assert variants == {"tma_wgmma": launches["glu_2d"],
                                     "wmma": 0, "simt_f32": 0}, variants
@@ -892,7 +948,7 @@ def phase_train(torch, epi, name, cfg, weights, dev, card, kernel):
                 "gnorms": [r.gnorm for r in recs],
                 "skipped": sum(r.skipped for r in recs),
                 "launches": launches, "glu_variants": variants,
-                "launches_per_step": launches[kernel] / n_steps,
+                "launches_per_step": launches.get(kernel, 0) / n_steps,
                 "step_wall_ms": walls, "step_wall_ms_median": steady,
                 "train_tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / steady * 1e3,
                 "max_memory_allocated_gb": peak / 1e9}
@@ -1038,6 +1094,169 @@ def phase_f32_vs_cpu(torch, np, M, TS, cfg, params, params_cpu, dev):
     return diff, scale
 
 
+def phase_fixed_grid(torch, dev):
+    """Each scheme's integer datapath (``approximant.fixed_block``) at its
+    fixed geometry, and CR at its other paper depths, over the whole
+    lattice at Q2.13 (2^16 points), Q2.10 and Q2.16, on the card from a ROM
+    on the card: bit-identical to the same call on the CPU, int32 out, and
+    the ROM requantized from the f32 params on the card equal to the ROM.
+    Then ``tanh_error(..., datapath="fixed")`` per scheme on the card (CR
+    at depth 64 must come to one Q2.13 LSB, within 5%) and
+    ``table_1_2("qout")`` beside the paper's Tables I/II."""
+    from repro_torch.core import approximant as apx
+    from repro_torch.core import error_analysis as ea
+    from repro_torch.core import fixed_point as fp
+    cpu = torch.device("cpu")
+    cases = list(FIXED_GEOMS.items()) + [
+        ("cr_spline", dict(depth=d, degree=3)) for d in FIXED_CR_DEPTHS]
+    lattices = {}
+    for scheme, geom in cases:
+        for ib, fb in FIXED_FORMATS:
+            fmt = fp.QFormat(ib, fb)
+            spec = apx.spec_for(scheme, "tanh", int_bits=ib, frac_bits=fb,
+                                **geom)
+            xq = torch.as_tensor(fp.quantize(fp.representable_grid(fmt), fmt))
+            rom = apx.fixed_params_on(spec, "tanh", dev)
+            y = apx.fixed_block(xq.to(dev), rom, spec)
+            req = apx.requantize(apx.params_on(spec, "tanh", dev), spec)
+            torch.cuda.synchronize()
+            want = apx.fixed_block(xq, apx.fixed_params_on(spec, "tanh", cpu),
+                                   spec)
+            assert y.device == dev and y.dtype == torch.int32, (y.device,
+                                                                y.dtype)
+            assert torch.equal(y.cpu(), want), (scheme, geom, str(fmt), int(
+                (y.cpu() != want).sum()))
+            assert torch.equal(req, rom), (scheme, geom, str(fmt))
+            lattices[f"{scheme} d{geom['depth']} g{geom['degree']} "
+                     f"{fmt}"] = xq.numel()
+    errors = {}
+    for scheme, geom in FIXED_GEOMS.items():
+        st = ea.tanh_error(scheme, geom["depth"], datapath="fixed",
+                           degree=geom["degree"], device=dev)
+        errors[scheme] = {"depth": geom["depth"], "degree": geom["degree"],
+                          "max": st.max, "rms": st.rms}
+    cr = {d: ea.tanh_error("cr", d, datapath="fixed", device=dev)
+          for d in (8, 16, 32, 64)}
+    assert abs(cr[64].max - LSB_Q213) <= 0.05 * LSB_Q213, cr[64]
+    emit({"phase": "fixed_grid", "bitwise_card_eq_cpu": True,
+          "rom_requantized_on_card_eq_rom": True, "lattice_points": lattices,
+          "tanh_error_fixed": errors,
+          "cr_fixed_by_depth": {d: {"max": st.max, "rms": st.rms}
+                                for d, st in cr.items()},
+          "cr_depth64_max_over_lsb": cr[64].max / LSB_Q213,
+          "table_1_2_qout": [
+              {k: r[k] for k in ("period", "depth", "pwl_rms", "cr_rms",
+                                 "pwl_max", "cr_max", "paper")}
+              for r in ea.table_1_2("qout", device=dev)]})
+
+
+def _same_bits(torch, a, b) -> bool:
+    """Equal values, NaN at the same places (a NaN's payload aside)."""
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(
+        torch.where(nan, 0, a), torch.where(nan, 0, b))
+
+
+def _float_close(torch, a, b) -> bool:
+    """The non-finite values equal, the finite ones within f32 1e-6
+    absolute + 1e-6 relative, or one bf16 ulp."""
+    fin = torch.isfinite(b)
+    if not (torch.equal(fin, torch.isfinite(a))
+            and _same_bits(torch, a[~fin], b[~fin])):
+        return False
+    a, b = a[fin], b[fin]
+    if a.dtype == torch.bfloat16:
+        return bf16_ulp_ok(a, b)
+    return bool(((a - b).abs() <= 1e-6 + 1e-6 * b.abs()).all())
+
+
+def _rel(a, b) -> float:
+    """max |a - b| over max |b|, in f64 on the host."""
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+
+
+def phase_fixed_engine(torch, base, dev):
+    """Every nonlinearity of each ``*_fixed`` engine as the model
+    configures it, on FIXED_ENGINE_SHAPE f32 and bf16 inputs from one seed
+    with NaN and ±inf among them: the card's output bitwise equal to the
+    CPU's for the four that run the integer tanh unit, and neither kernel
+    launched. softplus is the float residual spline under every
+    ``*_fixed`` impl (as in the reference), whose 4-tap sum the card
+    reduces in another order: held to ``_float_close``. Then the straight-through
+    gradients on finite inputs: x's through tanh and silu of the unbound
+    engine and through sigmoid of the bound one (the model's route, its
+    ROM requantized from the act leaf on every call) within
+    FIXED_GRAD_TOL of the CPU, and the act leaf's (per knot for CR
+    windows, ``knot_grad``; per entry otherwise) within
+    FIXED_LEAF_GRAD_TOL."""
+    from repro_torch.core.activations import (ActivationEngine,
+                                              init_act_params)
+    from repro_torch.kernels import epilogue as epi
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randn(FIXED_ENGINE_SHAPE, generator=gen) * 3
+    xs = x.clone()
+    xs.view(-1)[:5] = torch.tensor([float("nan"), float("inf"),
+                                    -float("inf"), 0.0, -0.0])
+    g = torch.randn(FIXED_ENGINE_SHAPE, generator=gen)
+    for impl in FIXED_IMPLS:
+        cfg = dataclasses.replace(base.activation, impl=impl)
+        eng = ActivationEngine(cfg)
+        n0 = dict(epi.LAUNCHES)
+        for dt in (torch.float32, torch.bfloat16):
+            xc = xs.to(dt)
+            xd = xc.to(dev)
+            for fn in FIXED_FUNCS:
+                yd = getattr(eng, fn)(xd)
+                yc = getattr(eng, fn)(xc)
+                assert yd.device == dev and yd.dtype == dt, (impl, fn)
+                same = _float_close if fn == "softplus" else _same_bits
+                assert same(torch, yd.cpu(), yc), (
+                    impl, fn, dt, int((yd.cpu() != yc).sum()))
+        assert epi.LAUNCHES == n0, (impl, epi.LAUNCHES, n0)
+        tag = cfg.tag()
+        leaf = torch.as_tensor(init_act_params([cfg])[tag])
+        got = {}
+        for where in (dev, "cpu"):
+            out = {}
+            for fn in ("tanh", "silu"):
+                xv = x.to(where).requires_grad_()
+                (gx,) = torch.autograd.grad(getattr(eng, fn)(xv), xv,
+                                            g.to(where))
+                out[f"x via {fn}"] = gx
+            xv = x.to(where).requires_grad_()
+            pv = leaf.to(where).requires_grad_()
+            bound = ActivationEngine(cfg, act_params=pv)
+            gx, gp = torch.autograd.grad(bound.sigmoid(xv), (xv, pv),
+                                         g.to(where))
+            out["x via bound sigmoid"] = gx
+            out["act leaf via bound sigmoid"] = gp
+            got[str(where)] = out
+        rel = {}
+        for k, gc in got["cpu"].items():
+            gd = got[str(dev)][k]
+            assert torch.isfinite(gd).all(), (impl, k)
+            if k.startswith("act") and impl == "cr_fixed":
+                gd, gc = knot_grad(torch, gd.cpu()), knot_grad(torch, gc)
+            rel[k] = _rel(gd, gc)
+        emit({"phase": "fixed_engine", "impl": impl, "tag": tag,
+              "shape": list(FIXED_ENGINE_SHAPE), "funcs": list(FIXED_FUNCS),
+              "dtypes": ["float32", "bfloat16"],
+              "nan_inf_in_input": True,
+              "bitwise_card_eq_cpu": [f for f in FIXED_FUNCS
+                                      if f != "softplus"],
+              "float_close_card_cpu": ["softplus"],
+              "kernel_launches": 0, "grad_rel": rel,
+              "act_grad_compared": "per knot" if impl == "cr_fixed"
+              else "per entry",
+              "tolerance_rel": {"x": FIXED_GRAD_TOL,
+                                "act": FIXED_LEAF_GRAD_TOL}})
+        for k, v in rel.items():
+            tol = FIXED_LEAF_GRAD_TOL if k.startswith("act") \
+                else FIXED_GRAD_TOL
+            assert v <= tol, (impl, k, v, tol)
+
+
 def with_act(torch, params, cfg, device):
     """``params`` with the ``act`` leaf of ``cfg``'s scheme: the weights
     are shared, only the approximant params differ between schemes."""
@@ -1093,9 +1312,13 @@ def main() -> int:
 
     phase_accuracy(torch, epi, dev)
 
+    # 2b. the bit-accurate integer datapaths: card against CPU, bitwise
+    base = registry.get("qwen3-0.6b")
+    phase_fixed_grid(torch, dev)
+    phase_fixed_engine(torch, base, dev)
+
     # 3. serve qwen3-0.6b at full width through each kernel under each
     #    scheme, before any profiler session (see phase_kernel_times)
-    base = registry.get("qwen3-0.6b")
     rng = np.random.RandomState(0)
     prompts = [rng.randint(0, base.vocab_size, (n,)).astype(np.int32)
                for n in PROMPT_LENS]
@@ -1147,12 +1370,25 @@ def main() -> int:
             phase_prefix(torch, epi, name, cfg, weights, dev, card, kernel)
             phase_chunked(torch, epi, name, cfg, weights, prompts, dev, card,
                           kernel, served[name]["toks"])
-    # train the cr_spline pair at full width, also before any profiling
+    # train the cr_spline pair at full width, also before any profiling,
+    # then cr_fixed (quantization-aware: the straight-through gradient)
     trained = {name: phase_train(torch, epi, name, cfg, weights, dev, card,
                                  kernel)
                for name, scheme, kernel, cfg in deployments
                if scheme == "cr_spline"}
+    fixed_deps = [(f"fixed_{scheme}", impl, act_impl_of(base, impl))
+                  for scheme, impl in zip(SCHEMES, FIXED_IMPLS)]
+    _, fixed_train, fixed_train_cfg = fixed_deps[0]       # cr_fixed
+    fixed_trained = phase_train(torch, epi, fixed_train, fixed_train_cfg,
+                                weights, dev, card, None,
+                                runs=FIXED_TRAIN_RUNS)
     torch.cuda.empty_cache()
+    # serve under each bit-accurate integer datapath: no kernel launches
+    for name, _, cfg in fixed_deps:
+        params = with_act(torch, weights, cfg, dev)
+        _, _, line = phase_serve(torch, epi, "serve_" + name, cfg, params,
+                                 prompts, dev, card, None, "paged")
+        served[name] = dict(line=line, params=params)
 
     # 4. kernel timings, then where a decode step's time goes
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
@@ -1165,6 +1401,12 @@ def main() -> int:
         del served[name]["params"]
         if name in trained:
             phase_train_trace(torch, name, cfg, weights, dev, trained[name])
+    for name, _, cfg in fixed_deps:
+        phase_trace(torch, name, cfg, served[name]["params"], prompts, dev,
+                    served[name]["line"], "paged")
+        del served[name]["params"]
+    phase_train_trace(torch, fixed_train, fixed_train_cfg, weights, dev,
+                      fixed_trained)
     del flush
     torch.cuda.empty_cache()
 
@@ -1179,11 +1421,22 @@ def main() -> int:
               cfg.n_layers, "max_abs_diff": diff, "max_abs_logit": scale,
               "rel": rel, "tolerance_rel": tol})
         assert rel <= tol, (name, rel)
+    # the same under each integer datapath, at FIXED_LOGITS_TOL (see there)
+    for name, _, cfg in fixed_deps:
+        diff, scale = phase_f32_vs_cpu(torch, np, M, TS, cfg, weights,
+                                       weights_cpu, dev)
+        rel = diff / scale
+        emit({"phase": "f32_vs_cpu", "deployment": name, "layers":
+              cfg.n_layers, "max_abs_diff": diff, "max_abs_logit": scale,
+              "rel": rel, "tolerance_rel": FIXED_LOGITS_TOL})
+        assert rel <= FIXED_LOGITS_TOL, (name, rel)
     # one f32 train step: card (kernels) vs CPU (plain versions)
     for name, _, _, cfg in deployments:
         if name in trained:
             phase_train_f32_vs_cpu(torch, M, TS, name, cfg, weights,
                                    weights_cpu, dev, tol)
+    phase_train_f32_vs_cpu(torch, M, TS, fixed_train, fixed_train_cfg,
+                           weights, weights_cpu, dev, FIXED_F32_TOL)
     del weights, weights_cpu
 
     # 6. the kernels line: one entry per (kernel, scheme), its launches on

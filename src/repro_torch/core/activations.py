@@ -6,6 +6,8 @@ Counterpart of ``repro/core/activations.py``. Backends:
   exact     torch reference (what a float accelerator computes)
   cr        Catmull-Rom spline interpolation (the paper, float datapath;
             alias of the registered ``cr_spline`` approximant scheme)
+  cr_fixed  bit-accurate Q2.13 emulation of the paper's Fig. 3 circuit,
+            with a straight-through float-spline gradient so training works
   pwl       piecewise-linear over the same knots (paper's baseline; also
             a registered approximant scheme)
   poly      piecewise near-minimax polynomial, Horner datapath
@@ -21,8 +23,13 @@ With ``use_kernel=True`` every nonlinearity of an approximant engine
 ``elementwise_2d`` CUDA kernel (``kernels/epilogue.py``) on a CUDA
 tensor, and as that kernel's plain version on a CPU tensor.
 
-``cr_fixed`` / ``<scheme>_fixed`` raise ``NotImplementedError`` until
-their slice (ROADMAP.md, Queue A item 2).
+``<scheme>_fixed`` (pwl_fixed, poly_fixed, rational_fixed, and
+cr_spline_fixed, which ``cr_fixed`` aliases) runs the scheme's
+bit-accurate integer datapath (``approximant.fixed_block``) as int32
+tensor ops on the input's device; it has no kernel, so ``use_kernel=True``
+is refused. Its gradient is straight-through (``_StraightThrough``): the
+derivative of the scheme's float block, in x and, on a bound engine, in
+the params.
 
 Functions: tanh, sigmoid, silu, gelu_tanh, softplus, derived from the
 tanh unit via the paper's identities:
@@ -43,8 +50,17 @@ import torch.nn.functional as F
 
 from . import approximant
 from . import catmull_rom as cr
+from .fixed_point import Q2_13, QFormat, dequantize, quantize
 
 SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
+
+
+@lru_cache(maxsize=None)
+def _const_in(c: float, dtype: torch.dtype) -> float:
+    """``c`` rounded to ``dtype``: jnp rounds a Python scalar to the
+    array's dtype before the op, torch keeps it in the op's f32 math on
+    bf16/f16 tensors. A host tensor, so no device is touched."""
+    return torch.tensor(c, dtype=dtype).item()
 
 
 def scheme_of(impl: str) -> str | None:
@@ -71,9 +87,10 @@ def fixed_scheme_of(impl: str) -> str | None:
 class ActivationConfig:
     """How the framework computes nonlinearities (a model-config field)."""
 
-    impl: str = "exact"          # exact|cr|pwl|poly|rational|region|
-                                 # taylor|base2, or any registered
-                                 # approximant scheme name
+    impl: str = "exact"          # exact|cr|cr_fixed|pwl|poly|rational|
+                                 # region|taylor|base2, any registered
+                                 # approximant scheme name, or any
+                                 # "<scheme>_fixed" integer datapath
     depth: int = 32              # LUT depth (paper's flagship: 32)
     x_max: float = 4.0           # table range for tanh (paper: 4.0)
     degree: int = 3              # poly: per-segment degree; rational:
@@ -143,6 +160,12 @@ def tanh_table(x_max: float, depth: int) -> cr.SplineTable:
 
 
 @lru_cache(maxsize=None)
+def tanh_fixed_table(x_max: float, depth: int,
+                     fmt: QFormat = Q2_13) -> cr.FixedTable:
+    return cr.build_fixed_table(np.tanh, x_max, depth, fmt)
+
+
+@lru_cache(maxsize=None)
 def softplus_residual_table(x_max: float, depth: int) -> cr.SplineTable:
     # h(u) = log(1 + e^-u) on [0, x_max); the k=-1 boundary knot uses the
     # natural analytic extension h(-p) = log(1+e^p), not a reflection.
@@ -192,6 +215,82 @@ def _tanh_scheme(x, cfg: ActivationConfig):
     if cfg.use_kernel:
         return _kernel_act("tanh", x, cfg)
     return approximant.reference(x, _approx_spec(cfg, "tanh"))
+
+
+class _StraightThrough(torch.autograd.Function):
+    """y = ``fixed_fn(x, p)``, the bit-accurate integer datapath; the
+    gradient is that of ``float_fn(x, p)``, the scheme's float block, in
+    x and in ``p`` where ``p`` needs one (the reference's straight-through
+    ``custom_jvp``). ``p`` is None on the unbound engines. The backward
+    recomputes the float block under autograd."""
+
+    @staticmethod
+    def forward(ctx, x, p, fixed_fn, float_fn):
+        ctx.save_for_backward(x, p)
+        ctx.float_fn = float_fn
+        return fixed_fn(x, p)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, p = ctx.saved_tensors
+        want_p = p is not None and ctx.needs_input_grad[1]
+        with torch.enable_grad():
+            xd = x.detach().requires_grad_()
+            pd = p.detach().requires_grad_() if want_p else p
+            y = ctx.float_fn(xd, pd)
+            grads = torch.autograd.grad(y, (xd, pd) if want_p else (xd,), g)
+        return grads[0], (grads[1] if want_p else None), None, None
+
+
+def _fixed_tanh(fmt: QFormat, datapath):
+    """x -> dequantize(datapath(quantize(x))) in x's dtype: the input is
+    rounded to the Q lattice in f32, the output read back from it."""
+    def run(x, p):
+        yq = datapath(quantize(x.to(torch.float32), fmt), p)
+        return dequantize(yq, fmt).to(x.dtype)
+    return run
+
+
+def _make_tanh_scheme_fixed(cfg: ActivationConfig):
+    """Generic ``<scheme>_fixed`` backend: the scheme's integer datapath at
+    the config's Q format, reading the registry ROM (copied to the
+    input's device once), with a straight-through gradient through the
+    scheme's float block."""
+    spec = tanh_spec_of(cfg)
+    fixed = _fixed_tanh(spec.qformat, lambda xq, _: approximant.fixed_block(
+        xq, approximant.fixed_params_on(spec, "tanh", xq.device), spec))
+    ref = lambda v, _: approximant.reference(v, spec)
+    return lambda x: _StraightThrough.apply(x, None, fixed, ref)
+
+
+def _make_tanh_fixed_bound(cfg: ActivationConfig, act_params):
+    """Bound ``<scheme>_fixed`` backend (quantization-aware): the integer
+    ROM is requantized from the bound f32 params on every call, on their
+    device, and the straight-through gradient reaches both x and the
+    params. ``cr_fixed`` routes here too (its scheme's ``fixed_block`` is
+    ``catmull_rom.interpolate_fixed``)."""
+    spec = tanh_spec_of(cfg)
+    fixed = _fixed_tanh(spec.qformat, lambda xq, q: approximant.fixed_block(
+        xq, approximant.requantize(q, spec), spec))
+    ref = lambda v, q: approximant.block(v.to(torch.float32), q,
+                                         spec).to(v.dtype)
+    return lambda x: _StraightThrough.apply(x, act_params, fixed, ref)
+
+
+def _make_tanh_cr_fixed(cfg: ActivationConfig):
+    """``cr_fixed``'s pinned route: ``interpolate_fixed`` on the Fig. 3
+    table at the config's Q format, its windows the registry ROM on the
+    input's device (``fixed_params_on``: the same ``build_fixed_table``
+    windows), straight-through gradient of the float spline in x's
+    dtype."""
+    spec = tanh_spec_of(cfg)
+    ftab = tanh_fixed_table(cfg.x_max, cfg.depth, spec.qformat)
+    table = tanh_table(cfg.x_max, cfg.depth)
+    fixed = _fixed_tanh(spec.qformat, lambda xq, _: cr.interpolate_fixed(
+        ftab._replace(windows_q=approximant.fixed_params_on(
+            spec, "tanh", xq.device)), xq))
+    ref = lambda v, _: cr.interpolate(table, v)
+    return lambda x: _StraightThrough.apply(x, None, fixed, ref)
 
 
 def _tanh_region(x, cfg: ActivationConfig):
@@ -259,12 +358,12 @@ class ActivationEngine:
                 f"datapath with no kernel lowering; drop use_kernel=True, "
                 f"or use impl={fixed_scheme_of(self.cfg.impl)!r} for the "
                 f"f32 kernel path")
-        if fixed_scheme_of(self.cfg.impl) is not None:
-            raise NotImplementedError(
-                f"impl={self.cfg.impl!r}: fixed-point datapaths are not "
-                f"ported yet (ROADMAP.md, Queue A item 2)")
         if self.act_params is not None:
             self._tanh = self._bound_tanh()
+        elif self.cfg.impl == "cr_fixed":
+            self._tanh = _make_tanh_cr_fixed(self.cfg)
+        elif fixed_scheme_of(self.cfg.impl) is not None:
+            self._tanh = _make_tanh_scheme_fixed(self.cfg)
         else:
             backend = _TANH_BACKENDS.get(self.cfg.impl)
             if backend is None and self.act_impl is not None:
@@ -272,14 +371,17 @@ class ActivationEngine:
             if backend is None:
                 raise ValueError(
                     f"unknown activation impl {self.cfg.impl!r}; built-ins: "
-                    f"{sorted(_TANH_BACKENDS)}, registered approximant "
-                    f"schemes: {list(approximant.schemes())}")
+                    f"{sorted(_TANH_BACKENDS)} + 'cr_fixed', registered "
+                    f"approximant schemes: {list(approximant.schemes())} "
+                    f"(each also available as '<scheme>_fixed')")
             self._tanh = partial(backend, cfg=self.cfg)
 
     def _bound_tanh(self):
         """tanh backend reading ``self.act_params`` instead of the cached
         registry build."""
         cfg, p = self.cfg, self.act_params
+        if fixed_scheme_of(cfg.impl) is not None:
+            return _make_tanh_fixed_bound(cfg, p)
         if cfg.use_kernel:
             return lambda x: _kernel_act("tanh", x, cfg, params=p)
         if self.act_impl == "cr_spline":
@@ -328,7 +430,9 @@ class ActivationEngine:
         if self._kernelized:
             return _kernel_act("gelu_tanh", x, self.cfg,
                                params=self.act_params)
-        inner = SQRT_2_OVER_PI * (x + 0.044715 * (x * x * x))
+        c1 = _const_in(SQRT_2_OVER_PI, x.dtype)
+        c3 = _const_in(0.044715, x.dtype)
+        inner = c1 * (x + c3 * (x * x * x))
         return 0.5 * x * (1.0 + self.tanh(inner))
 
     def softplus(self, x):

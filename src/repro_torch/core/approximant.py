@@ -15,10 +15,13 @@ three things:
   * ``block(v, params, spec)`` — the pure f32 datapath on a tensor,
     the plain version every kernel is held against.
 
+  * ``build_fixed`` / ``fixed_block`` / ``requantize`` — the scheme's
+    bit-accurate integer datapath: an int32 ROM, int32 lattice in and
+    out, and the f32-params -> ROM requantization the bound
+    ``<scheme>_fixed`` engines run on every call.
+
 Registered schemes: ``cr_spline`` (the paper), ``pwl``, ``poly`` and
-``rational``, each with its float ``build`` and ``block``. Every
-scheme's fixed datapath (``build_fixed`` / ``fixed_block`` /
-``requantize``) is still to be ported (ROADMAP.md, Queue A item 2).
+``rational``, each with its float and its fixed datapath.
 """
 from __future__ import annotations
 
@@ -30,7 +33,7 @@ import numpy as np
 import torch
 
 from . import catmull_rom as cr
-from .fixed_point import GUARD_BITS, QFormat
+from .fixed_point import GUARD_BITS, QFormat, fx_mul_shift, quantize, sat
 
 # Newton-iteration count for the rational scheme's reciprocal. With the
 # equioscillating linear seed built into the params (error E < 0.6 for
@@ -161,13 +164,26 @@ class Approximant:
         """Pure f32 datapath on a tensor."""
         raise NotImplementedError
 
-    def build_fixed(self, *args, **kwargs):
-        """Integer ROM / datapath / requantization of the fixed datapath."""
-        raise NotImplementedError(
-            "fixed-point datapaths are not ported yet (ROADMAP.md, Queue A "
-            "item 2)")
+    def build_fixed(self, spec: ApproxSpec, target: str = "tanh") -> np.ndarray:
+        """Integer parameter ROM (host numpy int32) of the scheme's fixed
+        datapath. Default: the float params quantized to the guard-bit
+        coefficient format (the MAC-chain schemes' ROM); the LUT-value
+        schemes (cr_spline, pwl) quantize at the datapath format."""
+        return quantize(self.build(spec, target).astype(np.float64),
+                        spec.guard_format)
 
-    fixed_block = requantize = build_fixed
+    def fixed_block(self, vq, params_q, spec: ApproxSpec):
+        """Bit-accurate integer datapath: int32 lattice in
+        (``spec.qformat``), int32 lattice out."""
+        raise NotImplementedError
+
+    def requantize(self, params, spec: ApproxSpec):
+        """Tensor analogue of ``build_fixed`` on (possibly trained) f32
+        params: the int32 ROM ``fixed_block`` reads, computed on the
+        params' device. At the built params it reproduces
+        ``build_fixed`` exactly."""
+        return quantize(torch.as_tensor(params).to(torch.float32),
+                        spec.guard_format)
 
 
 def spec_for(scheme: str, act: str = "tanh", *, x_max: float = 4.0,
@@ -208,6 +224,37 @@ def params_on(spec: ApproxSpec, target: str, device) -> torch.Tensor:
     decode loop must enqueue its steps without waiting."""
     return torch.as_tensor(params_for(spec, target), dtype=torch.float32,
                            device=device)
+
+
+@lru_cache(maxsize=None)
+def fixed_params_for(spec: ApproxSpec, target: str = "tanh") -> np.ndarray:
+    """Cached integer ROM of ``spec``'s fixed datapath (host numpy int32)."""
+    return get(spec.scheme).build_fixed(spec, target)
+
+
+@lru_cache(maxsize=None)
+def fixed_params_on(spec: ApproxSpec, target: str, device) -> torch.Tensor:
+    """``fixed_params_for`` as an int32 tensor on ``device``, copied there
+    once (see ``params_on``)."""
+    return torch.as_tensor(fixed_params_for(spec, target), dtype=torch.int32,
+                           device=device)
+
+
+def fixed_block(vq, params_q, spec: ApproxSpec):
+    """Generic bit-accurate datapath dispatch: int32 ``spec.qformat``
+    lattice in and out. Numpy inputs (a host ROM, a host lattice) are
+    copied to a tensor, onto ``vq``'s device for the ROM; the engines
+    pass tensors already on their device."""
+    vq = torch.as_tensor(vq).to(torch.int32)
+    params_q = torch.as_tensor(params_q, device=vq.device).to(torch.int32)
+    return get(spec.scheme).fixed_block(vq, params_q, spec)
+
+
+def requantize(params, spec: ApproxSpec):
+    """Generic f32-params -> int32-ROM dispatch (the trainable analogue of
+    ``fixed_params_for``), what the bound ``<scheme>_fixed`` engines feed
+    ``fixed_block``."""
+    return get(spec.scheme).requantize(params, spec)
 
 
 def reference(x, spec: ApproxSpec, target: str = "tanh"):
@@ -258,6 +305,46 @@ def _f32(a: float) -> float:
     return float(np.float32(a))
 
 
+# ---------------------------------------------------------------------------
+# shared fixed-datapath pieces (int32 lattice; see core/fixed_point.py)
+# ---------------------------------------------------------------------------
+
+def _sat_q(spec: ApproxSpec) -> int:
+    """The saturation constant on the output lattice (a wired constant in
+    hardware), a Python int from host numpy, identical to
+    ``build_fixed_table``'s sat_q."""
+    fmt = spec.qformat
+    q = np.round(np.float64(spec.saturation) * fmt.scale)
+    return int(np.clip(q, fmt.min_int, fmt.max_int))
+
+
+def _fixed_front(vq, spec: ApproxSpec):
+    """The integer front end every LUT scheme shares (paper Fig. 3): sign
+    strip, |x|, index/t bit-slice, domain-range compare. Returns
+    (sign_neg, idx clipped, in_range, t_q raw residue)."""
+    tb = spec.t_bits
+    sign_neg = vq < 0
+    mag = torch.abs(vq)
+    idx = mag >> tb
+    in_range = idx < spec.depth
+    idx_c = torch.clamp(idx, 0, spec.depth - 1)
+    t_q = mag & ((1 << tb) - 1)
+    return sign_neg, idx_c, in_range, t_q
+
+
+def _fixed_finish(y, sign_neg, in_range, spec: ApproxSpec):
+    """Saturation mux + odd-symmetry sign restore on the lattice."""
+    y = torch.where(in_range, y, _sat_q(spec))
+    if spec.odd:
+        y = torch.where(sign_neg, -y, y)
+    return y
+
+
+def _rom_column(params_q, idx, j: int):
+    """Column ``j`` of an int32 ROM at the segment indices ``idx``."""
+    return cr.take_rows(params_q[:, j].contiguous(), idx)
+
+
 @register
 class CRSpline(Approximant):
     """Catmull-Rom spline LUT (the paper's Fig. 2/3 unit). The block is
@@ -279,6 +366,27 @@ class CRSpline(Approximant):
         from repro_torch.kernels.epilogue import _cr_tanh_block
         return _cr_tanh_block(v, params, spec=spec, lookup=lookup,
                               odd=spec.odd if odd is None else odd)
+
+    def build_fixed(self, spec, target="tanh"):
+        # quantized from the float64 knot table, exactly as
+        # build_fixed_table does
+        ftab = cr.build_fixed_table(_target_fn(target), spec.x_max,
+                                    spec.depth, spec.qformat)
+        return np.asarray(ftab.windows_q)
+
+    def fixed_block(self, vq, params_q, spec):
+        # the authoritative CR integer datapath is
+        # catmull_rom.interpolate_fixed (same index geometry:
+        # FixedTable.t_bits == spec.t_bits; wide geometries run the limb MAC)
+        ftab = cr.FixedTable(spec.qformat, spec.x_max, spec.depth,
+                             spec.t_bits, params_q, _sat_q(spec))
+        return cr.interpolate_fixed(ftab, vq)
+
+    def requantize(self, params, spec):
+        # window values quantized straight to the OUTPUT lattice, as
+        # build_fixed_table does to the f64 knot windows
+        return quantize(torch.as_tensor(params).to(torch.float32),
+                        spec.qformat)
 
 
 @register
@@ -307,6 +415,36 @@ class PWL(Approximant):
         ki, t = _index_t_split(av, spec)
         y0, dy = _gather_columns(params, ki, lookup)
         return _finish(y0 + t * dy, v, av, spec, odd)
+
+    def build_fixed(self, spec, target="tanh"):
+        # knots quantized to the OUTPUT lattice, deltas formed on the
+        # lattice so segment ends land exactly on the quantized knots
+        fn = _target_fn(target)
+        ks = np.arange(spec.depth + 1, dtype=np.float64) * spec.period
+        yq = quantize(fn(ks), spec.qformat)
+        return np.stack([yq[:-1], np.diff(yq)], axis=1).astype(np.int32)
+
+    def fixed_block(self, vq, params_q, spec):
+        # the integer value+delta MAC: y = y0 + (t_q * dy) >>r t_bits, one
+        # product with a rounding adder folded into the shift
+        sign_neg, idx, in_range, t_q = _fixed_front(vq, spec)
+        tb = spec.t_bits
+        y0 = _rom_column(params_q, idx, 0)
+        dy = _rom_column(params_q, idx, 1)
+        # |dy| <= slope * period on the lattice: tb+1 bits covers every
+        # target with |f'| <= 1 (tanh family and the softplus residual)
+        step = fx_mul_shift(dy, t_q, tb, rounding="nearest",
+                            a_bits=tb + 1, b_bits=tb)
+        y = sat(y0 + step, spec.qformat)
+        return _fixed_finish(y, sign_neg, in_range, spec)
+
+    def requantize(self, params, spec):
+        # knots from (value, delta), quantized to the OUTPUT lattice, the
+        # deltas re-formed ON the lattice: build_fixed's order of operations
+        p = torch.as_tensor(params).to(torch.float32)
+        knots = torch.cat([p[:, 0], p[-1:, 0] + p[-1:, 1]])
+        yq = quantize(knots, spec.qformat)
+        return torch.stack([yq[:-1], yq[1:] - yq[:-1]], dim=1)
 
 
 @register
@@ -362,6 +500,23 @@ class PiecewisePoly(Approximant):
         for c in coeffs[1:]:                 # Horner, highest power first
             y = y * t + c
         return _finish(y, v, av, spec, odd)
+
+    def fixed_block(self, vq, params_q, spec):
+        # truncating Horner chain over the guard-bit coefficient ROM: each
+        # MAC stage is (acc * t_q) >> t_bits (a wire shift) plus the next
+        # ROM coefficient, in the guard format; ONE rounding shift at the
+        # end drops the guard bits into the output register
+        sign_neg, idx, in_range, t_q = _fixed_front(vq, spec)
+        tb = spec.t_bits
+        gfmt = spec.guard_format
+        acc_bits = spec.int_bits + gfmt.frac_bits + 1
+        acc = _rom_column(params_q, idx, 0)
+        for j in range(1, spec.degree + 1):
+            step = fx_mul_shift(t_q, acc, tb, rounding="floor",
+                                a_bits=tb, b_bits=acc_bits)
+            acc = sat(step + _rom_column(params_q, idx, j), gfmt)
+        y = sat((acc + (1 << (GUARD_BITS - 1))) >> GUARD_BITS, spec.qformat)
+        return _fixed_finish(y, sign_neg, in_range, spec)
 
 
 def _pade_from_cf(order: int) -> tuple[np.ndarray, np.ndarray]:
@@ -446,3 +601,68 @@ class PadeRational(Approximant):
         # convergents are increasing, so min() keeps monotonicity
         y = torch.clamp(num * r, max=_f32(spec.saturation))
         return _finish(y, v, av, spec, odd)
+
+    def _internal_int_bits(self, spec) -> int:
+        """Integer bits of the chain's internal format: wide enough for
+        den(x_max^2), computed host-side from the same continued
+        fraction the params bake in."""
+        order = self._order(spec.degree)
+        num, den = _pade_from_cf(order)
+        big_d = float(np.polyval((den / den[0])[::-1], spec.x_max ** 2))
+        return max(spec.int_bits, int(np.ceil(np.log2(big_d))) + 1)
+
+    def fixed_block(self, vq, params_q, spec):
+        # the integer Pade + Newton-reciprocal chain, in an internal guard
+        # format Q<gI>.<frac+GUARD_BITS> whose integer width covers
+        # den(x_max^2); each product is one wide MAC with a rounding adder
+        # folded into its single output shift, lowered exactly on int32
+        # by fx_mul_shift. A ROM entry params_q[i, j] is a 0-d tensor on
+        # the ROM's device, never a host number.
+        fmt = spec.qformat
+        gfmt = spec.guard_format
+        gf = gfmt.frac_bits
+        ifmt = QFormat(self._internal_int_bits(spec), gf)
+        w = ifmt.int_bits + gf + 1           # operand magnitude bound
+        sign_neg = vq < 0
+        mag = torch.abs(vq)
+        xmax_q = int(round(spec.x_max * fmt.scale))
+        in_range = mag < xmax_q
+        avc = torch.clamp(mag, max=xmax_q)   # keep den in range
+        in_b = spec.int_bits + spec.frac_bits + 1
+        # u = x^2 straight into the guard format: one squarer, shift
+        # 2*frac - (frac+G) = frac - G (needs frac_bits > GUARD_BITS)
+        if spec.frac_bits <= GUARD_BITS:
+            raise ValueError(
+                f"rational fixed datapath needs frac_bits > {GUARD_BITS} "
+                f"guard bits, got {spec.qformat}")
+        u = fx_mul_shift(avc, avc, spec.frac_bits - GUARD_BITS,
+                         rounding="nearest", a_bits=in_b, b_bits=in_b)
+        u_bits = 2 * spec.int_bits + gf + 1
+        k = params_q.shape[1]
+        num = params_q[0, k - 1]
+        den = params_q[1, k - 1]
+        for j in range(k - 2, -1, -1):       # two Horner chains in u
+            num = sat(fx_mul_shift(num, u, gf, rounding="nearest",
+                                   a_bits=w, b_bits=u_bits)
+                      + params_q[0, j], ifmt)
+            den = sat(fx_mul_shift(den, u, gf, rounding="nearest",
+                                   a_bits=w, b_bits=u_bits)
+                      + params_q[1, j], ifmt)
+        # seeded Newton reciprocal: r <- r * (2 - den * r), no divider
+        two_g = 2 << gf
+        r = sat(params_q[2, 0]
+                - fx_mul_shift(params_q[2, 1], den, gf, rounding="nearest",
+                               a_bits=gf + 2, b_bits=w), ifmt)
+        for _ in range(NEWTON_ITERS):
+            dr = fx_mul_shift(den, r, gf, rounding="nearest",
+                              a_bits=w, b_bits=w)
+            r = sat(fx_mul_shift(r, two_g - dr, gf, rounding="nearest",
+                                 a_bits=w, b_bits=w), ifmt)
+        ratio = sat(fx_mul_shift(num, r, gf, rounding="nearest",
+                                 a_bits=w, b_bits=w), ifmt)
+        # final multiplier drops back to the output lattice; clamp the
+        # Pade overshoot at the saturation constant (monotone branch)
+        y = fx_mul_shift(ratio, avc, gf, rounding="nearest",
+                         a_bits=gf + 2, b_bits=in_b)
+        y = sat(torch.clamp(y, max=_sat_q(spec)), fmt)
+        return _fixed_finish(y, sign_neg, in_range, spec)

@@ -1,10 +1,10 @@
-"""Cubic Catmull-Rom spline interpolation (paper Eq. 2/3), float half.
+"""Cubic Catmull-Rom spline interpolation (paper Eq. 2/3).
 
 Counterpart of ``repro/core/catmull_rom.py``: the basis, host-side knot
-table construction (numpy, identical to the reference) and the float
-interpolators on tensors. The bit-accurate fixed-point datapath
-(``build_fixed_table``, ``interpolate_fixed``) arrives with the
-fixed-point slice (ROADMAP.md, Queue A item 2).
+table construction (numpy, identical to the reference), the float
+interpolators on tensors, and the bit-accurate fixed-point datapath of
+the paper's Fig. 3 (``build_fixed_table``, ``interpolate_fixed``) on
+int32 tensors.
 
 ``interpolate`` keeps the reference's numerics: it divides by the period
 and casts the knot windows to the input's dtype, so a bf16 input is
@@ -16,6 +16,8 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+
+from .fixed_point import LimbStack, QFormat, Q2_13, fx_dot4, quantize
 
 # Rows act on [P_{k-1}, P_k, P_{k+1}, P_{k+2}]; columns are t^3, t^2, t, 1.
 # f(t) = 0.5 * P . (BASIS @ [t^3, t^2, t, 1])
@@ -170,6 +172,174 @@ def interpolate(table: SplineTable, x, odd: bool = True):
     p = table_lookup(windows, k)                   # [..., 4]
     y = torch.sum(p * w, dim=-1)
     return _finish(y, x, ax, table, odd)
+
+
+# ---------------------------------------------------------------------------
+# Bit-accurate fixed-point datapath (paper Fig. 3)
+# ---------------------------------------------------------------------------
+
+class FixedTable(NamedTuple):
+    """Quantized knot windows + index geometry for the Fig. 3 datapath.
+
+    Depth and period are powers of two, so the index/t split of the
+    input magnitude is a pure bit slice, as in hardware: the low
+    ``t_bits`` bits are t and the bits above index the LUT.
+    ``windows_q`` is host numpy as built; it may be replaced by an int32
+    tensor already on the device (``_replace``)."""
+
+    fmt: QFormat
+    x_max: float
+    depth: int
+    t_bits: int           # number of low bits forming t
+    windows_q: np.ndarray  # [depth, 4] int32 control points (Q fmt)
+    sat_q: int            # saturated output value (Q fmt)
+
+
+def build_fixed_table(fn, x_max: float, depth: int,
+                      fmt: QFormat = Q2_13) -> FixedTable:
+    table = build_table(fn, x_max, depth)
+    # bits of the magnitude representing one period: period * scale = 2^t_bits
+    t_scaled = table.period * fmt.scale
+    t_bits = int(round(np.log2(t_scaled)))
+    if 2 ** t_bits != int(round(t_scaled)):
+        raise ValueError(
+            f"period {table.period} is not a power-of-two number of LSBs in {fmt}"
+        )
+    windows_q = quantize(table.windows, fmt)
+    sat_q = int(quantize(np.float64(table.saturation), fmt))
+    return FixedTable(fmt, float(x_max), int(depth), t_bits, windows_q, sat_q)
+
+
+def _wrap_i32(v: int) -> int:
+    """Python int -> its int32 two's-complement representative."""
+    v &= 0xFFFFFFFF
+    return v - (1 << 32) if v >= (1 << 31) else v
+
+
+def basis_weights_fixed(t_q, ftab: FixedTable):
+    """Fixed-point basis evaluation: ``t_q`` is the raw low-bit residue
+    (0 .. 2^t_bits - 1).
+
+    t has only ``t_bits`` significant fractional bits, so t^2 and t^3 are
+    exact with small multipliers, and the four integer-coefficient basis
+    polynomials are computed exactly, aligned at 3*t_bits fractional
+    bits: the only rounding in the datapath is the single shift-round at
+    the MAC output.
+
+    Returns int32 [..., 4], scaled 2^(3*t_bits+1) x the true basis value
+    (the +1 carries the CR global 1/2, folded into the MAC's final
+    shift), EXACT MOD 2^32. Two's-complement wraparound of the
+    intermediates is harmless because every true basis value fits 32
+    bits, with ONE exception: w1(t=0) = 2^(3tb+1) = 2^31 for tb=10,
+    which wraps to -2^31. t = 0 is a knot hit, so ``interpolate_fixed``
+    bypasses the MAC there (the hardware's index-hit mux).
+
+    Wide geometries (t_bits > 10: depth 8/16 at Q2.13, depth <= 64 at
+    Q2.16) exceed 32 lattice bits, so the basis comes back as a
+    ``LimbStack`` of radix-2^s int32 limbs (``_wide_basis_limbs``)."""
+    tb = ftab.t_bits
+    if 3 * tb + 1 > 31:
+        return _wide_basis_limbs(t_q, tb)
+    T = t_q.to(torch.int32)                   # t * 2^tb, exact
+    T2 = T * T                                # t^2 * 2^2tb, exact
+    T3 = T2 * T                               # t^3 * 2^3tb, exact
+    two_pow = _wrap_i32(2 << (3 * tb))        # 2^(3tb+1) mod 2^32
+    # align everything at 3*tb fractional bits; all coefficients integer
+    w0 = -T3 + 2 * (T2 << tb) - (T << (2 * tb))
+    w1 = 3 * T3 - 5 * (T2 << tb) + two_pow
+    w2 = -3 * T3 + 4 * (T2 << tb) + (T << (2 * tb))
+    w3 = T3 - (T2 << tb)
+    return torch.stack([w0, w1, w2, w3], dim=-1)
+
+
+# Limb width for wide basis lattices: keeps every partial dot in fx_dot4
+# exact on int32 lanes for formats up to Q2.18 (int+frac+s+2 <= 31) and
+# every limb product here below 2^(s + t_bits) <= 2^25.
+WIDE_LIMB_BITS = 10
+
+
+def _wide_basis_limbs(t_q, tb: int, s: int = WIDE_LIMB_BITS) -> LimbStack:
+    """Exact CR basis on a lattice wider than 31 bits, as radix-2^s limbs.
+
+    The four basis values are integer combinations of T^3, T^2*2^tb,
+    T*2^2tb and the constant 2^(3tb+1). T^2 is int32-exact (tb <= 15) but
+    T^3 is not: it is formed by limb-splitting T^2 and multiplying each
+    limb by T, and the shifted terms land piece-aligned via
+    divmod(shift, s). One signed carry-normalize pass produces canonical
+    limbs: 0..m-2 in [0, 2^s), the top one signed."""
+    S = 3 * tb + 1                    # total lattice shift (incl. CR 1/2)
+    m = -(-(S + 1) // s)              # limbs covering S+1 magnitude bits
+    mask = (1 << s) - 1
+    T = t_q.to(torch.int32)           # t * 2^tb, exact
+    T2 = T * T                        # t^2 * 2^2tb, exact (2*tb <= 30)
+    t2 = [(T2 >> (k * s)) & mask for k in range(-(-2 * tb // s))]
+    t1 = [(T >> (k * s)) & mask for k in range(-(-tb // s))]
+    zero = torch.zeros_like(T)
+    q2, r2 = divmod(tb, s)            # T^2 << tb placement
+    q1, r1 = divmod(2 * tb, s)        # T << 2tb placement
+    qc, rc = divmod(S, s)             # constant 2^(3tb+1) placement
+
+    def combine(c3: int, c2: int, c1: int, const: bool):
+        acc = [zero] * m
+        for k, piece in enumerate(t2):
+            acc[k] = acc[k] + c3 * (piece * T)               # T^3 pieces
+            acc[k + q2] = acc[k + q2] + c2 * (piece << r2)   # T^2 << tb
+        if c1:
+            for k, piece in enumerate(t1):
+                acc[k + q1] = acc[k + q1] + c1 * (piece << r1)  # T << 2tb
+        if const:
+            acc[qc] = acc[qc] + (1 << rc)
+        out, carry = [], zero
+        for k in range(m - 1):
+            v = acc[k] + carry
+            out.append(v & mask)
+            carry = v >> s            # arithmetic: exact floor
+        out.append(acc[m - 1] + carry)
+        return out
+
+    ws = [combine(-1, 2, -1, False),      # w0 = -T3 + 2 T2<<tb - T<<2tb
+          combine(3, -5, 0, True),        # w1 = 3 T3 - 5 T2<<tb + 2^(3tb+1)
+          combine(-3, 4, 1, False),       # w2 = -3 T3 + 4 T2<<tb + T<<2tb
+          combine(1, -1, 0, False)]       # w3 = T3 - T2<<tb
+    limbs = tuple(torch.stack([w[k] for w in ws], dim=-1) for k in range(m))
+    return LimbStack(s, limbs)
+
+
+def take_rows(table_q, idx):
+    """Rows ``table_q[idx]`` of a small int table (no gradient): one
+    ``torch.take`` at flat offsets, which makes the host wait for
+    nothing."""
+    idx = idx.to(torch.int64)
+    return torch.take(table_q, _flat_index(idx, table_q.shape))
+
+
+def interpolate_fixed(ftab: FixedTable, x_q):
+    """Bit-accurate CR interpolation on the integer lattice.
+
+    ``x_q``: int32 Q-format input (e.g. from ``quantize``). Returns int32
+    Q-format output. Mirrors Fig. 3: |x| -> (msbs -> LUT window, lsbs ->
+    t), 4-tap MAC, sign fixup, saturation for |x| >= x_max."""
+    fmt = ftab.fmt
+    x_q = torch.as_tensor(x_q).to(torch.int32)
+    sign_neg = x_q < 0
+    mag = torch.abs(x_q)
+    idx = mag >> ftab.t_bits
+    in_range = idx < ftab.depth
+    idx_c = torch.clamp(idx, 0, ftab.depth - 1)
+    t_q = mag & ((1 << ftab.t_bits) - 1)
+    w = basis_weights_fixed(t_q, ftab)   # [..., 4], frac = 3*t_bits (+CR 1/2)
+    windows = torch.as_tensor(ftab.windows_q, dtype=torch.int32,
+                              device=x_q.device)
+    p = take_rows(windows, idx_c)        # [..., 4]
+    # wide MAC: products at frac_bits + 3*t_bits fraction; ONE final
+    # shift-round back to the output format (+1 folds the CR global 1/2)
+    y = fx_dot4(p, w, fmt, extra_shift=3 * ftab.t_bits - fmt.frac_bits + 1)
+    # t = 0 is an exact knot hit whose basis weight 2^(3tb+1) wraps the
+    # 32-bit lattice (see basis_weights_fixed): bypass with the knot
+    # value, which IS the exact MAC result there (hardware: index mux)
+    y = torch.where(t_q == 0, p[..., 1], y)
+    y = torch.where(in_range, y, ftab.sat_q)
+    return torch.where(sign_neg, -y, y)
 
 
 def interpolate_pwl(table: SplineTable, x, odd: bool = True):

@@ -129,10 +129,12 @@ def main(argv=None):
     p.add_argument("--temperature", type=float, default=0.0)
     p.add_argument("--activation", default=None,
                    help="engine impl override (exact|cr|pwl|poly|rational|"
-                        "region|taylor|base2)")
+                        "region|taylor|base2, or an integer datapath "
+                        "cr_fixed|pwl_fixed|poly_fixed|rational_fixed)")
     p.add_argument("--act-impl", default=None,
                    help="approximant scheme override for the serving "
-                        "engine (cr_spline|pwl|poly|rational)")
+                        "engine (cr_spline|pwl|poly|rational, or "
+                        "<scheme>_fixed)")
     p.add_argument("--act-impl-kernel", action="store_true",
                    help="with --act-impl: use_kernel=True (one kernel "
                         "launch per nonlinearity)")

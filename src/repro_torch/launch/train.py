@@ -16,8 +16,11 @@ The flags and defaults are the reference's, but ``--arch``, whose
 default ``olmo-1b`` waits for its family (ROADMAP.md, Queue A item 9),
 and ``--device`` (default cuda). The port trains on one device:
 ``--data-parallel`` (0 = every device: the one) and ``--model-parallel``
-other than 1 raise (Queue A item 12), as does ``--act-layers`` (item 9);
-a ``*_fixed`` ``--activation`` raises when the step is built (item 2).
+other than 1 raise (Queue A item 12), as does ``--act-layers`` (item 9).
+``--activation cr_fixed`` (or ``pwl_fixed`` / ``poly_fixed`` /
+``rational_fixed``, or ``--act-impl <scheme>_fixed``) trains through the
+bit-accurate integer datapath with its straight-through gradient
+(quantization-aware training).
 """
 from __future__ import annotations
 
@@ -51,10 +54,10 @@ def build_parser():
     p.add_argument("--lr", type=float, default=3e-4)
     p.add_argument("--warmup", type=int, default=20)
     p.add_argument("--activation", default=None,
-                   help="override activation impl: exact|cr|pwl|...")
+                   help="override activation impl: exact|cr|cr_fixed|pwl|...")
     p.add_argument("--act-impl", default=None,
                    help="approximant scheme override (cr_spline|pwl|poly|"
-                        "rational) — validated at step build; "
+                        "rational|<scheme>_fixed) — validated at step build; "
                         "--act-impl-kernel routes it through the epilogue "
                         "kernels")
     p.add_argument("--act-impl-kernel", action="store_true",

@@ -164,9 +164,12 @@ def test_engine_rejects_unported_impls():
         TEng(TCfg(impl="cordic"))
     with pytest.raises(ValueError, match="no kernel lowering"):
         TEng(TCfg(impl="cr_fixed", use_kernel=True))
+    # the integer datapaths build, unkernelized (tests/test_torch_fixed_*)
     for impl in ("cr_fixed", "pwl_fixed", "poly_fixed", "rational_fixed"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TEng(TCfg(impl=impl))
+        eng = TEng(TCfg(impl=impl))
+        assert eng.act_impl is None and not eng._kernelized
+        assert float(eng.tanh(torch.tensor([0.5]))) == pytest.approx(
+            float(np.tanh(0.5)), abs=2e-3)
     for impl in ("pwl", "poly", "rational", "region", "taylor", "base2"):
         TEng(TCfg(impl=impl))
 

@@ -216,9 +216,20 @@ def test_launcher_runs_on_cpu_and_prints_summary(tmp_path):
     (["--data-parallel", "2"], "item 12"),
     (["--model-parallel", "2"], "item 12"),
     (["--act-layers", "pwl-d16,cr-d32"], "item 9"),
-    (["--activation", "cr_fixed"], "item 2"),
     (["--arch", "olmo-1b"], "item 9")])
 def test_launcher_unported_flags_name_their_item(tmp_path, argv, item):
     with pytest.raises(NotImplementedError, match=item):
         train_mod.main(["--smoke", "--device", "cpu", "--steps", "1",
                         "--ckpt-dir", str(tmp_path)] + argv)
+
+
+def test_launcher_trains_through_the_fixed_datapath(tmp_path):
+    """``--activation cr_fixed`` trains (quantization-aware) and resumes
+    from its checkpoint under the same tag."""
+    run = lambda steps: train_mod.main(
+        ["--smoke", "--device", "cpu", "--steps", str(steps), "--activation",
+         "cr_fixed", "--ckpt-dir", str(tmp_path), "--log-every", "0"])
+    first = run(2)
+    assert first["activation"] == "cr_fixed-d32" and first["skipped"] == 0
+    assert np.isfinite(first["loss_first"])
+    assert run(3)["steps"] == 3

@@ -79,12 +79,26 @@ def test_materialize_default_device_raises_without_cuda():
         M.materialize_params(registry.get("qwen3-0.6b", smoke=True))
 
 
+@pytest.mark.parametrize("entry", ["tanh_error", "table_1_2",
+                                   "generic_error"])
+def test_error_analysis_default_device_raises_without_cuda(entry):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    import numpy as np
+
+    from repro_torch.core import error_analysis as ea
+    call = {"tanh_error": lambda: ea.tanh_error("cr", 32, datapath="fixed"),
+            "table_1_2": lambda: ea.table_1_2("qout"),
+            "generic_error": lambda: ea.generic_error(
+                torch.tanh, np.tanh, -1.0, 1.0, n=11)}[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
+
+
 # names of the reference's repro.core.__all__ the port does not export
-# yet: the fixed-point datapaths and the error analysis (ROADMAP.md,
-# Queue A item 2)
-CORE_KNOWN_GAPS = {"representable_grid", "FixedTable", "build_fixed_table",
-                   "interpolate_fixed", "PAPER_TABLE_1_2", "ErrorStats",
-                   "table_1_2", "tanh_error"}
+# yet: none (the last, the fixed-point datapaths and the error analysis,
+# were ported with ROADMAP.md, Queue A item 2)
+CORE_KNOWN_GAPS: set[str] = set()
 
 
 def _reference_all(path: pathlib.Path) -> list[str]:
