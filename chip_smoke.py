@@ -36,6 +36,9 @@ lines:
      inputs with NaN and ±inf, card = CPU bitwise (softplus, a float
      spline under every impl, within 1e-6 / one bf16 ulp), and the
      straight-through gradients in x (1e-6) and in the act leaf (1e-5).
+     Then ``grouped_mm``: the types ``torch._grouped_mm`` (the ragged MoE
+     path's grouped GEMM) takes on the card, against a loop over the
+     groups, no host sync.
   3. serve qwen3-0.6b at full width (28 layers, random weights from seed
      0, bf16 compute) through the port's ServeEngine, in two deployments
      per scheme: ``fused_of(act_impl_of(cfg, scheme))``, where every FFN
@@ -70,6 +73,25 @@ lines:
      where neither kernel may launch.
      The weights are built once; only their ``act`` leaf differs by
      scheme.
+     Then (3b) the dense and MoE archs at full width, each built, served
+     and freed before the next (random weights from seed 0, bf16, the
+     same schedule): olmo-1b (16 layers), qwen2.5-3b (36), yi-34b (8 of
+     60), mixtral-8x22b (2 of 56), llama4-scout-17b-a16e (2 of 48), the
+     cut depths listed as ``reduced``; each cr_spline fused and
+     kernelized, and the MoE archs kernelized under moe_impl="ragged"
+     too. Then qwen3-0.6b under per-layer assignments
+     (``serve_per_layer_*``): fused and kernelized over cr_spline / pwl /
+     poly / rational blocks of 7 layers (28 launches a forward), a
+     kernelized cr_spline / cr_fixed half-and-half (14), and every layer
+     pinned to cr_spline, which must serve the uniform kernelized run's
+     tokens. In every counted served run of phase 3 each kernel must
+     launch exactly ``launches_per_forward(cfg)`` x forwards times, every
+     glu_2d launch on its type's variant, and each launch's shape is
+     recorded (``ShapeLog``; the ``kernel_shapes`` of each serve line).
+     Then ``kernel_check_served_shapes``: both kernels at every distinct
+     shape and type those runs launched them at, for every scheme,
+     against their plain versions at phase 2's tolerances, glu_2d on the
+     variant the served launch took, a repeated launch bit-identical.
   4. kernel timings at the main path's shapes (decode 2 rows, prefill 128
      rows, 256 rows, the largest ragged prefill two slots form, and 1024,
      a training step's rows), beside the bound from the card's data-sheet
@@ -89,7 +111,12 @@ lines:
      must make no host sync (CUDA's sync debug mode raises on any); and
      one train step of each trained deployment under the profiler
      (``trace_train_*``); the same for the ``*_fixed`` deployments
-     (``trace_fixed_*``, ``trace_train_cr_fixed``). Profiling comes after serving and training
+     (``trace_fixed_*``, ``trace_train_cr_fixed``), then the per-layer
+     runs' and the archs' (each arch rebuilt from its seed). The archs'
+     shapes are timed too: of each arch run's recorded launches, each
+     kernel's decode shape and its largest (cr_spline: ``glu_2d`` beside
+     two ``torch.matmul`` calls, cuBLAS warmed first; ``elementwise_2d``
+     beside a copy). Profiling comes after serving and training
      because a profiled process keeps paying tracing costs on every later
      launch.
   5. f32 prefill logits of every deployment on the card (kernels) against
@@ -99,12 +126,19 @@ lines:
      gnorm and the gradients of the FFN stacks and the act leaf (per knot:
      ``knot_grad``) within 1e-4 relative. The same for each ``*_fixed``
      deployment's logits at FIXED_LOGITS_TOL and ``cr_fixed``'s step at
-     FIXED_F32_TOL.
+     FIXED_F32_TOL. Then the fused per-layer assignment (28 layers), and
+     each arch's fused deployment, and the MoE archs' kernelized ragged
+     one, at batch 1 x 32 (dense at the served depth, MoE at one layer):
+     each kernel launched ``launches_per_forward`` times on the card,
+     1e-4 relative, and the MoE top-k experts of every token identical on
+     both devices (the smallest top-k margin printed).
   6. the ``{"kernels": [...]}`` line: one entry per (kernel, scheme), its
      top-level times at decode and ``by_rows`` at every timed row count;
      ``elementwise_2d``'s entries add ``copy_ms``, ``glu_2d``'s the
      ``variant`` its decode launch took; the trained deployments' entries
-     add ``train_launches`` (per remat run).
+     add ``train_launches`` (per remat run); the cr_spline entries add
+     ``by_shape`` (the archs' shapes) and ``arch_launches`` (the kernel's
+     launches in each arch and per-layer run).
 
 Then the card's ``nvidia-smi`` name/power line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises, exits non-zero and
@@ -112,6 +146,7 @@ prints no ok line.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import math
@@ -199,6 +234,15 @@ FIXED_TRAIN_RUNS = (("none", 3, 0),)   # train_cr_fixed: 3 steps, no remat
 FIXED_LOGITS_TOL = 6e-5
 FIXED_F32_TOL = 2.5e-4
 LSB_Q213 = 2.0 ** -13
+# the dense and MoE archs served at full width (widths never cut), each
+# with the depth it is served at where the f32 masters and bf16 copies of
+# the whole model would not fit one card (None: every layer)
+ARCH_RUNS = (("olmo-1b", None), ("qwen2.5-3b", None), ("yi-34b", 8),
+             ("mixtral-8x22b", 2), ("llama4-scout-17b-a16e", 2))
+# card against CPU at f32: the MoE archs at one layer (the CPU copy ~12-17
+# GB), the dense ones at their served depth; batch 1 x 32 tokens
+ARCH_F32_LAYERS = {"mixtral-8x22b": 1, "llama4-scout-17b-a16e": 1}
+ARCH_F32_TOKENS = 32
 
 
 def emit(obj) -> None:
@@ -446,6 +490,134 @@ def phase_kernel_checks(torch, epi, dev):
     return worst
 
 
+class ShapeLog:
+    """Records, while active, every launch the two kernel wrappers make,
+    by (kernel, shape, dtype, act, variant): ``shape`` is [rows, cols] for
+    elementwise_2d and [M, K, N] for glu_2d, ``variant`` the glu_2d
+    variant the launch took (None for elementwise_2d). A call that
+    launches nothing (a zero-row tensor) is not recorded. The model
+    reaches both wrappers through the module (``ops`` calls
+    ``epi.<kernel>``), so wrapping the module's names sees every launch."""
+
+    def __init__(self, epi):
+        self.epi, self.shapes = epi, {}
+
+    def __enter__(self):
+        epi = self.epi
+        self.orig = {k: getattr(epi, k) for k in REPLACES}
+
+        def wrap(kernel, fn):
+            def call(*args, **kw):
+                n0, v0 = epi.LAUNCHES[kernel], dict(epi.GLU_VARIANTS)
+                y = fn(*args, **kw)
+                if epi.LAUNCHES[kernel] != n0:
+                    x = args[0]
+                    shape = tuple(x.shape) + ((args[1].shape[1],)
+                                              if kernel == "glu_2d" else ())
+                    variant = next((v for v in v0 if epi.GLU_VARIANTS[v]
+                                    != v0[v]), None)
+                    key = (kernel, shape, str(x.dtype).removeprefix("torch."),
+                           kw["act"], variant)
+                    self.shapes[key] = self.shapes.get(key, 0) + 1
+                return y
+            return call
+
+        for k, fn in self.orig.items():
+            setattr(epi, k, wrap(k, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for k, fn in self.orig.items():
+            setattr(self.epi, k, fn)
+
+
+# every distinct launch of the counted served runs (``drive``), as
+# ShapeLog keys them, with its number of launches
+SERVED_SHAPES: dict = {}
+
+
+def phase_kernel_checks_served(torch, epi, dev, worst):
+    """Both kernels at every distinct shape the counted served runs of
+    phase 3 launched them at (SERVED_SHAPES: every deployment, cache,
+    type and arch served), for every scheme, on random inputs of that
+    shape and type: phase 2's tolerances, the variant the served launch
+    took (glu_2d), and a repeated launch bit-identical. Updates
+    ``worst``."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    specs = {}
+    cases = {k: [] for k in REPLACES}
+    for (kernel, shape, dtype, act, variant), n in sorted(
+            SERVED_SHAPES.items(), key=lambda kv: repr(kv[0])):
+        dt = getattr(torch, dtype)
+        if kernel == "glu_2d":
+            inputs = glu_operands(torch, gen, dev, *shape, dt)
+        else:
+            inputs = ((torch.randn(shape, generator=gen, device=dev)
+                       * 3).to(dt),)
+        errs = {}
+        for scheme in SCHEMES:
+            if (scheme, act) == ("rational", "softplus"):
+                continue
+            if (scheme, act) not in specs:
+                specs[scheme, act] = scheme_spec(torch, epi, scheme, act, dev)
+            spec, p = specs[scheme, act]
+            if kernel == "glu_2d":
+                errs[scheme] = check_glu_variant(torch, epi, spec, p, act,
+                                                 *inputs, variant)
+            else:
+                errs[scheme] = check_elementwise(torch, epi, spec, p, act,
+                                                 *inputs)
+                y1 = epi.elementwise_2d(*inputs, p, spec=spec, act=act)
+                y2 = epi.elementwise_2d(*inputs, p, spec=spec, act=act)
+                assert torch.equal(y1, y2), ("elementwise_2d not "
+                                             "deterministic", shape, dtype)
+            worst[kernel, scheme] = max(worst[kernel, scheme], errs[scheme])
+        del inputs
+        cases[kernel].append({"shape": list(shape), "dtype": dtype,
+                              "act": act, "variant": variant,
+                              "served_launches": n, "max_abs_err": errs})
+    for kernel, got in cases.items():
+        emit({"phase": "kernel_check_served_shapes", "kernel": kernel,
+              "schemes": list(SCHEMES), "deterministic": True,
+              "shapes": len(got), "cases": got})
+    assert all(cases.values()), {k: len(v) for k, v in cases.items()}
+
+
+def phase_grouped_mm(torch, dev):
+    """The ragged MoE path's grouped GEMM (``torch._grouped_mm``, the
+    counterpart of the reference's ragged_dot) on the card: which operand
+    types it takes, each against a loop over the groups in f32 (an empty
+    group included), and no host sync at bf16."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    sizes = torch.tensor([11, 0, 20, 9], device=dev)
+    offs = torch.cumsum(sizes, dim=0).to(torch.int32)
+    x = torch.randn((40, 64), generator=gen, device=dev)
+    w = torch.randn((4, 64, 128), generator=gen, device=dev)
+    bounds = [0, 11, 11, 31, 40]
+    ref = torch.cat([x[bounds[j]:bounds[j + 1]] @ w[j] for j in range(4)])
+    took = {}
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        try:
+            y = torch._grouped_mm(x.to(dt), w.to(dt), offs=offs)
+        except RuntimeError as e:
+            took[str(dt)] = f"refused: {str(e)[:200]}"
+            continue
+        took[str(dt)] = float((y.float() - ref).abs().max()
+                              / ref.abs().max())
+    xb, wb = x.bfloat16(), w.bfloat16()
+    torch.cuda.synchronize()
+    syncs = host_syncs(torch, lambda: torch._grouped_mm(
+        xb, wb, offs=torch.cumsum(sizes, dim=0).to(torch.int32)))
+    emit({"phase": "grouped_mm", "torch": torch.__version__,
+          "rel_err_vs_group_loop": took, "bf16_host_syncs": syncs})
+    # the served ragged path runs bf16, its f32 card-vs-CPU check f32
+    for dt, tol in (("torch.float32", 1e-6), ("torch.bfloat16", 2e-2)):
+        assert isinstance(took[dt], float) and took[dt] <= tol, took
+    assert syncs == 0, syncs
+
+
 def phase_accuracy(torch, epi, dev):
     """Each scheme's kernel tanh over the whole Q2.13 input grid (2^16
     points in [-4, 4)) against torch.tanh in f64: within 0.03, the
@@ -536,11 +708,12 @@ def phase_kernel_grads(torch, epi, ops, dev):
               "cases": out})
 
 
-def phase_kernel_times(torch, epi, dev, flush):
+def phase_kernel_times(torch, epi, dev, flush, arch_lines):
     """Kernel, plain version and library yardstick at the main path's
     shapes (bf16), for every scheme on the same inputs: decode rows =
     SLOTS, the longest prefill (one 128-token bucket) and GLU_PREFILL_MAX
-    rows; elementwise_2d beside a copy of the same bytes. All per-call
+    rows; elementwise_2d beside a copy of the same bytes; then the archs'
+    shapes (``arch_time_cases``). All per-call
     event times are taken before the first profiler session: a profiled
     process keeps paying per-launch tracing costs afterwards."""
     gen = torch.Generator(device=dev)
@@ -576,6 +749,14 @@ def phase_kernel_times(torch, epi, dev, flush):
                          *a, p, spec=s),
                      "library": lambda a=a: (torch.matmul(a[0], a[1]),
                                              torch.matmul(a[0], a[2]))})
+    cases.update(arch_time_cases(torch, epi, dev, gen, arch_lines))
+    # cuBLAS picks and loads its GEMM kernels on a shape's first call: warm
+    # every library yardstick before the first one is timed
+    for c in cases.values():
+        if "library" in c["fns"]:
+            for _ in range(3):
+                c["fns"]["library"]()
+    torch.cuda.synchronize()
     calls = {(key, role): call_ms(fn, flush)
              for key, c in cases.items() for role, fn in c["fns"].items()}
     timings = {}
@@ -613,11 +794,58 @@ def phase_kernel_times(torch, epi, dev, flush):
                  plain_call_ms=calls[(key, "plain")],
                  library_call_ms=calls.get((key, "library")), **extra)
         timings[key] = t
+        where = c.get("where") or {SLOTS: "decode", TRAIN_ROWS: "train"}.get(
+            key[2], "prefill")
         emit({"phase": "kernel_time", "kernel": key[0], "scheme": key[1],
-              "where": {SLOTS: "decode", TRAIN_ROWS: "train"}.get(
-                  key[2], "prefill"),
-              "rows": key[2], **t})
+              "where": where, "rows": c["shape"][0], **t})
     return timings
+
+
+def arch_time_cases(torch, epi, dev, gen, arch_lines):
+    """phase_kernel_times' cases at the dense and MoE archs' shapes, under
+    cr_spline (the scheme they serve): of each arch run's launches
+    (``kernel_shapes`` of its serve line), each kernel's decode shape
+    (its fewest rows) and its largest; glu_2d beside two torch.matmul
+    calls, elementwise_2d beside a copy. Keyed (kernel, "cr_spline",
+    "MxKxN" or "RxC")."""
+    picked = {}
+    for line in arch_lines.values():
+        for kernel in REPLACES:
+            got = sorted((tuple(shape) for k, shape, *_ in
+                          line["kernel_shapes"] if k == kernel))
+            if got:
+                picked.setdefault((kernel, got[0]), "decode")
+                picked.setdefault((kernel, got[-1]), "prefill")
+    cases = {}
+    spec, p = scheme_spec(torch, epi, "cr_spline", "silu", dev)
+    for (kernel, shape), where in sorted(picked.items()):
+        name = "x".join(map(str, shape))
+        if kernel == "glu_2d":
+            rows, K, N = shape
+            a = glu_operands(torch, gen, dev, rows, K, N, torch.bfloat16)
+            nbytes = (rows * K + 2 * K * N + rows * N) * 2 + p.numel() * 4
+            cases[("glu_2d", "cr_spline", name)] = dict(
+                shape=list(shape), extra={}, where=where,
+                bound=bound(nbytes, 4.0 * rows * N * K, BF16_TC_FLOPS),
+                fns={"kernel": lambda a=a: epi.glu_2d(*a, p, spec=spec),
+                     "plain": lambda a=a: epi.glu_2d_plain(*a, p, spec=spec),
+                     "library": lambda a=a: (torch.matmul(a[0], a[1]),
+                                             torch.matmul(a[0], a[2]))})
+            continue
+        x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        y = torch.empty_like(x)
+        cases[("elementwise_2d", "cr_spline", name)] = dict(
+            shape=list(shape), where=where,
+            extra=dict(geometry=list(epi._elementwise_geometry(
+                *shape, x.dtype))),
+            bound=bound(2 * x.numel() * 2 + p.numel() * 4,
+                        epilogue_ops(spec, p) * x.numel(), F32_FLOPS),
+            fns={"kernel": lambda x=x: epi.elementwise_2d(x, p, spec=spec,
+                                                           act="silu"),
+                 "plain": lambda x=x: epi.elementwise_2d_plain(
+                     x, p, spec=spec, act="silu"),
+                 "copy": lambda x=x, y=y: y.copy_(x)})
+    return cases
 
 
 def elementwise_aims(timings) -> None:
@@ -650,35 +878,42 @@ def serve(torch, cfg, params, prompts, dev, max_new=MAX_NEW, **ecfg):
     return done, eng
 
 
-def drive(torch, epi, cfg, params, prompts, dev, kernel, **ecfg):
+Served = collections.namedtuple("Served", "toks eng launches variants "
+                                            "shapes")
+
+
+def drive(torch, epi, cfg, params, prompts, dev, **ecfg):
     """One served run with the launch counts zeroed just before and read
-    just after. The kernel of the path must launch exactly n_layers x
-    forwards times (forwards: prefill batches + prefill chunks + decode
-    steps, from the run's EngineStats), the other kernel not at all; with
-    ``kernel`` None (a ``*_fixed`` deployment) neither kernel launches.
-    Returns (token lists, engine, launches, glu variants)."""
+    just after. Each kernel must launch exactly launches_per_forward(cfg)
+    x forwards times (forwards: prefill batches + prefill chunks + decode
+    steps, from the run's EngineStats), every glu_2d launch on its compute
+    type's variant (tma_wgmma at bf16, simt_f32 at f32); every request
+    completes with MAX_NEW tokens and every page comes back. Each launch's
+    shape goes into SERVED_SHAPES. Returns a Served."""
     for counts in (epi.LAUNCHES, epi.GLU_VARIANTS):
         for k in counts:
             counts[k] = 0
-    done, eng = serve(torch, cfg, params, prompts, dev, **ecfg)
+    with ShapeLog(epi) as log:
+        done, eng = serve(torch, cfg, params, prompts, dev, **ecfg)
     launches = dict(epi.LAUNCHES)
     variants = dict(epi.GLU_VARIANTS)
     st = eng.stats
     forwards = st.prefill_batches + st.prefill_chunks + st.decode_steps
+    want = {k: n * forwards for k, n in launches_per_forward(cfg).items()}
+    assert launches == want, (cfg.name, launches, want, forwards)
+    variant = "tma_wgmma" if cfg.compute_dtype == "bfloat16" else "simt_f32"
+    assert variants == {v: launches["glu_2d"] if v == variant else 0
+                        for v in variants}, (variants, launches)
     assert len(done) == len(prompts), done
     for c in done:
         assert len(c.tokens) == MAX_NEW and c.finish_reason == "length", c
         assert all(0 <= t < cfg.padded_vocab for t in c.tokens), c.tokens
-    if kernel is None:
-        assert not any(launches.values()), launches
-    else:
-        other = "elementwise_2d" if kernel == "glu_2d" else "glu_2d"
-        assert launches[kernel] == cfg.n_layers * forwards, (launches,
-                                                             forwards)
-        assert launches[other] == 0, launches
     if eng.paged:
         assert eng.snapshot().pages_in_use == 0 and eng._pool.reserved == 0
-    return [c.tokens for c in done], eng, launches, variants
+    for key, n in log.shapes.items():
+        SERVED_SHAPES[key] = SERVED_SHAPES.get(key, 0) + n
+    return Served([c.tokens for c in done], eng, launches, variants,
+                  log.shapes)
 
 
 def agreement(a, b) -> float:
@@ -686,31 +921,37 @@ def agreement(a, b) -> float:
         / sum(map(len, a))
 
 
-def phase_serve(torch, epi, name, cfg, params, prompts, dev, card, kernel,
-                cache):
+def phase_serve(torch, epi, name, cfg, params, prompts, dev, card,
+                cache="paged", **extra):
     """Warm up (every prompt, 2 tokens: every prefill bucket and insert
-    shape once), then drive the main path on ``cache`` with the launch
-    counts zeroed just before and read just after."""
+    shape once), then drive the main path on ``cache`` (``drive``'s
+    gates). Emits the run's line, with ``extra`` and the peak device
+    memory of the counted run, and returns (tokens, launches, line)."""
     serve(torch, cfg, params, prompts, dev, max_new=2, cache=cache)
-    toks, eng, launches, variants = drive(torch, epi, cfg, params, prompts,
-                                          dev, kernel, cache=cache)
-    # every bf16 FFN of the served model goes through the TMA + wgmma kernel
-    assert variants == {"tma_wgmma": launches["glu_2d"], "wmma": 0,
-                        "simt_f32": 0}, (variants, launches)
-    st = eng.stats
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run = drive(torch, epi, cfg, params, prompts, dev, cache=cache)
+    st = run.eng.stats
     line = {"phase": name if cache == "paged" else f"{name}_slot",
-            "card": card, "cache": cache, "requests": len(toks),
+            "card": card, "arch": cfg.name, "layers": cfg.n_layers,
+            "cache": cache, "requests": len(run.toks),
             "prefill_batches": st.prefill_batches,
-            "decode_steps": st.decode_steps, "launches": launches,
-            "glu_variants": variants,
+            "decode_steps": st.decode_steps, "launches": run.launches,
+            "launches_per_forward": launches_per_forward(cfg),
+            "glu_variants": run.variants,
+            "kernel_shapes": [[k, list(shape), dt, n] for (k, shape, dt, _,
+                                                          _), n in
+                              sorted(run.shapes.items())],
             "prefill_tokens": st.prefill_tokens, "prefill_s": st.prefill_s,
             "insert_s": st.insert_s, "decode_tokens": st.decode_tokens,
             "decode_s": st.decode_s,
             "prefill_tokens_per_s": st.prefill_tokens_per_s,
             "decode_tokens_per_s": st.decode_tokens_per_s,
-            "pages_peak": st.pages_peak}
+            "pages_peak": st.pages_peak,
+            "max_memory_allocated_gb": torch.cuda.max_memory_allocated()
+            / 1e9, **extra}
     emit(line)
-    return toks, launches, line
+    return run.toks, run.launches, line
 
 
 def latency(done_eng):
@@ -719,7 +960,7 @@ def latency(done_eng):
     return ([c.ttft_s * 1e3 for c in done], [c.itl_p99_s * 1e3 for c in done])
 
 
-def phase_prefix(torch, epi, name, cfg, params32, dev, card, kernel):
+def phase_prefix(torch, epi, name, cfg, params32, dev, card):
     """4 requests sharing a PREFIX_PAGES-page prefix, serial admission:
     requests 1-3 prefill only their tails over the cached pages. Gates
     prefix_hit_tokens == 3 x the prefix, every page back, exact launch
@@ -737,21 +978,21 @@ def phase_prefix(torch, epi, name, cfg, params32, dev, card, kernel):
         c = dataclasses.replace(cfg, compute_dtype=dtype)
         p = with_act(torch, params32, c, dev)
         serve(torch, c, p, prompts[:1], dev)                   # warm-up
-        warm, eng, launches, _ = drive(torch, epi, c, p, prompts, dev,
-                                       kernel, admission="serial")
-        cold, ceng, _, _ = drive(torch, epi, c, p, prompts, dev, kernel,
-                                 admission="serial", prefix_cache=False)
+        run = drive(torch, epi, c, p, prompts, dev, admission="serial")
+        cold = drive(torch, epi, c, p, prompts, dev, admission="serial",
+                     prefix_cache=False)
+        warm, eng, ceng = run.toks, run.eng, cold.eng
         st = eng.stats
         assert st.prefix_hit_tokens == hit, (st.prefix_hit_tokens, hit)
         assert ceng.stats.prefix_hit_tokens == 0
-        agree = agreement(warm, cold)
+        agree = agreement(warm, cold.toks)
         if dtype == "float32":
-            assert warm == cold, (name, "prefix hit != cold at f32")
+            assert warm == cold.toks, (name, "prefix hit != cold at f32")
         out[dtype] = {"prefix_hit_tokens": st.prefix_hit_tokens,
                       "prefix_hit_rate": st.prefix_hit_rate,
                       "prefill_tokens": st.prefill_tokens,
                       "cold_prefill_tokens": ceng.stats.prefill_tokens,
-                      "launches": launches[kernel],
+                      "launches": run.launches,
                       "pages_peak": st.pages_peak,
                       "pages_in_use_after": eng.snapshot().pages_in_use,
                       "prefill_s": st.prefill_s,
@@ -765,7 +1006,7 @@ def phase_prefix(torch, epi, name, cfg, params32, dev, card, kernel):
 
 
 def phase_chunked(torch, epi, name, cfg, params32, prompts, dev, card,
-                  kernel, one_shot_bf16):
+                  one_shot_bf16):
     """chunk_prefill=CHUNK_PREFILL on the main prompts: prefill chunks
     interleaved with decode. Gates prefill_chunks > 0, exact launch
     counts, and at f32 the one-shot tokens; at bf16 the agreement with
@@ -777,19 +1018,20 @@ def phase_chunked(torch, epi, name, cfg, params32, prompts, dev, card,
         p = with_act(torch, params32, c, dev)
         serve(torch, c, p, prompts[:1], dev,
               chunk_prefill=CHUNK_PREFILL)                     # warm-up
-        got, eng, launches, _ = drive(torch, epi, c, p, prompts, dev, kernel,
-                                      chunk_prefill=CHUNK_PREFILL)
+        run = drive(torch, epi, c, p, prompts, dev,
+                    chunk_prefill=CHUNK_PREFILL)
+        got, eng = run.toks, run.eng
         st = eng.stats
         assert st.prefill_chunks > 0, st
         if dtype == "float32":
-            base, _, _, _ = drive(torch, epi, c, p, prompts, dev, kernel)
+            base = drive(torch, epi, c, p, prompts, dev).toks
             assert got == base, (name, "chunked != one-shot at f32")
         else:
             base = one_shot_bf16
         ttft, itl = latency(eng)
         out[dtype] = {"prefill_chunks": st.prefill_chunks,
                       "decode_steps": st.decode_steps,
-                      "launches": launches[kernel],
+                      "launches": run.launches,
                       "decode_tokens_per_s": st.decode_tokens_per_s,
                       "ttft_ms": ttft, "itl_p99_ms": itl,
                       "token_agreement_vs_one_shot": agreement(got, base)}
@@ -1257,6 +1499,271 @@ def phase_fixed_engine(torch, base, dev):
             assert v <= tol, (impl, k, v, tol)
 
 
+def launches_per_forward(cfg) -> dict:
+    """Launches of each kernel in one forward of ``cfg``, derived from the
+    block's code (``models/layers.py``, as the reference's): on a layer
+    whose engine is kernelized (``use_kernel`` and an approximant scheme)
+    every engine nonlinearity is one elementwise_2d launch. A dense FFN,
+    or an MoE layer's shared expert, is one glu_2d launch under
+    ``fuse_mlp`` (any approximant engine) and else one engine activation.
+    The routed experts' activation always goes through the engine: one
+    call per top-k slot under gshard, one under ragged. A ``*_fixed``
+    layer launches nothing."""
+    from repro_torch.core.activations import scheme_of
+    out = {"glu_2d": 0, "elementwise_2d": 0}
+    dense = cfg.n_experts == 0 or cfg.shared_expert
+    for c in cfg.layer_activation_configs():
+        kernelized = c.use_kernel and scheme_of(c.impl) is not None
+        if dense and cfg.fuse_mlp:
+            out["glu_2d"] += 1
+        elif dense and kernelized:
+            out["elementwise_2d"] += 1
+        if cfg.n_experts and kernelized:
+            out["elementwise_2d"] += (cfg.top_k if cfg.moe_impl == "gshard"
+                                      else 1)
+    return out
+
+
+def arch_prompts(np, cfg):
+    """PERF.md's schedule: 4 prompts of PROMPT_LENS tokens from seed 0
+    over the arch's vocabulary."""
+    rng = np.random.RandomState(0)
+    return [rng.randint(0, cfg.vocab_size, (n,)).astype(np.int32)
+            for n in PROMPT_LENS]
+
+
+def arch_config(registry, arch, depth):
+    """(full config, served config): the served one keeps every width and
+    cuts n_layers to ``depth`` (None: none cut)."""
+    full = registry.get(arch)
+    return full, (full if depth is None
+                  else dataclasses.replace(full, n_layers=depth))
+
+
+def arch_deployments(base):
+    """(name, config) of each served deployment of an arch: cr_spline
+    fused (glu_2d on every dense FFN and shared expert) and kernelized
+    (elementwise_2d on every activation), and for MoE the kernelized
+    deployment under moe_impl="ragged" (the grouped GEMM path)."""
+    from repro_torch.configs.common import act_impl_of, fused_of
+    kern = act_impl_of(base, "cr_spline", use_kernel=True)
+    deps = [("fused", fused_of(base)), ("kernelized", kern)]
+    if base.n_experts:
+        deps.append(("ragged", dataclasses.replace(kern, moe_impl="ragged")))
+    return deps
+
+
+def release(torch):
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_archs(torch, np, epi, registry, dev, card):
+    """Serve each arch of ARCH_RUNS at full width (random weights, seed 0,
+    bf16 compute, the paged cache, PERF.md's schedule) under each of its
+    deployments, before any profiler session: warm-up, then the counted
+    run. Each model is built, served and freed before the next. Returns
+    {run name: serve line}."""
+    import gc
+    from repro_torch.models import model as M
+    lines = {}
+    for arch, depth in ARCH_RUNS:
+        full, base = arch_config(registry, arch, depth)
+        prompts = arch_prompts(np, base)
+        weights = M.materialize_params(base, seed=0, device=dev)
+        reduced = {} if depth is None else {"n_layers": [depth,
+                                                         full.n_layers]}
+        for dep, cfg in arch_deployments(base):
+            params = with_act(torch, weights, cfg, dev)
+            name = f"serve_{arch}_{dep}"
+            _, _, lines[name] = phase_serve(
+                torch, epi, name, cfg, params, prompts, dev, card,
+                deployment=dep,
+                moe_impl=cfg.moe_impl if cfg.n_experts else None,
+                reduced=reduced, full_layers=full.n_layers,
+                params_served=cfg.param_count())
+            del params
+            gc.collect()
+        del weights
+        release(torch)
+    return lines
+
+
+def per_layer_configs(base):
+    """(name, config) of qwen3-0.6b's per-layer deployments: the autotuner's kind
+    of output, layers 0-6 cr_spline d32, 7-13 pwl d16, 14-20 poly d8 g3,
+    21-27 rational g5, fused (glu_2d, each layer with its own scheme's
+    params) and kernelized (elementwise_2d); a float/fixed mix (0-13
+    kernelized cr_spline, 14-27 cr_fixed, which launches nothing); and the
+    whole stack pinned to cr_spline d32, kernelized, which must serve the
+    tokens of the uniform ``act_impl_of(cfg, "cr_spline", use_kernel=True)``."""
+    from repro_torch.configs.common import act_layers_of
+    from repro_torch.core.activations import ActivationConfig
+    blocks = [ActivationConfig(impl="cr_spline", depth=32, use_kernel=True),
+              ActivationConfig(impl="pwl", depth=16, use_kernel=True),
+              ActivationConfig(impl="poly", depth=8, degree=3,
+                               use_kernel=True),
+              ActivationConfig(impl="rational", degree=5, use_kernel=True)]
+    n = base.n_layers
+    mixed = [blocks[i * len(blocks) // n] for i in range(n)]
+    half = [blocks[0]] * (n // 2) + [ActivationConfig(
+        impl="cr_fixed", depth=32)] * (n - n // 2)
+    return [("fused", dataclasses.replace(act_layers_of(base, mixed),
+                                          fuse_mlp=True)),
+            ("kernelized", act_layers_of(base, mixed)),
+            ("float_fixed", act_layers_of(base, half)),
+            ("pinned", act_layers_of(base, ("cr_spline",) * n,
+                                     use_kernel=True))]
+
+
+def phase_per_layer(torch, epi, base, weights, prompts, dev, card,
+                    uniform_toks):
+    """Serve qwen3-0.6b at full width under each per-layer deployment, as
+    phase 3 serves the uniform ones; the pinned one must give the tokens
+    of the uniform kernelized cr_spline run. Returns {name: (config,
+    serve line)}."""
+    import gc
+    from repro_torch.launch import steps as TS
+    out = {}
+    for dep, cfg in per_layer_configs(base):
+        params = with_act(torch, weights, cfg, dev)
+        engine = TS.make_engine(cfg)
+        toks, _, line = phase_serve(
+            torch, epi, f"serve_per_layer_{dep}", cfg, params, prompts, dev,
+            card, deployment=dep,
+            assignment=[c.tag() + ("+kernel" if c.use_kernel else "")
+                        for c in cfg.layer_activation_configs()],
+            distinct_engines=len(getattr(engine, "distinct", (engine,))))
+        if dep == "pinned":
+            emit({"phase": "per_layer_pinned_vs_uniform",
+                  "tokens_identical": toks == uniform_toks})
+            assert toks == uniform_toks, "pinned != uniform tokens"
+        out[dep] = (cfg, line)
+        del params
+        gc.collect()
+    return out
+
+
+def phase_arch_traces(torch, np, registry, dev, lines):
+    """One profiled decode chunk (and the sync check) of each arch run of
+    phase_archs, on the same model rebuilt from the same seed."""
+    from repro_torch.models import model as M
+    for arch, depth in ARCH_RUNS:
+        _, base = arch_config(registry, arch, depth)
+        prompts = arch_prompts(np, base)
+        weights = M.materialize_params(base, seed=0, device=dev)
+        for dep, cfg in arch_deployments(base):
+            name = f"{arch}_{dep}"
+            params = with_act(torch, weights, cfg, dev)
+            phase_trace(torch, name, cfg, params, prompts, dev,
+                        lines[f"serve_{name}"], "paged")
+            del params
+            release(torch)
+        del weights
+        release(torch)
+
+
+class RoutingLog:
+    """Records, while active, every routing decision the MoE layers make
+    (``models/layers.py::_route``): the top-k expert ids of each token and
+    the margin between its k-th and (k+1)-th router probability."""
+
+    def __init__(self, torch, layers):
+        self.torch, self.layers = torch, layers
+        self.ids, self.margins = [], []
+
+    def __enter__(self):
+        torch, orig = self.torch, self.layers._route
+        self.orig = orig
+
+        def route(router, x, k, e):
+            top_w, top_i, aux = orig(router, x, k, e)
+            probs = torch.softmax(x.to(torch.float32)
+                                  @ router.to(torch.float32), dim=-1)
+            srt = torch.sort(probs, dim=-1, descending=True).values
+            self.ids.append(top_i.cpu())
+            if k < e:
+                self.margins.append(float((srt[..., k - 1] - srt[..., k])
+                                          .min()))
+            return top_w, top_i, aux
+
+        self.layers._route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.layers._route = self.orig
+
+
+def phase_arch_f32_vs_cpu(torch, np, epi, registry, dev, card):
+    """f32 prefill logits of each arch's fused deployment, and of the MoE
+    archs' kernelized ragged one (the grouped GEMM at full width), batch
+    1 x ARCH_F32_TOKENS, on the card (kernels, each launched
+    launches_per_forward(cfg) times) and on the CPU (plain versions) from
+    the same weights: within 1e-4 relative (max |diff| over max |cpu|).
+    The dense archs at their served depth, the MoE archs at
+    ARCH_F32_LAYERS; their top-k expert ids identical on both devices (any
+    flip fails), with the smallest top-k margin printed."""
+    from repro_torch.configs.common import act_impl_of, fused_of
+    from repro_torch.launch import steps as TS
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    tol = 1e-4
+    for arch, depth in ARCH_RUNS:
+        full, base = arch_config(registry, arch, ARCH_F32_LAYERS.get(
+            arch, depth))
+        base = dataclasses.replace(base, compute_dtype="float32")
+        deps = [("fused", fused_of(base))]
+        if base.n_experts:
+            deps.append(("ragged", dataclasses.replace(
+                act_impl_of(base, "cr_spline", use_kernel=True),
+                moe_impl="ragged")))
+        weights = M.materialize_params(base, seed=0, device=dev)
+        weights_cpu = _tree_to(weights, "cpu")
+        toks = np.random.RandomState(5).randint(
+            0, base.vocab_size, (1, ARCH_F32_TOKENS)).astype(np.int32)
+        for dep, cfg in deps:
+            out, routes = {}, {}
+            for where, tree in ((dev, weights), ("cpu", weights_cpu)):
+                p = M.compute_params(with_act(torch, tree, cfg, where), cfg)
+                n0 = dict(epi.LAUNCHES)
+                with RoutingLog(torch, L) as log:
+                    logits, _ = M.prefill_fn(
+                        p, {"tokens": torch.as_tensor(toks, device=where)},
+                        cfg, TS.make_engine(cfg), capacity=ARCH_F32_TOKENS)
+                    out[str(where)] = logits.float().cpu()
+                launched = {k: n - n0[k] for k, n in epi.LAUNCHES.items()}
+                routes[str(where)] = log
+                del p
+                if where == dev:
+                    assert launched == launches_per_forward(cfg), (
+                        arch, dep, launched)
+            a, b = out[str(dev)], out["cpu"]
+            rel = float((a - b).abs().max() / b.abs().max())
+            line = {"phase": "f32_vs_cpu", "deployment": f"{arch}_{dep}",
+                    "card": card, "layers": cfg.n_layers,
+                    "full_layers": full.n_layers,
+                    "tokens": ARCH_F32_TOKENS,
+                    "moe_impl": cfg.moe_impl if cfg.n_experts else None,
+                    "max_abs_diff": float((a - b).abs().max()),
+                    "max_abs_logit": float(b.abs().max()), "rel": rel,
+                    "tolerance_rel": tol}
+            same = True
+            if cfg.n_experts:
+                rc, rp = routes[str(dev)], routes["cpu"]
+                same = len(rc.ids) == len(rp.ids) and all(
+                    torch.equal(x, y) for x, y in zip(rc.ids, rp.ids))
+                line.update(routing_identical=same,
+                            routing_calls=len(rc.ids),
+                            min_topk_margin=min(rc.margins + rp.margins))
+            emit(line)
+            assert same, (arch, dep, "top-k experts differ between card and "
+                          "CPU", line.get("min_topk_margin"))
+            assert rel <= tol, (arch, dep, rel)
+        del weights, weights_cpu
+        release(torch)
+
+
 def with_act(torch, params, cfg, device):
     """``params`` with the ``act`` leaf of ``cfg``'s scheme: the weights
     are shared, only the approximant params differ between schemes."""
@@ -1274,6 +1781,7 @@ def _tree_to(tree, device):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not (SRC / "repro_torch" / "csrc").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script; "
               "run it from a checkout of the repository", file=sys.stderr)
@@ -1311,6 +1819,7 @@ def main() -> int:
     phase_kernel_grads(torch, epi, ops, dev)
 
     phase_accuracy(torch, epi, dev)
+    phase_grouped_mm(torch, dev)
 
     # 2b. the bit-accurate integer datapaths: card against CPU, bitwise
     base = registry.get("qwen3-0.6b")
@@ -1335,14 +1844,14 @@ def main() -> int:
              act_impl_of(base, scheme, use_kernel=True))]
     weights = M.materialize_params(base, seed=0, device=dev)
     served = {}
-    for name, scheme, kernel, cfg in deployments:
+    for name, scheme, _, cfg in deployments:
         params = with_act(torch, weights, cfg, dev)
         # the two caches run in turns, paged first in every other
         # deployment, so neither always meets a colder host
         order = ("paged", "slot") if len(served) % 2 == 0 \
             else ("slot", "paged")
         runs = {cache: phase_serve(torch, epi, "serve_" + name, cfg, params,
-                                   prompts, dev, card, kernel, cache)
+                                   prompts, dev, card, cache)
                 for cache in order}
         (toks, launches, line), (stoks, _, sline) = runs["paged"], \
             runs["slot"]
@@ -1365,11 +1874,11 @@ def main() -> int:
     emit({"phase": "token_agreement", "fused_vs_kernelized": agree,
           "note": "bf16 deployments differ by design; information only"})
     # prefix sharing and chunked prefill on the cr_spline pair, bf16 and f32
-    for name, scheme, kernel, cfg in deployments:
+    for name, scheme, _, cfg in deployments:
         if scheme == "cr_spline":
-            phase_prefix(torch, epi, name, cfg, weights, dev, card, kernel)
+            phase_prefix(torch, epi, name, cfg, weights, dev, card)
             phase_chunked(torch, epi, name, cfg, weights, prompts, dev, card,
-                          kernel, served[name]["toks"])
+                          served[name]["toks"])
     # train the cr_spline pair at full width, also before any profiling,
     # then cr_fixed (quantization-aware: the straight-through gradient)
     trained = {name: phase_train(torch, epi, name, cfg, weights, dev, card,
@@ -1387,12 +1896,25 @@ def main() -> int:
     for name, _, cfg in fixed_deps:
         params = with_act(torch, weights, cfg, dev)
         _, _, line = phase_serve(torch, epi, "serve_" + name, cfg, params,
-                                 prompts, dev, card, None, "paged")
+                                 prompts, dev, card)
         served[name] = dict(line=line, params=params)
+
+    # 3b. the dense and MoE archs at full width (depth cut where the model
+    #     does not fit), then qwen3-0.6b under per-layer assignments, also
+    #     before any profiling
+    release(torch)
+    arch_lines = phase_archs(torch, np, epi, registry, dev, card)
+    per_layer = phase_per_layer(torch, epi, base, weights, prompts, dev,
+                                card, served["kernelized"]["toks"])
+    release(torch)
+    # both kernels against their plain versions at every shape the
+    # counted served runs launched them at
+    phase_kernel_checks_served(torch, epi, dev, worst)
+    release(torch)
 
     # 4. kernel timings, then where a decode step's time goes
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
-    timings = phase_kernel_times(torch, epi, dev, flush)
+    timings = phase_kernel_times(torch, epi, dev, flush, arch_lines)
     elementwise_aims(timings)
     for name, _, _, cfg in deployments:
         for cache, key in (("paged", "line"), ("slot", "slot_line")):
@@ -1408,7 +1930,13 @@ def main() -> int:
     phase_train_trace(torch, fixed_train, fixed_train_cfg, weights, dev,
                       fixed_trained)
     del flush
-    torch.cuda.empty_cache()
+    release(torch)
+    for dep, (cfg, line) in per_layer.items():
+        phase_trace(torch, "per_layer_" + dep, cfg,
+                    with_act(torch, weights, cfg, dev), prompts, dev, line,
+                    "paged")
+    phase_arch_traces(torch, np, registry, dev, arch_lines)
+    release(torch)
 
     # 5. f32 prefill logits: card (kernels) vs CPU (plain versions)
     tol = 1e-4
@@ -1437,7 +1965,19 @@ def main() -> int:
                                    weights_cpu, dev, tol)
     phase_train_f32_vs_cpu(torch, M, TS, fixed_train, fixed_train_cfg,
                            weights, weights_cpu, dev, FIXED_F32_TOL)
+    # the fused per-layer assignment: each layer's glu_2d launch reads its
+    # own scheme's params
+    cfg = per_layer["fused"][0]
+    diff, scale = phase_f32_vs_cpu(torch, np, M, TS, cfg, weights,
+                                   weights_cpu, dev)
+    emit({"phase": "f32_vs_cpu", "deployment": "per_layer_fused", "layers":
+          cfg.n_layers, "max_abs_diff": diff, "max_abs_logit": scale,
+          "rel": diff / scale, "tolerance_rel": tol})
+    assert diff / scale <= tol, ("per_layer_fused", diff / scale)
     del weights, weights_cpu
+    release(torch)
+    # every new arch at f32, card against CPU (MoE: routing identical)
+    phase_arch_f32_vs_cpu(torch, np, epi, registry, dev, card)
 
     # 6. the kernels line: one entry per (kernel, scheme), its launches on
     #    its own deployment's run, its timings at the decode shape (the
@@ -1471,6 +2011,20 @@ def main() -> int:
             kernels[-1]["train_launches"] = {
                 remat: run["launches"][kernel]
                 for remat, run in trained[name]["runs"].items()}
+        if scheme == "cr_spline":
+            # the dense and MoE archs' shapes, and the launches of this
+            # kernel in each of their runs and the per-layer runs
+            kernels[-1]["by_shape"] = {
+                key[2]: {k: timings[key].get(k) for k in by_keys[kernel]}
+                for key in timings
+                if key[0] == kernel and isinstance(key[2], str)}
+            kernels[-1]["arch_launches"] = {
+                run: line["launches"][kernel]
+                for run, line in list(arch_lines.items())
+                + [("serve_per_layer_" + d, ln)
+                   for d, (_, ln) in per_layer.items()]}
+    emit({"phase": "total", "wall_s": time.perf_counter() - t_start,
+          "card": card})
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

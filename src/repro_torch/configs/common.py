@@ -48,6 +48,23 @@ def act_impl_of(cfg: ModelConfig, scheme: str,
     return dataclasses.replace(cfg, act_impl=scheme, activation=act)
 
 
+def act_layers_of(cfg: ModelConfig, assignment,
+                  use_kernel: bool | None = None) -> ModelConfig:
+    """Run ``cfg`` under a per-layer approximant assignment (the
+    autotuner's output): one entry per layer, an ActivationConfig, a
+    ``tag()`` string (``pwl-d16``) or a bare impl name. Clears
+    ``act_impl`` (the uniform shorthand; the two are mutually exclusive)
+    and validates eagerly, so a malformed assignment fails here and not
+    at step-build time."""
+    act = cfg.activation
+    if use_kernel is not None:
+        act = dataclasses.replace(act, use_kernel=use_kernel)
+    out = dataclasses.replace(cfg, act_impl="",
+                              act_layers=tuple(assignment), activation=act)
+    out.layer_activation_configs()
+    return out
+
+
 def smoke_of(cfg: ModelConfig, **extra) -> ModelConfig:
     """Reduced same-family config: tiny dims, few layers, small vocab."""
     base = dict(

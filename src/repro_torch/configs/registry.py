@@ -2,8 +2,9 @@
 ``repro/configs/registry.py``).
 
 Each ``repro_torch/configs/<id>.py`` exposes ``full() -> ModelConfig`` and
-``smoke() -> ModelConfig``. Only the architectures this port serves are
-known; every other id of the reference raises until its family is ported
+``smoke() -> ModelConfig``. Every assigned id of the reference is known
+here; an id whose family is not ported yet (mrope with patch embeddings,
+Mamba, the hybrid block, multi-codebook heads) raises until it is
 (ROADMAP.md, Queue A item 9).
 """
 from __future__ import annotations
@@ -11,30 +12,63 @@ from __future__ import annotations
 import dataclasses
 import importlib
 
+# the config modules this port serves
 ARCHS = [
+    "yi_34b",
+    "olmo_1b",
     "qwen3_0_6b",
+    "qwen2_5_3b",
+    "mixtral_8x22b",
+    "llama4_scout_17b_a16e",
     "paper_tanh",        # the paper's own deployment context (extra)
 ]
 
-# assignment ids -> module names
+# assignment ids -> module names (the reference's ten)
 ALIASES = {
+    "yi-34b": "yi_34b",
+    "olmo-1b": "olmo_1b",
     "qwen3-0.6b": "qwen3_0_6b",
-    "paper-tanh": "paper_tanh",
+    "qwen2.5-3b": "qwen2_5_3b",
+    "hymba-1.5b": "hymba_1_5b",
+    "mixtral-8x22b": "mixtral_8x22b",
+    "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
+    "qwen2-vl-2b": "qwen2_vl_2b",
+    "falcon-mamba-7b": "falcon_mamba_7b",
+    "musicgen-large": "musicgen_large",
 }
 
 
+# dynamically-registered configs (examples / tests): name -> (full, smoke)
+_DYNAMIC: dict = {}
+
+
+def register(name: str, full_cfg, smoke_cfg=None):
+    """Register an ad-hoc config under a registry id (examples/tests)."""
+    _DYNAMIC[name] = (full_cfg, smoke_cfg if smoke_cfg is not None else full_cfg)
+
+
 def _module(name: str):
-    mod_name = ALIASES.get(name, name)
+    mod_name = ALIASES.get(name, name.replace("-", "_").replace(".", "_"))
     if mod_name not in ARCHS:
+        ported = sorted(k for k, v in ALIASES.items() if v in ARCHS)
         raise NotImplementedError(
-            f"arch {name!r} is not ported yet (ported: {sorted(ALIASES)}; "
+            f"arch {name!r} is not ported yet (ported: {ported}; "
             f"ROADMAP.md, Queue A item 9)")
     return importlib.import_module(f"repro_torch.configs.{mod_name}")
 
 
 def get(name: str, smoke: bool = False, **overrides):
-    mod = _module(name)
-    cfg = mod.smoke() if smoke else mod.full()
+    if name in _DYNAMIC:
+        cfg = _DYNAMIC[name][1 if smoke else 0]
+    else:
+        mod = _module(name)
+        cfg = mod.smoke() if smoke else mod.full()
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
     return cfg
+
+
+def assigned_archs():
+    """The ten assigned architecture ids (assignment spelling), ported or
+    not."""
+    return list(ALIASES.keys())

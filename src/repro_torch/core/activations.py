@@ -455,6 +455,67 @@ class ActivationEngine:
         return getattr(self, name)(x)
 
 
+class LayerEngines:
+    """Per-layer activation engines: the mixed-scheme assignment.
+
+    One ``ActivationEngine`` per DISTINCT config; ``engines[i]`` is layer
+    i's. ``segments`` lists the maximal runs of adjacent layers sharing
+    an engine as (start, stop, engine): the reference scans each run as
+    one ``lax.scan``, the port's stack runners loop over layers and take
+    ``engines[i]`` for layer i, which is the same assignment."""
+
+    def __init__(self, cfgs):
+        cfgs = tuple(cfgs)
+        if not cfgs:
+            raise ValueError("LayerEngines needs at least one layer config")
+        by_cfg: dict[ActivationConfig, ActivationEngine] = {}
+        for c in cfgs:
+            if c not in by_cfg:
+                by_cfg[c] = ActivationEngine(c)
+        self.cfgs = cfgs
+        self.engines = tuple(by_cfg[c] for c in cfgs)
+        self.segments = self._segments(self.engines)
+
+    @staticmethod
+    def _segments(engines):
+        segs, start = [], 0
+        for i in range(1, len(engines) + 1):
+            if i == len(engines) or engines[i] is not engines[start]:
+                segs.append((start, i, engines[start]))
+                start = i
+        return tuple(segs)
+
+    @property
+    def distinct(self) -> tuple[ActivationEngine, ...]:
+        out: list[ActivationEngine] = []
+        for e in self.engines:
+            if all(e is not o for o in out):
+                out.append(e)
+        return tuple(out)
+
+    def bind(self, act_params) -> "LayerEngines":
+        """Per-layer analogue of ``ActivationEngine.bind``: every distinct
+        engine binds its own ``params["act"]`` leaf (keyed by its
+        config's ``tag()``)."""
+        if not act_params:
+            return self
+        bound = {id(e): e.bind(act_params) for e in self.distinct}
+        if all(bound[id(e)] is e for e in self.distinct):
+            return self
+        new = object.__new__(LayerEngines)
+        new.cfgs = self.cfgs
+        new.engines = tuple(bound[id(e)] for e in self.engines)
+        new.segments = self._segments(new.engines)
+        return new
+
+
+def engine_of_layer(engine, i: int) -> ActivationEngine:
+    """Layer i's engine: ``engine`` itself for a uniform assignment, its
+    i-th entry for a ``LayerEngines``."""
+    engines = getattr(engine, "engines", None)
+    return engine if engines is None else engines[i]
+
+
 def get_engine(cfg: ActivationConfig | dict | None = None) -> ActivationEngine:
     if isinstance(cfg, dict):
         cfg = ActivationConfig(**cfg)

@@ -19,7 +19,7 @@ import dataclasses
 import torch
 
 from repro_torch.core import approximant
-from repro_torch.core.activations import ActivationEngine
+from repro_torch.core.activations import ActivationEngine, LayerEngines
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw, compress
@@ -54,37 +54,44 @@ def opt_state_axes(params_axes):
     }
 
 
-def _make_engine(cfg: ModelConfig) -> ActivationEngine:
+def _make_engine(cfg: ModelConfig) -> ActivationEngine | LayerEngines:
     """Engine for a step function, with the config contracts enforced at
-    build time: a bogus ``act_impl`` fails the build with the registered-
-    scheme list, and a config that asks for ``fuse_mlp`` but cannot get
-    it fails instead of silently running unfused."""
+    build time: a bogus ``act_impl`` or a malformed ``act_layers``
+    assignment fails the build with the registered-scheme list, and a
+    config that asks for ``fuse_mlp`` but cannot get it on every layer
+    fails instead of silently running unfused. A uniform assignment is
+    one ``ActivationEngine``; a mixed one a ``LayerEngines``."""
     try:
         layer_cfgs = cfg.layer_activation_configs()
-        if len(set(layer_cfgs)) != 1:
-            raise NotImplementedError(
-                f"{cfg.name}: per-layer act_layers assignments are not "
-                f"ported yet (ROADMAP.md, Queue A item 9)")
-        engine = ActivationEngine(layer_cfgs[0])
-        if cfg.has_ffn and cfg.mlp_act == "softplus" and engine.act_impl:
-            # the softplus epilogue reads the scheme's residual params; a
-            # scheme with no residual build (rational) fails the step build
-            c = engine.cfg
-            approximant.params_for(approximant.spec_for(
-                engine.act_impl, "softplus", x_max=c.x_max, depth=c.depth,
-                degree=c.degree), "softplus_res")
+        if len(set(layer_cfgs)) == 1:
+            engine = ActivationEngine(layer_cfgs[0])
+        else:
+            engine = LayerEngines(layer_cfgs)
+        if cfg.has_ffn and cfg.mlp_act == "softplus":
+            for eng in getattr(engine, "distinct", (engine,)):
+                if not eng.act_impl:
+                    continue
+                # the softplus epilogue reads the scheme's residual
+                # params; a scheme with no residual build (rational)
+                # fails the step build
+                c = eng.cfg
+                approximant.params_for(approximant.spec_for(
+                    eng.act_impl, "softplus", x_max=c.x_max, depth=c.depth,
+                    degree=c.degree), "softplus_res")
     except ValueError as e:
         raise ValueError(f"{cfg.name}: invalid activation config "
                          f"(act_impl={cfg.act_impl!r}, "
                          f"act_layers={cfg.act_layers!r}): {e}") from e
     if cfg.fuse_mlp:
         from repro_torch.models.layers import mlp_fusable
-        if not mlp_fusable(cfg, engine):
-            raise ValueError(
-                f"{cfg.name}: fuse_mlp=True requires glu=True, mlp_act "
-                f"in kernels.epilogue.EPILOGUES and an approximant-"
-                f"scheme activation engine (got glu={cfg.glu}, "
-                f"mlp_act={cfg.mlp_act!r}, impl={engine.cfg.impl!r})")
+        for eng in getattr(engine, "distinct", (engine,)):
+            if not mlp_fusable(cfg, eng):
+                raise ValueError(
+                    f"{cfg.name}: fuse_mlp=True requires glu=True, mlp_act "
+                    f"in kernels.epilogue.EPILOGUES and an approximant-"
+                    f"scheme activation engine on EVERY layer (got "
+                    f"glu={cfg.glu}, mlp_act={cfg.mlp_act!r}, "
+                    f"impl={eng.cfg.impl!r})")
     return engine
 
 
@@ -175,8 +182,8 @@ def make_train_step(cfg: ModelConfig, hyper: TrainHyper = TrainHyper()):
     return train_step
 
 
-def make_engine(cfg: ModelConfig) -> ActivationEngine:
-    """Public alias: the validated activation engine for a config."""
+def make_engine(cfg: ModelConfig) -> ActivationEngine | LayerEngines:
+    """Public alias: the validated activation engine(s) for a config."""
     return _make_engine(cfg)
 
 

@@ -1,8 +1,8 @@
 """End-to-end training launcher (counterpart of ``repro/launch/train.py``).
 
-    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
+    PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \\
         --smoke --steps 200 --batch 8 --seq 128 --ckpt-dir /tmp/run0 \\
-        [--device cpu]
+        [--act-layers pwl-d16,cr-d32] [--device cpu]
 
 Wires together: config registry -> parameters on one device -> synthetic
 data pipeline -> fault-guarded train step -> TrainDriver
@@ -12,11 +12,12 @@ are random from torch's generator (``materialize_params``) and the data
 from the port's pipeline; neither matches the reference's ``jax.random``
 draws.
 
-The flags and defaults are the reference's, but ``--arch``, whose
-default ``olmo-1b`` waits for its family (ROADMAP.md, Queue A item 9),
-and ``--device`` (default cuda). The port trains on one device:
-``--data-parallel`` (0 = every device: the one) and ``--model-parallel``
-other than 1 raise (Queue A item 12), as does ``--act-layers`` (item 9).
+The flags and defaults are the reference's, and ``--device`` (default
+cuda). The port trains on one device: ``--data-parallel`` (0 = every
+device: the one) and ``--model-parallel`` other than 1 raise (ROADMAP.md,
+Queue A item 12); an ``--arch`` whose family is not ported raises too
+(item 9). ``--act-layers`` takes one approximant tag per layer
+(``act_layers_of``).
 ``--activation cr_fixed`` (or ``pwl_fixed`` / ``poly_fixed`` /
 ``rational_fixed``, or ``--act-impl <scheme>_fixed``) trains through the
 bit-accurate integer datapath with its straight-through gradient
@@ -44,7 +45,7 @@ from repro_torch.optim import adamw, compress
 
 def build_parser():
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--arch", default="qwen3-0.6b",
+    p.add_argument("--arch", default="olmo-1b",
                    help="registry id (see repro_torch.configs.registry)")
     p.add_argument("--smoke", action="store_true",
                    help="reduced config of the same family (CPU-friendly)")
@@ -64,7 +65,8 @@ def build_parser():
                    help="with --act-impl: use_kernel=True (one kernel "
                         "launch per nonlinearity)")
     p.add_argument("--act-layers", default=None,
-                   help="per-layer approximant assignment (not ported)")
+                   help="per-layer approximant assignment: comma-separated "
+                        "tags, one per layer (e.g. pwl-d16,cr-d32)")
     p.add_argument("--train-act", action="store_true",
                    help="unfreeze the approximant params (knots / "
                         "coefficients)")
@@ -93,10 +95,6 @@ def main(argv=None):
             "--data-parallel / --model-parallel: the port trains on one "
             "device; sharded training is not ported yet (ROADMAP.md, Queue A "
             "item 12)")
-    if args.act_layers:
-        raise NotImplementedError(
-            "--act-layers: per-layer approximant assignments are not ported "
-            "yet (ROADMAP.md, Queue A item 9)")
     cfg = registry.get(args.arch, smoke=args.smoke)
     if args.activation:
         cfg = dataclasses.replace(
@@ -108,6 +106,9 @@ def main(argv=None):
         from repro_torch.configs.common import act_impl_of
         cfg = act_impl_of(cfg, args.act_impl,
                           use_kernel=True if args.act_impl_kernel else None)
+    if args.act_layers:
+        from repro_torch.configs.common import act_layers_of
+        cfg = act_layers_of(cfg, args.act_layers.split(","))
     device = torch.device(args.device)
     print(f"[train] arch={cfg.name} act={cfg.activation.tag()} "
           f"device={device}")

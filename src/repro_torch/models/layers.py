@@ -1,4 +1,4 @@
-"""Model building blocks, dense parts (counterpart of
+"""Model building blocks: the dense block and MoE (counterpart of
 ``repro/models/layers.py``).
 
 Plain functions on tensors over a nested-dict parameter tree with the
@@ -8,8 +8,8 @@ flash-style online softmax over KV chunks inside a loop over Q chunks
 (the reference's doubly-chunked ``lax.scan``), so long prefills keep
 bounded temporaries. GQA head h is served by kv-head h // G.
 
-Not ported yet: mrope, MoE, Mamba and the hybrid block (ROADMAP.md,
-Queue A item 9). Each raises.
+Not ported yet: mrope, Mamba and the hybrid block (ROADMAP.md, Queue A
+item 9). Each raises.
 """
 from __future__ import annotations
 
@@ -38,8 +38,6 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
 def check_ported(cfg: ModelConfig) -> None:
     """Raise for the parts of the reference's block this slice lacks."""
     missing = []
-    if cfg.n_experts > 0:
-        missing.append("MoE")
     if cfg.use_mamba or cfg.parallel_mamba:
         missing.append("Mamba")
     if cfg.rope_kind == "mrope":
@@ -99,13 +97,30 @@ def init_mlp(gen, cfg: ModelConfig, device):
     return p
 
 
+def init_moe(gen, cfg: ModelConfig, device):
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    p = {
+        "router": _init(gen, (d, e), device=device),
+        "w_gate": _init(gen, (e, d, f), scale=1.0 / math.sqrt(d),
+                        device=device),
+        "w_up": _init(gen, (e, d, f), scale=1.0 / math.sqrt(d),
+                      device=device),
+        "w_down": _init(gen, (e, f, d), scale=1.0 / math.sqrt(f),
+                        device=device),
+    }
+    if cfg.shared_expert:
+        p["shared"] = init_mlp(gen, cfg, device)
+    return p
+
+
 def init_block(gen, cfg: ModelConfig, device):
     check_ported(cfg)
     p: dict[str, Any] = {"ln1": init_norm(cfg, device),
                          "attn": init_attention(gen, cfg, device)}
     if cfg.has_ffn:
         p["ln2"] = init_norm(cfg, device)
-        p["ffn"] = init_mlp(gen, cfg, device)
+        p["ffn"] = (init_moe(gen, cfg, device) if cfg.n_experts > 0
+                    else init_mlp(gen, cfg, device))
     return p
 
 
@@ -339,7 +354,151 @@ def apply_mlp(params, x, cfg: ModelConfig, engine: ActivationEngine):
 
 
 # ---------------------------------------------------------------------------
-# transformer block (dense)
+# MoE: token-choice top-k; capacity-bounded (gshard) or dropless (ragged)
+# ---------------------------------------------------------------------------
+
+def _top_k(probs, k: int):
+    """(values, indices) of the k largest probabilities, the lower index
+    first on a tie, as ``jax.lax.top_k`` (``torch.topk`` promises no
+    order among ties): a stable descending sort."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _route(router, x, k: int, e: int):
+    """f32 router: softmax over the experts, top-k, the k weights
+    renormalized, and the GShard load-balancing aux over all tokens.
+    x: [..., d]. Returns (top_w [..., k], top_i [..., k], aux)."""
+    logits = x.to(torch.float32) @ router.to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    top_w, top_i = _top_k(probs, k)
+    top_w = top_w / top_w.sum(dim=-1, keepdim=True)
+    lead = tuple(range(probs.dim() - 1))
+    me = probs.mean(dim=lead)
+    ce_frac = torch.nn.functional.one_hot(top_i, e).to(torch.float32) \
+        .sum(dim=-2).mean(dim=lead)
+    return top_w, top_i, e * torch.sum(me * ce_frac)
+
+
+def _expert_ffn(params, xe, cfg: ModelConfig, engine, matmul):
+    """The experts' FFN on their dispatched rows through ``matmul(x, w)``
+    (a batched product over [E, rows, d] or a grouped one); the
+    activation goes through the engine (the reference routes it there,
+    not through the fused GLU kernel)."""
+    cdt = dtype_of(cfg)
+    up = matmul(xe, params["w_up"].to(cdt))
+    if cfg.glu:
+        gate = matmul(xe, params["w_gate"].to(cdt))
+        h = engine(cfg.mlp_act, gate) * up
+    else:
+        h = engine(cfg.mlp_act, up)
+    return matmul(h, params["w_down"].to(cdt))
+
+
+def apply_moe(params, x, cfg: ModelConfig, engine: ActivationEngine):
+    if cfg.moe_impl == "gshard":
+        return apply_moe_gshard(params, x, cfg, engine)
+    return apply_moe_ragged(params, x, cfg, engine)
+
+
+def apply_moe_gshard(params, x, cfg: ModelConfig, engine: ActivationEngine):
+    """GShard/Switch-style capacity-bounded MoE, the reference's grouping,
+    capacity and drops, with index dispatch and combine.
+
+    Rows are cut into dispatch groups of ``g = min(moe_group_size, S)``
+    tokens (S itself when g does not divide it); each expert takes at
+    most C = ceil(g * capacity_factor / E) tokens a group and slot, at
+    running positions shared across the k slots (slot 0 first); a token
+    past C is dropped (weight 0). The reference dispatches and combines
+    with one-hot einsums, each of whose output elements holds exactly
+    one nonzero term; here each token is scattered to its row
+    (expert, group, position) of the [E, B, C, d] expert input, dropped
+    ones to a trash row, and its expert output is gathered back and
+    weighted. Same numbers in f32, the k slots added to ``y`` in the
+    reference's order. x: [B, S, d]."""
+    cdt = dtype_of(cfg)
+    B0, S0, d = x.shape
+    k, e = cfg.top_k, cfg.n_experts
+    g = min(cfg.moe_group_size, S0)
+    if S0 % g:
+        g = S0
+    xg = x.reshape(B0 * (S0 // g), g, d)
+    B, S, _ = xg.shape
+    cap = int(math.ceil(S * cfg.capacity_factor / e))
+    top_w, top_i, aux = _route(params["router"], xg, k, e)
+
+    dev = x.device
+    rows = e * B * cap                        # rows of the expert input
+    group = torch.arange(B, device=dev)[:, None]
+    x_rows = xg.reshape(B * S, d).to(cdt)
+    y = torch.zeros((B, S, d), dtype=torch.float32, device=dev)
+    pos_base = torch.zeros((B, e), dtype=torch.int64, device=dev)
+    for slot in range(k):
+        idx = top_i[..., slot]                                # [B, S]
+        oh_e = torch.nn.functional.one_hot(idx, e)            # [B, S, E]
+        pos = torch.cumsum(oh_e, dim=1) - 1 + pos_base[:, None, :]
+        pos_tok = torch.gather(pos, 2, idx[..., None])[..., 0]
+        keep = pos_tok < cap
+        pos_base = pos_base + oh_e.sum(dim=1)
+        # row (expert, group, position) of the [E, B, C] expert input;
+        # dropped tokens land on the trash row past the end
+        dest = torch.where(keep, (idx * B + group) * cap + pos_tok, rows)
+        dest = dest.reshape(-1)
+        xe = torch.zeros((rows + 1, d), dtype=cdt, device=dev) \
+            .index_copy(0, dest, x_rows)[:rows].reshape(e, B * cap, d)
+        out_e = _expert_ffn(params, xe, cfg, engine, torch.matmul)
+        got = out_e.reshape(rows, d).index_select(
+            0, torch.clamp(dest, max=rows - 1)).reshape(B, S, d)
+        w = top_w[..., slot] * keep                           # dropped: 0
+        y = y + got.to(torch.float32) * w[..., None]
+
+    out = y.to(x.dtype).reshape(B0, S0, d)
+    if cfg.shared_expert:
+        out = out + apply_mlp(params["shared"], x, cfg, engine)
+    return out, cfg.router_aux_weight * aux
+
+
+def _grouped_matmul(xs, w, group_sizes):
+    """``jax.lax.ragged_dot``: rows of ``xs`` [T, d] sorted by group, group
+    j's ``group_sizes[j]`` rows times ``w[j]`` [d, f], in the promoted
+    type of the two operands: one grouped GEMM (``torch._grouped_mm``, a
+    library GEMM as the reference leaves ragged_dot to XLA) with the
+    offsets on the device, so no host sync. On the H100 under torch 2.11
+    it takes f32, bf16 and f16 (chip_smoke.py's ``grouped_mm`` line)."""
+    dt = torch.promote_types(xs.dtype, w.dtype)
+    offs = torch.cumsum(group_sizes, dim=0).to(torch.int32)
+    return torch._grouped_mm(xs.to(dt), w.to(dt), offs=offs)
+
+
+def apply_moe_ragged(params, x, cfg: ModelConfig, engine: ActivationEngine):
+    """Token-choice top-k with mixtral-style renormalized softmax over the
+    selected experts; dropless sort-based dispatch: the (token, expert)
+    pairs sorted by expert (stably), one grouped GEMM per projection, the
+    weighted expert outputs added back per token. x: [B, S, d]."""
+    B, S, d = x.shape
+    T = B * S
+    k, e = cfg.top_k, cfg.n_experts
+    xt = x.reshape(T, d)
+    top_w, top_i, aux = _route(params["router"], xt, k, e)
+
+    flat_expert = top_i.reshape(-1)                           # [T*k]
+    sort_idx = torch.argsort(flat_expert, stable=True)
+    token_idx = (torch.arange(T * k, device=x.device) // k)[sort_idx]
+    xs = xt.index_select(0, token_idx)                         # [T*k, d]
+    group_sizes = torch.nn.functional.one_hot(flat_expert, e).sum(dim=0)
+    out_s = _expert_ffn(params, xs, cfg, engine,
+                        lambda a, w: _grouped_matmul(a, w, group_sizes))
+    w_sorted = top_w.reshape(-1)[sort_idx].to(out_s.dtype)
+    combined = torch.zeros((T, d), dtype=out_s.dtype, device=x.device) \
+        .index_add(0, token_idx, out_s * w_sorted[:, None])
+    out = combined.reshape(B, S, d).to(x.dtype)
+    if cfg.shared_expert:
+        out = out + apply_mlp(params["shared"], x, cfg, engine)
+    return out, cfg.router_aux_weight * aux
+
+
+# ---------------------------------------------------------------------------
+# transformer block 
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass
@@ -417,7 +576,12 @@ def apply_block(p, x, io: BlockIO, cfg: ModelConfig, engine):
     attn_out, ac = _attn_branch(p["attn"], xn, io, cfg, engine)
     new_cache.update(ac)
     x = x + attn_out
+    aux = 0.0
     if cfg.has_ffn:
         xn2 = apply_norm(p["ln2"], x, cfg)
-        x = x + apply_mlp(p["ffn"], xn2, cfg, engine)
-    return x, new_cache, 0.0
+        if cfg.n_experts > 0:
+            ffn_out, aux = apply_moe(p["ffn"], xn2, cfg, engine)
+        else:
+            ffn_out = apply_mlp(p["ffn"], xn2, cfg, engine)
+        x = x + ffn_out
+    return x, new_cache, aux

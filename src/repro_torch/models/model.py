@@ -6,7 +6,9 @@ single-token decode against the per-slot KV cache (counterpart of
 Layer parameters are stacked on a leading layer axis under
 ``params["blocks"]`` with the reference's key paths (so a reference
 parameter tree carries over one to one, see ``params_from_numpy``); the
-stack runners loop over layers in Python where the reference scans.
+stack runners loop over layers in Python where the reference scans, and
+run layer i under its own engine (``engine_of_layer``: a per-layer
+``LayerEngines`` assignment, or one engine for every layer).
 
 Slot cache contract: ``{"layers": {"k", "v": [L, B, W, KV, hd]}, "cur":
 [B] or scalar, "k_pos": [B, W] or [W]}``. Ring slot of absolute position
@@ -30,14 +32,17 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.core.activations import ActivationEngine, init_act_params
+from repro_torch.core.activations import (ActivationEngine, engine_of_layer,
+                                          init_act_params)
 
 from .config import ModelConfig
 from .layers import (BlockIO, apply_block, apply_norm, check_ported, dtype_of,
                      init_block, init_norm)
 
 # leaves the reference casts to the compute dtype at every use
-# (layers.py `.astype(cdt)`): attention / FFN matrices, biases, embedding
+# (layers.py `.astype(cdt)`): attention / FFN matrices (the MoE expert
+# stacks and shared expert too), biases, embedding. The MoE router is
+# not one of them: it routes in f32.
 _COMPUTE_LEAVES = frozenset({"wq", "wk", "wv", "wo", "bq", "bk", "bv",
                              "w_gate", "w_up", "w_down", "embed"})
 
@@ -188,7 +193,8 @@ def lm_logits(params, h, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 def _bind_engine(engine, params):
-    """Engine with tanh params bound from the model's ``params["act"]``."""
+    """Engine(s) with tanh params bound from the model's ``params["act"]``
+    (a ``LayerEngines`` binds each distinct engine to its own leaf)."""
     act = params.get("act")
     return engine.bind(act) if act else engine
 
@@ -227,22 +233,25 @@ def _remat_block(block_fn, remat: str):
     raise ValueError(f"unknown remat {remat!r} (none | block | dots)")
 
 
-def run_stack_train(params, x, cfg: ModelConfig, engine: ActivationEngine,
-                    remat: str = "block"):
+def run_stack_train(params, x, cfg: ModelConfig, engine, remat: str = "block"):
     """Full-sequence stack under a remat policy (``_remat_block``). Returns
-    (x, aux loss averaged over layers: a 0-d f32 zero for dense blocks)."""
+    (x, the MoE aux loss summed over layers and divided by n_layers: a 0-d
+    f32 zero for dense blocks)."""
     S = x.shape[1]
     ar = torch.arange(S, dtype=torch.int32, device=x.device)
     io = BlockIO(mode="train", positions=_positions_for(cfg, S, x.device),
                  q_pos=ar, k_pos=ar)
 
-    def block_fn(x, layer_params):
-        return apply_block(layer_params, x, io, cfg, engine)[0]
+    def block_fn(x, layer_params, eng):
+        y, _, aux = apply_block(layer_params, x, io, cfg, eng)
+        return y, aux
 
     block_fn = _remat_block(block_fn, remat)
-    for layer_params in _layers(params["blocks"], cfg.n_layers):
-        x = block_fn(x, layer_params)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, layer_params in enumerate(_layers(params["blocks"], cfg.n_layers)):
+        x, aux_i = block_fn(x, layer_params, engine_of_layer(engine, i))
+        if torch.is_tensor(aux_i):
+            aux = aux + aux_i
     return x, aux / cfg.n_layers
 
 
@@ -259,7 +268,7 @@ def run_stack_prefill(params, x, cfg: ModelConfig, engine, capacity: int,
     ks, vs = [], []
     for i in range(cfg.n_layers):
         x, cache, _ = apply_block(_layer(params["blocks"], i), x, io, cfg,
-                                  engine)
+                                  engine_of_layer(engine, i))
         for out, name in ((ks, "k"), (vs, "v")):
             kv = cache[name]
             out.append(_prefill_kv_to_cache(kv, capacity, S)
@@ -347,7 +356,7 @@ def run_stack_prefill_prefix(params, x, cfg: ModelConfig, engine,
     for i in range(cfg.n_layers):
         io.cache = {"k_pre": prefix_kv["k"][i], "v_pre": prefix_kv["v"][i]}
         x, cache, _ = apply_block(_layer(params["blocks"], i), x, io, cfg,
-                                  engine)
+                                  engine_of_layer(engine, i))
         for out, name in ((ks, "k"), (vs, "v")):
             kv = cache[name]
             out.append(torch.nn.functional.pad(kv, (0, 0, 0, 0, 0, pad))
@@ -404,7 +413,7 @@ def run_stack_prefill_chunk(params, x, cfg: ModelConfig, engine, pool_kv,
         io.cache = {"k_pre": pool_k[tbl].reshape(ring),
                     "v_pre": pool_v[tbl].reshape(ring)}
         x, cache, _ = apply_block(_layer(params["blocks"], li), x, io, cfg,
-                                  engine)
+                                  engine_of_layer(engine, li))
         pool_k[w_page, w_off] = cache["k"][0].to(pool_k.dtype)
         pool_v[w_page, w_off] = cache["v"][0].to(pool_v.dtype)
     new_row = k_pos_row.clone()
@@ -458,7 +467,8 @@ def run_stack_decode(params, x, cfg: ModelConfig, engine, cache,
         lcache = {"k": layers["k"][i], "v": layers["v"][i], **lcache_extra}
         io = BlockIO(mode="decode", positions=positions, q_pos=cur_b,
                      k_pos=k_pos_new, cache=lcache)
-        x, _, _ = apply_block(_layer(params["blocks"], i), x, io, cfg, engine)
+        x, _, _ = apply_block(_layer(params["blocks"], i), x, io, cfg,
+                              engine_of_layer(engine, i))
     adv = 1 if wm is None else wm.to(cur.dtype)
     new_cache = {"layers": layers, "cur": cur + adv,
                  "k_pos": k_pos_new if (per_slot or k_pos_vec.dim() == 2)

@@ -200,7 +200,7 @@ def test_launcher_runs_on_cpu_and_prints_summary(tmp_path):
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "[train] done:" in proc.stdout
     summary = json.loads((tmp_path / "m.json").read_text())
-    assert summary["arch"] == "qwen3-0.6b-smoke" and summary["steps"] == 3
+    assert summary["arch"] == "olmo-1b-smoke" and summary["steps"] == 3
     assert summary["skipped"] == 0 and np.isfinite(summary["loss_first"])
     assert set(summary) == {"arch", "activation", "steps", "loss_first",
                             "loss_last_avg8", "wall_s", "tokens_per_s",
@@ -215,8 +215,8 @@ def test_launcher_runs_on_cpu_and_prints_summary(tmp_path):
 @pytest.mark.parametrize("argv,item", [
     (["--data-parallel", "2"], "item 12"),
     (["--model-parallel", "2"], "item 12"),
-    (["--act-layers", "pwl-d16,cr-d32"], "item 9"),
-    (["--arch", "olmo-1b"], "item 9")])
+    (["--arch", "qwen2-vl-2b"], "item 9"),
+    (["--arch", "falcon-mamba-7b"], "item 9")])
 def test_launcher_unported_flags_name_their_item(tmp_path, argv, item):
     with pytest.raises(NotImplementedError, match=item):
         train_mod.main(["--smoke", "--device", "cpu", "--steps", "1",

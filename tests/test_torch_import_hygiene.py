@@ -124,3 +124,55 @@ def test_core_exports_the_reference_names_that_are_ported():
     eng = get_engine({"impl": "cr", "depth": 16})
     assert isinstance(eng, ActivationEngine) and eng.cfg.depth == 16
     assert get_engine().cfg.impl == "exact"
+
+
+# the families of ROADMAP.md, Queue A item 9 that the port has not reached
+UNPORTED_ARCHS = ("qwen2-vl-2b", "falcon-mamba-7b", "hymba-1.5b",
+                  "musicgen-large")
+
+
+def test_registry_knows_the_ten_archs_and_ports_six():
+    from repro_torch.configs import registry
+    ids = registry.assigned_archs()
+    assert len(ids) == 10 and set(UNPORTED_ARCHS) <= set(ids)
+    ported = [a for a in ids if a not in UNPORTED_ARCHS]
+    for arch in ported:
+        assert registry.get(arch).name == arch
+    assert sorted(ported) == sorted(
+        ["yi-34b", "olmo-1b", "qwen3-0.6b", "qwen2.5-3b", "mixtral-8x22b",
+         "llama4-scout-17b-a16e"])
+
+
+@pytest.mark.parametrize("arch", UNPORTED_ARCHS)
+def test_unported_arch_names_item_9(arch):
+    from repro_torch.configs import registry
+    with pytest.raises(NotImplementedError, match="item 9"):
+        registry.get(arch, smoke=True)
+
+
+def test_new_archs_run_without_jax():
+    """Each arch this slice ported (and a per-layer assignment) builds and
+    runs one forward in a process that never loads jax or the
+    reference."""
+    code = (
+        "import sys, torch\n"
+        "from repro_torch.configs import registry\n"
+        "from repro_torch.configs.common import act_layers_of\n"
+        "from repro_torch.launch import steps\n"
+        "from repro_torch.models import model as M\n"
+        "cfgs = [registry.get(a, smoke=True) for a in ('olmo-1b', "
+        "'qwen2.5-3b', 'yi-34b', 'mixtral-8x22b', "
+        "'llama4-scout-17b-a16e')]\n"
+        "cfgs.append(act_layers_of(cfgs[0], ('pwl-d16', 'cr-d32')))\n"
+        "for cfg in cfgs:\n"
+        "    p = M.materialize_params(cfg, seed=0, device='cpu')\n"
+        "    t = torch.zeros((1, 5), dtype=torch.int32)\n"
+        "    y = M.forward_fn(p, {'tokens': t}, cfg, steps.make_engine(cfg))\n"
+        "    assert bool(torch.isfinite(y).all()), cfg.name\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "assert not bad, bad\n")
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -492,3 +492,179 @@ def test_table_lookup_backward_is_deterministic_and_sync_free(cuda):
     ref, = torch.autograd.grad(table[k], table, g)
     assert float((grads[0] - ref).abs().max()) <= 1e-5 * float(
         ref.abs().max())
+
+
+# --- the widths the dense and MoE archs give both kernels ---------------------
+
+# the archs beyond qwen3-0.6b; glu_2d runs at (d_model, d_ff) on every fused
+# FFN and on llama4's shared expert (mixtral's routed experts go through the
+# engine), elementwise_2d at d_ff on every FFN or expert activation
+ARCHS = ("olmo-1b", "qwen2.5-3b", "yi-34b", "mixtral-8x22b",
+         "llama4-scout-17b-a16e")
+GLU_ARCHS = tuple(a for a in ARCHS if a != "mixtral-8x22b")
+
+
+def _widths(arch):
+    from repro_torch.configs import registry
+    cfg = registry.get(arch)
+    return cfg.d_model, cfg.d_ff
+
+
+def _engine_rows(slots=2, max_prompt=128):
+    """Every row count a served forward with ``slots`` slots hands the FFN
+    kernels: decode (``slots`` rows) and a prefill of 1 to ``slots``
+    prompts padded to one power-of-two bucket, from the engine's smallest
+    (``EngineConfig.min_bucket``) to ``max_prompt``. MoE expert tensors
+    stay within the largest (gshard: E x groups x C; ragged: tokens x
+    top-k)."""
+    from repro_torch.serve import EngineConfig
+    b, buckets = EngineConfig().min_bucket, []
+    while b <= max_prompt:
+        buckets.append(b)
+        b *= 2
+    return sorted({slots} | {n * b for n in range(1, slots + 1)
+                             for b in buckets})
+
+
+@pytest.mark.parametrize("arch", GLU_ARCHS)
+@pytest.mark.parametrize("scheme", ("cr_spline",) + SCHEMES)
+def test_glu_kernel_at_arch_shapes(cuda, scheme, arch):
+    """glu_2d at each arch's (K, N), at every served row count: the TMA +
+    wgmma variant, the plain version's numbers, the same bits again."""
+    k, n = _widths(arch)
+    spec, p = _any_scheme(scheme, "silu", cuda)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    wg, wu = ((torch.rand((k, n), generator=gen, device=cuda) - 0.5)
+              .mul_(0.1).to(torch.bfloat16) for _ in range(2))
+    for m in _engine_rows():
+        x = (torch.rand((m, k), generator=gen, device=cuda) * 2 - 1).to(
+            torch.bfloat16)
+        n0 = tepi.GLU_VARIANTS["tma_wgmma"]
+        y = tepi.glu_2d(x, wg, wu, p, spec=spec)
+        torch.cuda.synchronize()
+        assert tepi.GLU_VARIANTS["tma_wgmma"] == n0 + 1, (m, k, n)
+        torch.testing.assert_close(
+            y.float(), tepi.glu_2d_plain(x, wg, wu, p, spec=spec).float(),
+            rtol=1e-2, atol=1e-3)
+        assert torch.equal(tepi.glu_2d(x, wg, wu, p, spec=spec), y)
+
+
+def test_glu_kernel_on_layer_stacked_weights(cuda):
+    """The served path hands glu_2d views into the layer-stacked [L, d, f]
+    weights (and a MoE layer's shared expert): every layer's view is
+    TMA-addressable and gives its own layer's product."""
+    spec, p = _table("silu", cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    stack = (torch.randn((3, 2, 512, 1024), generator=gen, device=cuda)
+             * 0.05).to(torch.bfloat16)
+    x = torch.randn((2, 512), generator=gen, device=cuda).to(torch.bfloat16)
+    for i in range(3):
+        wg, wu = stack[i, 0], stack[i, 1]
+        n0 = tepi.GLU_VARIANTS["tma_wgmma"]
+        y = tepi.glu_2d(x, wg, wu, p, spec=spec)
+        assert tepi.GLU_VARIANTS["tma_wgmma"] == n0 + 1, i
+        torch.testing.assert_close(
+            y.float(), tepi.glu_2d_plain(x, wg, wu, p, spec=spec).float(),
+            rtol=1e-2, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("scheme", ("cr_spline",) + SCHEMES)
+def test_elementwise_kernel_at_arch_shapes(cuda, scheme, dtype):
+    """elementwise_2d at every arch's d_ff, at every served row count."""
+    dt = getattr(torch, dtype)
+    spec, p = _any_scheme(scheme, "silu", cuda)
+    for cols in sorted({_widths(a)[1] for a in ARCHS}):
+        for rows in _engine_rows():
+            x = torch.from_numpy(rand((rows, cols), seed=rows)).to(cuda, dt)
+            _check_elementwise(spec, p, "silu", x)
+
+
+@pytest.mark.parametrize("arch,impl", [
+    ("mixtral-8x22b", "gshard"), ("mixtral-8x22b", "ragged"),
+    ("llama4-scout-17b-a16e", "gshard"), ("llama4-scout-17b-a16e", "ragged")])
+def test_moe_layer_on_card_matches_cpu(cuda, arch, impl):
+    """One MoE layer (kernelized engine, f32) on the card against the CPU
+    on the same params and input: outputs and aux within 1e-5 relative;
+    at bf16 the card's decode-shaped call makes no host sync."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.common import act_impl_of
+    from repro_torch.core.activations import ActivationEngine, init_act_params
+    from repro_torch.models import layers as TL
+    cfg = act_impl_of(registry.get(arch, smoke=True, moe_impl=impl,
+                                   compute_dtype="float32"),
+                      "cr_spline", use_kernel=True)
+    layer_cfgs = cfg.layer_activation_configs()
+    # bound to the act leaf on each device, as the model binds it: an
+    # unbound engine copies the registry's params to the card at each call
+    eng_on = {dev: ActivationEngine(layer_cfgs[0]).bind(
+        {t: torch.as_tensor(a, device=dev)
+         for t, a in init_act_params(layer_cfgs).items()})
+        for dev in ("cpu", "cuda")}
+    params = TL.init_moe(torch.Generator().manual_seed(0), cfg, "cpu")
+    x = torch.randn((2, 16, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1)) * 0.5
+    y_cpu, aux_cpu = TL.apply_moe(params, x, cfg, eng_on["cpu"])
+    eng = eng_on["cuda"]
+    on = {k: (v.to(cuda) if torch.is_tensor(v) else
+              {kk: vv.to(cuda) for kk, vv in v.items()})
+          for k, v in params.items()}
+    n0 = tepi.LAUNCHES["elementwise_2d"]
+    y, aux = TL.apply_moe(on, x.to(cuda), cfg, eng)
+    torch.cuda.synchronize()
+    assert tepi.LAUNCHES["elementwise_2d"] > n0
+    scale = float(y_cpu.abs().max())
+    assert float((y.cpu() - y_cpu).abs().max()) <= 1e-5 * scale
+    assert abs(float(aux) - float(aux_cpu)) <= 1e-5 * abs(float(aux_cpu))
+    bf = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    onb = {k: (v.to(torch.bfloat16) if torch.is_tensor(v) else
+               {kk: vv.to(torch.bfloat16) for kk, vv in v.items()})
+           for k, v in on.items()}
+    xd = x[:, :1].to(cuda, torch.bfloat16)
+    TL.apply_moe(onb, xd, bf, eng)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        TL.apply_moe(onb, xd, bf, eng)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def test_mixed_assignment_logits_on_card_match_cpu(cuda):
+    """A per-layer assignment, fused (each layer's glu_2d launch reads its
+    own scheme's params), f32: logits on the card within 1e-4 relative of
+    the CPU's, and glu_2d launched once a layer."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.common import act_layers_of
+    from repro_torch.launch import steps as TS
+    from repro_torch.models import model as TM
+    base = registry.get("qwen3-0.6b", smoke=True, n_layers=4,
+                        compute_dtype="float32")
+    cfg = dataclasses.replace(act_layers_of(
+        base, ("cr-d32", "pwl-d16", "poly-d8-g3", "rational-d32-g5"),
+        use_kernel=True), fuse_mlp=True)
+    params = TM.materialize_params(cfg, seed=0, device="cpu")
+    toks = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 512, (2, 19)).astype(np.int32))
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        p = TM.compute_params(TM.params_from_numpy(
+            _np_tree(params), cfg, device=dev), cfg)
+        n0 = tepi.LAUNCHES["glu_2d"]
+        out[dev.type] = TM.forward_fn(p, {"tokens": toks.to(dev)}, cfg,
+                                      TS.make_engine(cfg)).cpu()
+        if dev.type == "cuda":
+            assert tepi.LAUNCHES["glu_2d"] - n0 == cfg.n_layers
+    scale = float(out["cpu"].abs().max())
+    assert float((out["cuda"] - out["cpu"]).abs().max()) <= 1e-4 * scale
+
+
+def _np_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _np_tree(v) for k, v in tree.items()}
+    return tree.numpy()

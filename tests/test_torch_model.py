@@ -28,6 +28,7 @@ from repro.launch import steps as JS  # noqa: E402
 from repro.models import model as JM  # noqa: E402
 from repro_torch.configs import registry as TR  # noqa: E402
 from repro_torch.configs.common import act_impl_of, fused_of  # noqa: E402
+from repro_torch.core.activations import LayerEngines  # noqa: E402
 from repro_torch.launch import steps as TS  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 
@@ -166,10 +167,10 @@ def test_step_builder_contracts():
             activation=dataclasses.replace(cfg.activation, impl="exact")))
     with pytest.raises(ValueError, match="invalid activation config"):
         TS.make_engine(dataclasses.replace(cfg, act_impl="bogus"))
-    with pytest.raises(NotImplementedError, match="act_layers"):
-        TS.make_engine(dataclasses.replace(cfg, act_layers=("cr", "exact")))
+    assert isinstance(TS.make_engine(dataclasses.replace(
+        cfg, act_layers=("cr", "exact"))), LayerEngines)
     with pytest.raises(NotImplementedError, match="not ported"):
-        TR.get("mixtral-8x22b", smoke=True)
+        TR.get("falcon-mamba-7b", smoke=True)
     assert fused_of(cfg).fuse_mlp and fused_of(cfg).activation.use_kernel
 
 
