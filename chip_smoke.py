@@ -73,13 +73,19 @@ lines:
      where neither kernel may launch.
      The weights are built once; only their ``act`` leaf differs by
      scheme.
-     Then (3b) the dense and MoE archs at full width, each built, served
-     and freed before the next (random weights from seed 0, bf16, the
-     same schedule): olmo-1b (16 layers), qwen2.5-3b (36), yi-34b (8 of
-     60), mixtral-8x22b (2 of 56), llama4-scout-17b-a16e (2 of 48), the
-     cut depths listed as ``reduced``; each cr_spline fused and
+     Then (3b) the other archs at full width, each built, served and
+     freed before the next (random weights from seed 0, bf16, the same
+     schedule): olmo-1b (16 layers), qwen2.5-3b (36), yi-34b (8 of 60),
+     mixtral-8x22b (2 of 56), llama4-scout-17b-a16e (2 of 48),
+     qwen2-vl-2b (28, M-RoPE), hymba-1.5b (32, attention and Mamba in
+     parallel), musicgen-large (48, [S, 4] codebook prompts) and
+     falcon-mamba-7b (64, Mamba-1), the cut depths listed as
+     ``reduced``; each cr_spline fused (where it has a gated FFN) and
      kernelized, and the MoE archs kernelized under moe_impl="ragged"
-     too. Then qwen3-0.6b under per-layer assignments
+     too. The Mamba archs ask for chunked prefill as well and must keep
+     one-shot admission at exact buckets (one prefill a prompt), without
+     prefix sharing; falcon-mamba must fall back from the paged cache to
+     the slot contract. Then qwen3-0.6b under per-layer assignments
      (``serve_per_layer_*``): fused and kernelized over cr_spline / pwl /
      poly / rational blocks of 7 layers (28 launches a forward), a
      kernelized cr_spline / cr_fixed half-and-half (14), and every layer
@@ -114,9 +120,10 @@ lines:
      (``trace_fixed_*``, ``trace_train_cr_fixed``), then the per-layer
      runs' and the archs' (each arch rebuilt from its seed). The archs'
      shapes are timed too: of each arch run's recorded launches, each
-     kernel's decode shape and its largest (cr_spline: ``glu_2d`` beside
-     two ``torch.matmul`` calls, cuBLAS warmed first; ``elementwise_2d``
-     beside a copy). Profiling comes after serving and training
+     kernel's decode shape and its largest per type and epilogue
+     (cr_spline: ``glu_2d`` beside two ``torch.matmul`` calls, cuBLAS
+     warmed first; ``elementwise_2d`` beside a copy; Mamba's f32 softplus
+     and silu among them). Profiling comes after serving and training
      because a profiled process keeps paying tracing costs on every later
      launch.
   5. f32 prefill logits of every deployment on the card (kernels) against
@@ -127,8 +134,11 @@ lines:
      ``knot_grad``) within 1e-4 relative. The same for each ``*_fixed``
      deployment's logits at FIXED_LOGITS_TOL and ``cr_fixed``'s step at
      FIXED_F32_TOL. Then the fused per-layer assignment (28 layers), and
-     each arch's fused deployment, and the MoE archs' kernelized ragged
-     one, at batch 1 x 32 (dense at the served depth, MoE at one layer):
+     each arch's fused deployment (kernelized for falcon-mamba and
+     musicgen, which have no gated FFN), and the MoE archs' kernelized
+     ragged one, at batch 1 x 32 (qwen2-vl with patch embeddings and
+     distinct t / h / w positions, musicgen [1, 32, 4]; at the served
+     depth, MoE at one layer, falcon-mamba at two):
      each kernel launched ``launches_per_forward`` times on the card,
      1e-4 relative, and the MoE top-k experts of every token identical on
      both devices (the smallest top-k margin printed).
@@ -234,15 +244,25 @@ FIXED_TRAIN_RUNS = (("none", 3, 0),)   # train_cr_fixed: 3 steps, no remat
 FIXED_LOGITS_TOL = 6e-5
 FIXED_F32_TOL = 2.5e-4
 LSB_Q213 = 2.0 ** -13
-# the dense and MoE archs served at full width (widths never cut), each
-# with the depth it is served at where the f32 masters and bf16 copies of
-# the whole model would not fit one card (None: every layer)
+# the archs served at full width (widths never cut), each with the depth
+# it is served at where the f32 masters and bf16 copies of the whole
+# model would not fit one card (None: every layer): the dense and MoE
+# archs, then M-RoPE (qwen2-vl), the hybrid attention + Mamba block
+# (hymba), K = 4 codebook planes (musicgen) and Mamba-1 (falcon-mamba)
 ARCH_RUNS = (("olmo-1b", None), ("qwen2.5-3b", None), ("yi-34b", 8),
-             ("mixtral-8x22b", 2), ("llama4-scout-17b-a16e", 2))
+             ("mixtral-8x22b", 2), ("llama4-scout-17b-a16e", 2),
+             ("qwen2-vl-2b", None), ("hymba-1.5b", None),
+             ("musicgen-large", None), ("falcon-mamba-7b", None))
 # card against CPU at f32: the MoE archs at one layer (the CPU copy ~12-17
-# GB), the dense ones at their served depth; batch 1 x 32 tokens
-ARCH_F32_LAYERS = {"mixtral-8x22b": 1, "llama4-scout-17b-a16e": 1}
+# GB), falcon-mamba at two (its 64 would be a 29 GB CPU copy), the others
+# at their served depth; batch 1 x 32 tokens
+ARCH_F32_LAYERS = {"mixtral-8x22b": 1, "llama4-scout-17b-a16e": 1,
+                   "falcon-mamba-7b": 2}
 ARCH_F32_TOKENS = 32
+# f32 operations of each epilogue's wiring around its one tanh unit
+# (csrc/approximant.cuh epi_arg + epi_out)
+WIRING_OPS = {"tanh": 0, "sigmoid": 3, "silu": 4, "gelu_tanh": 8,
+              "softplus": 3}
 
 
 def emit(obj) -> None:
@@ -319,10 +339,11 @@ def bound(bytes_moved: float, ops: float, peak_ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def epilogue_ops(spec, params) -> int:
-    """f32 operations of one silu epilogue element under ``spec``, counted
-    from csrc/approximant.cuh: silu wiring 4, |x| 1, saturate and sign 3, and
-    the scheme's block: index split 6 for the LUT schemes; cr_spline basis
+def epilogue_ops(spec, params, act: str = "silu") -> int:
+    """f32 operations of one ``act`` epilogue element under ``spec``,
+    counted from csrc/approximant.cuh: the wiring (WIRING_OPS: silu 4),
+    |x| 1, saturate and sign 3, and the scheme's block: index split 6 for
+    the LUT schemes; cr_spline basis
     22 + 4-tap MAC 7; pwl one MAC 2; poly Horner 2 per degree; rational
     clamp + square 2, two Horner chains 4 per step, x multiply 1, seed 2,
     Newton 3 per step, product + clamp 2."""
@@ -331,7 +352,7 @@ def epilogue_ops(spec, params) -> int:
              "pwl": lambda: 6 + 2,
              "poly": lambda: 6 + 2 * (cols - 1),
              "rational": lambda: 2 + 4 * (cols - 1) + 1 + 2 + 3 * 5 + 2}
-    return 4 + 1 + 3 + block[spec.scheme]()
+    return WIRING_OPS[act] + 1 + 3 + block[spec.scheme]()
 
 
 def bf16_ulp_ok(got, ref) -> bool:
@@ -773,9 +794,13 @@ def phase_kernel_times(torch, epi, dev, flush, arch_lines):
         plain = fns["plain"]()
         err = float((got.float() - plain.float()).abs().max())
         # the timed inputs hold to the same tolerance as phase 2's checks
+        f32 = got.dtype == torch.float32
         if key[0] == "glu_2d":
             torch.testing.assert_close(got.float(), plain.float(),
-                                       rtol=1e-2, atol=1e-3)
+                                       rtol=1e-4 if f32 else 1e-2,
+                                       atol=1e-5 if f32 else 1e-3)
+        elif f32:
+            torch.testing.assert_close(got, plain, rtol=1e-5, atol=1e-6)
         else:
             assert bf16_ulp_ok(got, plain), (key, err)
         extra = dict(c["extra"], retakes={r: n for r, (_, n) in
@@ -786,7 +811,8 @@ def phase_kernel_times(torch, epi, dev, flush, arch_lines):
         else:
             extra.update(copy_ms=dev_ms["copy"],
                          copy_call_ms=calls[(key, "copy")])
-        t = dict(shape=c["shape"], dtype="bfloat16", max_abs_err=err,
+        t = dict(shape=c["shape"], dtype=c.get("dtype", "bfloat16"),
+                 max_abs_err=err,
                  ms=dev_ms["kernel"], plain_ms=dev_ms["plain"],
                  bound_ms=c["bound"][0], bound_by=c["bound"][1],
                  library_ms=dev_ms.get("library"), timing=how,
@@ -802,48 +828,56 @@ def phase_kernel_times(torch, epi, dev, flush, arch_lines):
 
 
 def arch_time_cases(torch, epi, dev, gen, arch_lines):
-    """phase_kernel_times' cases at the dense and MoE archs' shapes, under
-    cr_spline (the scheme they serve): of each arch run's launches
-    (``kernel_shapes`` of its serve line), each kernel's decode shape
-    (its fewest rows) and its largest; glu_2d beside two torch.matmul
-    calls, elementwise_2d beside a copy. Keyed (kernel, "cr_spline",
-    "MxKxN" or "RxC")."""
+    """phase_kernel_times' cases at the archs' shapes, under cr_spline (the
+    scheme they serve): of each arch run's launches (``kernel_shapes`` of
+    its serve line), for each kernel, type and epilogue, the decode shape
+    (fewest rows) and the largest; glu_2d beside two torch.matmul calls,
+    elementwise_2d beside a copy. Keyed (kernel, "cr_spline", "MxKxN" or
+    "RxC"), the name suffixed ":<dtype>:<act>" unless bf16 silu."""
     picked = {}
     for line in arch_lines.values():
-        for kernel in REPLACES:
-            got = sorted((tuple(shape) for k, shape, *_ in
-                          line["kernel_shapes"] if k == kernel))
-            if got:
-                picked.setdefault((kernel, got[0]), "decode")
-                picked.setdefault((kernel, got[-1]), "prefill")
+        groups = {}
+        for k, shape, dt, act, _ in line["kernel_shapes"]:
+            groups.setdefault((k, dt, act), []).append(tuple(shape))
+        for (kernel, dt, act), got in groups.items():
+            got.sort()
+            picked.setdefault((kernel, got[0], dt, act), "decode")
+            picked.setdefault((kernel, got[-1], dt, act), "prefill")
     cases = {}
-    spec, p = scheme_spec(torch, epi, "cr_spline", "silu", dev)
-    for (kernel, shape), where in sorted(picked.items()):
+    for (kernel, shape, dt, act), where in sorted(picked.items()):
         name = "x".join(map(str, shape))
+        if (dt, act) != ("bfloat16", "silu"):
+            name += f":{dt}:{act}"
+        spec, p = scheme_spec(torch, epi, "cr_spline", act, dev)
+        dtype = getattr(torch, dt)
         if kernel == "glu_2d":
             rows, K, N = shape
-            a = glu_operands(torch, gen, dev, rows, K, N, torch.bfloat16)
-            nbytes = (rows * K + 2 * K * N + rows * N) * 2 + p.numel() * 4
+            a = glu_operands(torch, gen, dev, rows, K, N, dtype)
+            nbytes = (rows * K + 2 * K * N + rows * N) * a[0].element_size() \
+                + p.numel() * 4
             cases[("glu_2d", "cr_spline", name)] = dict(
-                shape=list(shape), extra={}, where=where,
-                bound=bound(nbytes, 4.0 * rows * N * K, BF16_TC_FLOPS),
-                fns={"kernel": lambda a=a: epi.glu_2d(*a, p, spec=spec),
-                     "plain": lambda a=a: epi.glu_2d_plain(*a, p, spec=spec),
+                shape=list(shape), dtype=dt, extra={}, where=where,
+                bound=bound(nbytes, 4.0 * rows * N * K, BF16_TC_FLOPS
+                            if dt == "bfloat16" else F32_FLOPS),
+                fns={"kernel": lambda a=a, s=spec, p=p, act=act: epi.glu_2d(
+                         *a, p, spec=s, act=act),
+                     "plain": lambda a=a, s=spec, p=p, act=act:
+                         epi.glu_2d_plain(*a, p, spec=s, act=act),
                      "library": lambda a=a: (torch.matmul(a[0], a[1]),
                                              torch.matmul(a[0], a[2]))})
             continue
-        x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        x = torch.randn(shape, generator=gen, device=dev).to(dtype)
         y = torch.empty_like(x)
         cases[("elementwise_2d", "cr_spline", name)] = dict(
-            shape=list(shape), where=where,
-            extra=dict(geometry=list(epi._elementwise_geometry(
+            shape=list(shape), dtype=dt, where=where,
+            extra=dict(act=act, geometry=list(epi._elementwise_geometry(
                 *shape, x.dtype))),
-            bound=bound(2 * x.numel() * 2 + p.numel() * 4,
-                        epilogue_ops(spec, p) * x.numel(), F32_FLOPS),
-            fns={"kernel": lambda x=x: epi.elementwise_2d(x, p, spec=spec,
-                                                           act="silu"),
-                 "plain": lambda x=x: epi.elementwise_2d_plain(
-                     x, p, spec=spec, act="silu"),
+            bound=bound(2 * x.numel() * x.element_size() + p.numel() * 4,
+                        epilogue_ops(spec, p, act) * x.numel(), F32_FLOPS),
+            fns={"kernel": lambda x=x, s=spec, p=p, act=act:
+                     epi.elementwise_2d(x, p, spec=s, act=act),
+                 "plain": lambda x=x, s=spec, p=p, act=act:
+                     epi.elementwise_2d_plain(x, p, spec=s, act=act),
                  "copy": lambda x=x, y=y: y.copy_(x)})
     return cases
 
@@ -905,9 +939,12 @@ def drive(torch, epi, cfg, params, prompts, dev, **ecfg):
     assert variants == {v: launches["glu_2d"] if v == variant else 0
                         for v in variants}, (variants, launches)
     assert len(done) == len(prompts), done
+    K = cfg.n_codebooks
     for c in done:
         assert len(c.tokens) == MAX_NEW and c.finish_reason == "length", c
-        assert all(0 <= t < cfg.padded_vocab for t in c.tokens), c.tokens
+        ids = [x for t in c.tokens for x in (t if K > 1 else (t,))]
+        assert len(ids) == MAX_NEW * K, c.tokens
+        assert all(0 <= t < cfg.padded_vocab for t in ids), c.tokens
     if eng.paged:
         assert eng.snapshot().pages_in_use == 0 and eng._pool.reserved == 0
     for key, n in log.shapes.items():
@@ -922,36 +959,56 @@ def agreement(a, b) -> float:
 
 
 def phase_serve(torch, epi, name, cfg, params, prompts, dev, card,
-                cache="paged", **extra):
+                cache="paged", engine_kw=None, **extra):
     """Warm up (every prompt, 2 tokens: every prefill bucket and insert
     shape once), then drive the main path on ``cache`` (``drive``'s
-    gates). Emits the run's line, with ``extra`` and the peak device
-    memory of the counted run, and returns (tokens, launches, line)."""
-    serve(torch, cfg, params, prompts, dev, max_new=2, cache=cache)
+    gates), ``engine_kw`` added to the EngineConfig. Emits the run's
+    line, with ``extra``, the contract the engine took (paged, prefix
+    sharing, chunked prefill) and the peak device memory of the counted
+    run, and returns (tokens, launches, line)."""
+    engine_kw = engine_kw or {}
+    serve(torch, cfg, params, prompts, dev, max_new=2, cache=cache,
+          **engine_kw)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    run = drive(torch, epi, cfg, params, prompts, dev, cache=cache)
-    st = run.eng.stats
+    run = drive(torch, epi, cfg, params, prompts, dev, cache=cache,
+                **engine_kw)
+    st, eng = run.eng.stats, run.eng
     line = {"phase": name if cache == "paged" else f"{name}_slot",
             "card": card, "arch": cfg.name, "layers": cfg.n_layers,
             "cache": cache, "requests": len(run.toks),
+            "planes": cfg.n_codebooks, "engine_kw": engine_kw,
+            "paged": eng.paged, "prefix_enabled": eng.prefix_enabled,
+            "chunked": eng.chunked, "prefill_chunks": st.prefill_chunks,
             "prefill_batches": st.prefill_batches,
             "decode_steps": st.decode_steps, "launches": run.launches,
             "launches_per_forward": launches_per_forward(cfg),
             "glu_variants": run.variants,
-            "kernel_shapes": [[k, list(shape), dt, n] for (k, shape, dt, _,
-                                                          _), n in
-                              sorted(run.shapes.items())],
+            "kernel_shapes": [[k, list(shape), dt, act, n]
+                              for (k, shape, dt, act, _), n in
+                              sorted(run.shapes.items(), key=repr)],
             "prefill_tokens": st.prefill_tokens, "prefill_s": st.prefill_s,
             "insert_s": st.insert_s, "decode_tokens": st.decode_tokens,
             "decode_s": st.decode_s,
             "prefill_tokens_per_s": st.prefill_tokens_per_s,
             "decode_tokens_per_s": st.decode_tokens_per_s,
             "pages_peak": st.pages_peak,
+            "weights_read_floor_ms": weights_read_ms(eng.params),
             "max_memory_allocated_gb": torch.cuda.max_memory_allocated()
             / 1e9, **extra}
     emit(line)
     return run.toks, run.launches, line
+
+
+def weights_read_ms(params) -> float:
+    """The least time a decode step can take: every weight the engine
+    holds read once at HBM_BYTES_PER_S, but the embedding table (a step
+    reads only its rows)."""
+    def nbytes(tree):
+        if isinstance(tree, dict):
+            return sum(nbytes(v) for k, v in tree.items() if k != "embed")
+        return tree.numel() * tree.element_size()
+    return nbytes(params) / HBM_BYTES_PER_S * 1e3
 
 
 def latency(done_eng):
@@ -1507,11 +1564,14 @@ def launches_per_forward(cfg) -> dict:
     or an MoE layer's shared expert, is one glu_2d launch under
     ``fuse_mlp`` (any approximant engine) and else one engine activation.
     The routed experts' activation always goes through the engine: one
-    call per top-k slot under gshard, one under ragged. A ``*_fixed``
-    layer launches nothing."""
+    call per top-k slot under gshard, one under ragged. A Mamba branch
+    (falcon-mamba's every layer, hymba's beside attention) makes three
+    engine calls: silu of the conv, softplus of dt, silu of the gate z.
+    A ``*_fixed`` layer launches nothing."""
     from repro_torch.core.activations import scheme_of
     out = {"glu_2d": 0, "elementwise_2d": 0}
-    dense = cfg.n_experts == 0 or cfg.shared_expert
+    dense = cfg.has_ffn and (cfg.n_experts == 0 or cfg.shared_expert)
+    mamba = cfg.use_mamba or cfg.parallel_mamba
     for c in cfg.layer_activation_configs():
         kernelized = c.use_kernel and scheme_of(c.impl) is not None
         if dense and cfg.fuse_mlp:
@@ -1521,14 +1581,17 @@ def launches_per_forward(cfg) -> dict:
         if cfg.n_experts and kernelized:
             out["elementwise_2d"] += (cfg.top_k if cfg.moe_impl == "gshard"
                                       else 1)
+        if mamba and kernelized:
+            out["elementwise_2d"] += 3
     return out
 
 
 def arch_prompts(np, cfg):
     """PERF.md's schedule: 4 prompts of PROMPT_LENS tokens from seed 0
-    over the arch's vocabulary."""
+    over the arch's vocabulary ([n, K] for K codebook planes)."""
     rng = np.random.RandomState(0)
-    return [rng.randint(0, cfg.vocab_size, (n,)).astype(np.int32)
+    planes = (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()
+    return [rng.randint(0, cfg.vocab_size, (n,) + planes).astype(np.int32)
             for n in PROMPT_LENS]
 
 
@@ -1542,12 +1605,16 @@ def arch_config(registry, arch, depth):
 
 def arch_deployments(base):
     """(name, config) of each served deployment of an arch: cr_spline
-    fused (glu_2d on every dense FFN and shared expert) and kernelized
-    (elementwise_2d on every activation), and for MoE the kernelized
-    deployment under moe_impl="ragged" (the grouped GEMM path)."""
+    fused (glu_2d on every dense FFN and shared expert; only where there
+    is a gated FFN to fuse: not falcon-mamba, not musicgen) and
+    kernelized (elementwise_2d on every activation), and for MoE the
+    kernelized deployment under moe_impl="ragged" (the grouped GEMM
+    path)."""
     from repro_torch.configs.common import act_impl_of, fused_of
     kern = act_impl_of(base, "cr_spline", use_kernel=True)
-    deps = [("fused", fused_of(base)), ("kernelized", kern)]
+    fused = fused_of(base)
+    deps = ([("fused", fused)] if fused.fuse_mlp else []) \
+        + [("kernelized", kern)]
     if base.n_experts:
         deps.append(("ragged", dataclasses.replace(kern, moe_impl="ragged")))
     return deps
@@ -1574,15 +1641,27 @@ def phase_archs(torch, np, epi, registry, dev, card):
         weights = M.materialize_params(base, seed=0, device=dev)
         reduced = {} if depth is None else {"n_layers": [depth,
                                                          full.n_layers]}
+        stateful = base.use_mamba or base.parallel_mamba
         for dep, cfg in arch_deployments(base):
             params = with_act(torch, weights, cfg, dev)
             name = f"serve_{arch}_{dep}"
-            _, _, lines[name] = phase_serve(
+            # a Mamba stack asks for chunked prefill too: the engine must
+            # keep one-shot admission (and no prefix sharing), as the
+            # reference's does
+            _, _, line = phase_serve(
                 torch, epi, name, cfg, params, prompts, dev, card,
-                deployment=dep,
+                engine_kw={"chunk_prefill": CHUNK_PREFILL} if stateful
+                else None, deployment=dep,
                 moe_impl=cfg.moe_impl if cfg.n_experts else None,
                 reduced=reduced, full_layers=full.n_layers,
                 params_served=cfg.param_count())
+            lines[name] = line
+            assert line["paged"] == (cfg.has_attention
+                                     or cfg.parallel_mamba), line["paged"]
+            if stateful:
+                assert not (line["prefix_enabled"] or line["chunked"]
+                            or line["prefill_chunks"]), line
+                assert line["prefill_batches"] == len(set(PROMPT_LENS)), line
             del params
             gc.collect()
         del weights
@@ -1696,15 +1775,17 @@ class RoutingLog:
 
 
 def phase_arch_f32_vs_cpu(torch, np, epi, registry, dev, card):
-    """f32 prefill logits of each arch's fused deployment, and of the MoE
+    """f32 prefill logits of each arch's first served deployment (fused,
+    or kernelized where there is no gated FFN to fuse), and of the MoE
     archs' kernelized ragged one (the grouped GEMM at full width), batch
-    1 x ARCH_F32_TOKENS, on the card (kernels, each launched
-    launches_per_forward(cfg) times) and on the CPU (plain versions) from
-    the same weights: within 1e-4 relative (max |diff| over max |cpu|).
-    The dense archs at their served depth, the MoE archs at
-    ARCH_F32_LAYERS; their top-k expert ids identical on both devices (any
-    flip fails), with the smallest top-k margin printed."""
-    from repro_torch.configs.common import act_impl_of, fused_of
+    1 x ARCH_F32_TOKENS (x K planes for musicgen; qwen2-vl with patch
+    embeddings and t / h / w M-RoPE positions that differ), on the card
+    (kernels, each launched launches_per_forward(cfg) times) and on the
+    CPU (plain versions) from the same weights: within 1e-4 relative (max
+    |diff| over max |cpu|). At the served depth, or ARCH_F32_LAYERS; the
+    MoE archs' top-k expert ids identical on both devices (any flip
+    fails), with the smallest top-k margin printed."""
+    from repro_torch.configs.common import act_impl_of
     from repro_torch.launch import steps as TS
     from repro_torch.models import layers as L
     from repro_torch.models import model as M
@@ -1713,15 +1794,23 @@ def phase_arch_f32_vs_cpu(torch, np, epi, registry, dev, card):
         full, base = arch_config(registry, arch, ARCH_F32_LAYERS.get(
             arch, depth))
         base = dataclasses.replace(base, compute_dtype="float32")
-        deps = [("fused", fused_of(base))]
+        deps = arch_deployments(base)[:1]
         if base.n_experts:
             deps.append(("ragged", dataclasses.replace(
                 act_impl_of(base, "cr_spline", use_kernel=True),
                 moe_impl="ragged")))
         weights = M.materialize_params(base, seed=0, device=dev)
         weights_cpu = _tree_to(weights, "cpu")
-        toks = np.random.RandomState(5).randint(
-            0, base.vocab_size, (1, ARCH_F32_TOKENS)).astype(np.int32)
+        rng = np.random.RandomState(5)
+        planes = (base.n_codebooks,) if base.n_codebooks > 1 else ()
+        batch = {"tokens": rng.randint(0, base.vocab_size, (
+            1, ARCH_F32_TOKENS) + planes).astype(np.int32)}
+        if base.rope_kind == "mrope":
+            batch["mrope_positions"] = rng.randint(
+                0, ARCH_F32_TOKENS, (1, ARCH_F32_TOKENS, 3)).astype(np.int32)
+        if base.patch_embed_input:
+            batch["patch_embeds"] = (0.02 * rng.randn(
+                1, ARCH_F32_TOKENS, base.d_model)).astype(np.float32)
         for dep, cfg in deps:
             out, routes = {}, {}
             for where, tree in ((dev, weights), ("cpu", weights_cpu)):
@@ -1729,7 +1818,8 @@ def phase_arch_f32_vs_cpu(torch, np, epi, registry, dev, card):
                 n0 = dict(epi.LAUNCHES)
                 with RoutingLog(torch, L) as log:
                     logits, _ = M.prefill_fn(
-                        p, {"tokens": torch.as_tensor(toks, device=where)},
+                        p, {k: torch.as_tensor(v, device=where)
+                            for k, v in batch.items()},
                         cfg, TS.make_engine(cfg), capacity=ARCH_F32_TOKENS)
                     out[str(where)] = logits.float().cpu()
                 launched = {k: n - n0[k] for k, n in epi.LAUNCHES.items()}
@@ -1745,6 +1835,8 @@ def phase_arch_f32_vs_cpu(torch, np, epi, registry, dev, card):
                     "full_layers": full.n_layers,
                     "tokens": ARCH_F32_TOKENS,
                     "moe_impl": cfg.moe_impl if cfg.n_experts else None,
+                    "planes": cfg.n_codebooks,
+                    "batch": sorted(batch),
                     "max_abs_diff": float((a - b).abs().max()),
                     "max_abs_logit": float(b.abs().max()), "rel": rel,
                     "tolerance_rel": tol}

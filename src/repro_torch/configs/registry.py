@@ -2,28 +2,29 @@
 ``repro/configs/registry.py``).
 
 Each ``repro_torch/configs/<id>.py`` exposes ``full() -> ModelConfig`` and
-``smoke() -> ModelConfig``. Every assigned id of the reference is known
-here; an id whose family is not ported yet (mrope with patch embeddings,
-Mamba, the hybrid block, multi-codebook heads) raises until it is
-(ROADMAP.md, Queue A item 9).
+``smoke() -> ModelConfig``. The reference's ten assigned ids all
+resolve; an unknown id raises, as in the reference.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
 
-# the config modules this port serves
 ARCHS = [
     "yi_34b",
     "olmo_1b",
     "qwen3_0_6b",
     "qwen2_5_3b",
+    "hymba_1_5b",
     "mixtral_8x22b",
     "llama4_scout_17b_a16e",
+    "qwen2_vl_2b",
+    "falcon_mamba_7b",
+    "musicgen_large",
     "paper_tanh",        # the paper's own deployment context (extra)
 ]
 
-# assignment ids -> module names (the reference's ten)
+# assignment ids -> module names
 ALIASES = {
     "yi-34b": "yi_34b",
     "olmo-1b": "olmo_1b",
@@ -49,11 +50,6 @@ def register(name: str, full_cfg, smoke_cfg=None):
 
 def _module(name: str):
     mod_name = ALIASES.get(name, name.replace("-", "_").replace(".", "_"))
-    if mod_name not in ARCHS:
-        ported = sorted(k for k, v in ALIASES.items() if v in ARCHS)
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet (ported: {ported}; "
-            f"ROADMAP.md, Queue A item 9)")
     return importlib.import_module(f"repro_torch.configs.{mod_name}")
 
 
@@ -69,6 +65,5 @@ def get(name: str, smoke: bool = False, **overrides):
 
 
 def assigned_archs():
-    """The ten assigned architecture ids (assignment spelling), ported or
-    not."""
+    """The ten assigned architecture ids (assignment spelling)."""
     return list(ALIASES.keys())

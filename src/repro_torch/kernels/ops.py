@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 from repro_torch.core import approximant
@@ -71,8 +72,22 @@ def _resolve_spec_params(act: str, table: cr.SplineTable | None,
         return spec, approximant.params_on(spec, approximant.target_of(act),
                                            torch.device(device))
     p = windows if params is None else params
+    if isinstance(p, np.ndarray):
+        p = np.ascontiguousarray(p, np.float32)
+        return spec, _host_params_on(p.tobytes(), p.shape,
+                                     torch.device(device))
     return spec, torch.as_tensor(p, dtype=torch.float32,
                                  device=device).contiguous()
+
+
+@functools.lru_cache(maxsize=None)
+def _host_params_on(data: bytes, shape: tuple, device: torch.device):
+    """Host f32 params (a CR table's knot windows) on ``device``, copied
+    there once per distinct array, as ``approximant.params_on`` does: the
+    softplus epilogue reads its own table, never a bound leaf, in every
+    Mamba decode step."""
+    return torch.frombuffer(bytearray(data), dtype=torch.float32).reshape(
+        shape).to(device)
 
 
 def _recompute_grads(fn, inputs, needs, g):

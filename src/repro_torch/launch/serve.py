@@ -12,8 +12,10 @@ the prompts are drawn with numpy from ``--seed``; neither matches the
 reference's ``jax.random`` draws. The engine serves on the paged cache
 by default (``--cache slot`` for per-slot rings; ``--page-size``,
 ``--no-prefix-cache``, ``--chunk-prefill``, ``--token-budget`` shape the
-paged path). Flags of parts not yet ported (``--model-parallel``,
-``--replicas``, ``--autoscale``, ...) raise.
+paged path). Every assigned ``--arch`` serves; a multi-codebook arch
+(musicgen-large) takes [B, S, K] prompts and returns [B, gen, K] tokens.
+Flags of parts not yet ported (``--model-parallel``, ``--replicas``,
+``--autoscale``, ...) raise.
 """
 from __future__ import annotations
 
@@ -73,13 +75,15 @@ def serve_batch(cfg, params, prompts, gen_tokens: int, *,
                 cache: str = "paged", page_size: int = 16,
                 prefix_cache: bool = True, chunk_prefill: int = 0,
                 token_budget: int | None = None, device="cuda"):
-    """prompts: int [B, S]. Returns (tokens int32 [B, gen] on the CPU,
-    stats). Always a continuous-batching ServeEngine on ``device``
+    """prompts: int [B, S], or [B, S, K] for K codebooks. Returns (tokens
+    int32 [B, gen] or [B, gen, K] on the CPU, stats). Always a
+    continuous-batching ServeEngine on ``device``
     (``cache`` / ``page_size`` / ``prefix_cache`` pick its cache contract,
     ``chunk_prefill`` / ``token_budget`` its token-budget schedule). An
     explicit ``capacity`` overrides the default S + gen_tokens cache
     sizing (it must still fit every request). With ``eos_id``, rows that
-    emit it stop early and are right-padded with 0 to gen_tokens."""
+    emit it (on codebook 0 for K > 1) stop early and are right-padded
+    with 0 to gen_tokens."""
     prompts = np.asarray(prompts)
     B, S = prompts.shape[0], prompts.shape[1]
     max_len = S + gen_tokens
@@ -100,13 +104,16 @@ def serve_batch(cfg, params, prompts, gen_tokens: int, *,
         engine.submit(prompts[b], gen_tokens, temperature=temperature,
                       eos_id=eos_id)
     done = engine.run()
-    rows = np.zeros((B, gen_tokens), np.int32)             # 0-padded ragged
+    K = cfg.n_codebooks
+    rows = np.zeros((B, gen_tokens, K) if K > 1 else (B, gen_tokens),
+                    np.int32)                              # 0-padded ragged
     for c in done:
         rows[c.uid, :len(c.tokens)] = np.asarray(c.tokens, np.int32)
     st = engine.stats
     return torch.from_numpy(rows), ServeStats(
         st.prefill_s, st.decode_s, B, S, gen_tokens,
-        decode_steps=st.decode_steps, decode_tokens=st.decode_tokens)
+        decode_steps=st.decode_steps, decode_tokens=st.decode_tokens,
+        planes=K)
 
 
 # flag -> (default, ROADMAP item) of reference flags not ported yet
@@ -190,14 +197,17 @@ def main(argv=None):
     act_tag = cfg.activation.tag()
     if cfg.act_impl:
         act_tag += f" (act_impl={cfg.act_impl})"
-    print(f"[serve] arch={cfg.name} act={act_tag} device={args.device}")
+    print(f"[serve] arch={cfg.name} act={act_tag} "
+          f"codebooks={cfg.n_codebooks} device={args.device}")
 
     params = M.materialize_params(cfg, seed=args.seed, device=args.device)
     # serving precision: bf16 weights, as the reference's launcher casts
     params = _tree_cast(params, torch.bfloat16)
     rng = np.random.RandomState(args.seed)
+    planes = (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()
     prompts = rng.randint(0, min(cfg.vocab_size, 4096),
-                          (args.batch, args.prompt_len)).astype(np.int32)
+                          (args.batch, args.prompt_len) + planes
+                          ).astype(np.int32)
     tokens, stats = serve_batch(
         cfg, params, prompts, args.gen, temperature=args.temperature,
         seed=args.seed, slots=args.slots, chunk=args.chunk,

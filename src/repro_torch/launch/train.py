@@ -15,9 +15,10 @@ draws.
 The flags and defaults are the reference's, and ``--device`` (default
 cuda). The port trains on one device: ``--data-parallel`` (0 = every
 device: the one) and ``--model-parallel`` other than 1 raise (ROADMAP.md,
-Queue A item 12); an ``--arch`` whose family is not ported raises too
-(item 9). ``--act-layers`` takes one approximant tag per layer
-(``act_layers_of``).
+Queue A item 12). Every assigned ``--arch`` trains; the pipeline gives
+qwen2-vl its M-RoPE positions and patch embeddings and musicgen its
+[B, S, K] codebook planes. ``--act-layers`` takes one approximant tag per
+layer (``act_layers_of``).
 ``--activation cr_fixed`` (or ``pwl_fixed`` / ``poly_fixed`` /
 ``rational_fixed``, or ``--act-impl <scheme>_fixed``) trains through the
 bit-accurate integer datapath with its straight-through gradient

@@ -1,4 +1,5 @@
-"""Model building blocks: the dense block and MoE (counterpart of
+"""Model building blocks: RoPE and M-RoPE, the dense block, MoE, Mamba-1
+and the hybrid (parallel attention + Mamba) block (counterpart of
 ``repro/models/layers.py``).
 
 Plain functions on tensors over a nested-dict parameter tree with the
@@ -6,10 +7,9 @@ reference's key paths. Every nonlinearity routes through the configured
 ActivationEngine. Attention runs in plain torch with f32 scores: a
 flash-style online softmax over KV chunks inside a loop over Q chunks
 (the reference's doubly-chunked ``lax.scan``), so long prefills keep
-bounded temporaries. GQA head h is served by kv-head h // G.
-
-Not ported yet: mrope, Mamba and the hybrid block (ROADMAP.md, Queue A
-item 9). Each raises.
+bounded temporaries. GQA head h is served by kv-head h // G. Mamba's
+selective scan is a loop over the sequence with an f32 state carry (the
+reference's ``lax.scan``).
 """
 from __future__ import annotations
 
@@ -33,23 +33,6 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
     return _DTYPES[cfg.compute_dtype]
-
-
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise for the parts of the reference's block this slice lacks."""
-    missing = []
-    if cfg.use_mamba or cfg.parallel_mamba:
-        missing.append("Mamba")
-    if cfg.rope_kind == "mrope":
-        missing.append("mrope")
-    if cfg.n_codebooks > 1:
-        missing.append("multi-codebook heads")
-    if cfg.patch_embed_input:
-        missing.append("patch embeddings")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP.md, "
-            f"Queue A item 9)")
 
 
 # ---------------------------------------------------------------------------
@@ -113,10 +96,43 @@ def init_moe(gen, cfg: ModelConfig, device):
     return p
 
 
+def init_mamba(gen, cfg: ModelConfig, device):
+    """Mamba-1 parameters: S4D-real ``A_log`` (log 1..N on every channel)
+    and ``dt_proj_b`` the inverse softplus of a log-uniform step in
+    [1e-3, 1e-1], as the reference's."""
+    d, di, N, dtr, ck = (cfg.d_model, cfg.d_inner_, cfg.ssm_state,
+                         cfg.dt_rank_, cfg.conv_kernel)
+    A = torch.arange(1, N + 1, dtype=torch.float32,
+                     device=device)[None, :].repeat(di, 1)
+    lo, hi = math.log(1e-3), math.log(1e-1)
+    dt = torch.exp(torch.rand((di,), generator=gen, device=device)
+                   * (hi - lo) + lo)
+    return {
+        "in_proj": _init(gen, (d, 2 * di), device=device),
+        "conv_w": _init(gen, (ck, di), scale=1.0 / math.sqrt(ck),
+                        device=device),
+        "conv_b": torch.zeros((di,), device=device),
+        "x_proj": _init(gen, (di, dtr + 2 * N), device=device),
+        "dt_proj_w": _init(gen, (dtr, di), device=device),
+        "dt_proj_b": torch.log(torch.expm1(dt)),
+        "A_log": torch.log(A),
+        "D": torch.ones((di,), device=device),
+        "out_proj": _init(gen, (di, d), scale=1.0 / math.sqrt(di),
+                          device=device),
+    }
+
+
 def init_block(gen, cfg: ModelConfig, device):
-    check_ported(cfg)
-    p: dict[str, Any] = {"ln1": init_norm(cfg, device),
-                         "attn": init_attention(gen, cfg, device)}
+    p: dict[str, Any] = {"ln1": init_norm(cfg, device)}
+    if cfg.use_mamba:
+        p["mamba"] = init_mamba(gen, cfg, device)
+    elif cfg.parallel_mamba:
+        p["attn"] = init_attention(gen, cfg, device)
+        p["mamba"] = init_mamba(gen, cfg, device)
+        p["ln_attn_out"] = init_norm(cfg, device)
+        p["ln_mamba_out"] = init_norm(cfg, device)
+    else:
+        p["attn"] = init_attention(gen, cfg, device)
     if cfg.has_ffn:
         p["ln2"] = init_norm(cfg, device)
         p["ffn"] = (init_moe(gen, cfg, device) if cfg.n_experts > 0
@@ -148,7 +164,7 @@ def rms_head_norm(scale, x, eps: float = 1e-6):
 
 
 # ---------------------------------------------------------------------------
-# RoPE (rotate halves)
+# RoPE (rotate halves) and M-RoPE
 # ---------------------------------------------------------------------------
 
 def _inv_freqs(hd: int, theta: float) -> np.ndarray:
@@ -168,16 +184,29 @@ def _inv_freqs_on(hd: int, theta: float, device: torch.device):
                            device=device)
 
 
+@functools.lru_cache(maxsize=None)
+def _mrope_sections_on(sections: tuple, device: torch.device):
+    """M-RoPE section of each of the hd/2 frequencies (0 = t, 1 = h,
+    2 = w: ``sections[i]`` consecutive frequencies each) on ``device``,
+    copied there once (see ``_inv_freqs_on``)."""
+    sec = np.concatenate([np.full((n,), i) for i, n in enumerate(sections)])
+    return torch.as_tensor(sec, dtype=torch.int64, device=device)
+
+
 def apply_rope(x, positions, cfg: ModelConfig):
-    """x: [..., S, H, hd]; positions: [B_or_1, S]. Rotation in f32."""
+    """x: [..., S, H, hd]; positions: [B_or_1, S] (RoPE) or [B_or_1, S, 3]
+    (M-RoPE, qwen2-vl: frequency f rotates by the t / h / w position of
+    its section). Rotation in f32."""
     if cfg.rope_kind == "none":
         return x
-    if cfg.rope_kind == "mrope":
-        raise NotImplementedError("mrope is not ported yet (ROADMAP.md, "
-                                  "Queue A item 9)")
     hd = cfg.head_dim_
     inv = _inv_freqs_on(hd, cfg.rope_theta, x.device)           # [hd/2]
-    angles = positions.to(torch.float32)[..., None] * inv       # [B, S, hd/2]
+    if cfg.rope_kind == "mrope":
+        sec = _mrope_sections_on(tuple(cfg.mrope_sections), x.device)
+        pos = positions.to(torch.float32)[..., sec]             # [B, S, hd/2]
+        angles = pos * inv
+    else:
+        angles = positions.to(torch.float32)[..., None] * inv   # [B, S, hd/2]
     cos = torch.cos(angles)[..., None, :]                       # [B, S, 1, hd/2]
     sin = torch.sin(angles)[..., None, :]
     xf = x.to(torch.float32)
@@ -498,13 +527,77 @@ def apply_moe_ragged(params, x, cfg: ModelConfig, engine: ActivationEngine):
 
 
 # ---------------------------------------------------------------------------
-# transformer block 
+# Mamba-1 (selective SSM): falcon-mamba, and hymba's parallel branch
+# ---------------------------------------------------------------------------
+
+def _mamba_inner(params, xz, conv_state, ssm_state, cfg: ModelConfig,
+                 engine: ActivationEngine):
+    """The Mamba core over a sequence chunk. xz: [B, S, 2*di]; conv_state:
+    [B, ck-1, di] (compute dtype); ssm_state: [B, di, N] (f32). Returns
+    (y [B, S, di], new conv_state, new ssm_state).
+
+    The depthwise causal conv runs over [conv_state; x] with its ck terms
+    added in the reference's order. The selective scan is a loop over S
+    with the f32 carry h [B, di, N]: each step forms its own
+    dA = exp(dt * A) and dt * x * B, so nothing of size [B, S, di, N]
+    exists at once."""
+    di, N, dtr, ck = cfg.d_inner_, cfg.ssm_state, cfg.dt_rank_, cfg.conv_kernel
+    S = xz.shape[1]
+    f32 = torch.float32
+    xin, z = xz[..., :di], xz[..., di:]
+    xpad = torch.cat([conv_state.to(xin.dtype), xin], dim=1)  # [B, S+ck-1, di]
+    conv_w = params["conv_w"].to(xin.dtype)                   # [ck, di]
+    xc = sum(xpad[:, i:i + S] * conv_w[i] for i in range(ck))
+    xc = xc + params["conv_b"].to(xin.dtype)
+    new_conv_state = xpad[:, S:] if ck > 1 else conv_state
+    xc = engine.silu(xc)
+
+    # input-dependent SSM parameters
+    proj = xc @ params["x_proj"].to(xc.dtype)
+    dt_in, Bc, Cc = proj[..., :dtr], proj[..., dtr:dtr + N], proj[..., dtr + N:]
+    dt = dt_in @ params["dt_proj_w"].to(xc.dtype)
+    dt = engine.softplus(dt.to(f32) + params["dt_proj_b"])   # [B, S, di]
+    A = -torch.exp(params["A_log"])                          # [di, N]
+    dtx = dt * xc.to(f32)
+    Bf, Cf = Bc.to(f32), Cc.to(f32)
+    h = ssm_state.to(f32)
+    ys = []
+    for t in range(S):
+        dA = torch.exp(dt[:, t, :, None] * A)                 # [B, di, N]
+        h = dA * h + dtx[:, t, :, None] * Bf[:, t, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", h, Cf[:, t]))
+    y = torch.stack(ys, dim=1)                               # [B, S, di]
+    y = y + xc.to(f32) * params["D"]
+    y = y * engine.silu(z.to(f32))
+    return y.to(xz.dtype), new_conv_state, h
+
+
+def apply_mamba(params, x, cfg: ModelConfig, engine, conv_state=None,
+                ssm_state=None):
+    """Full-sequence Mamba block from the carried state (zeros when none).
+    Returns (out [B, S, d], conv_state, ssm_state)."""
+    cdt = dtype_of(cfg)
+    B = x.shape[0]
+    di, ck, N = cfg.d_inner_, cfg.conv_kernel, cfg.ssm_state
+    if conv_state is None:
+        conv_state = torch.zeros((B, ck - 1, di), dtype=cdt, device=x.device)
+    if ssm_state is None:
+        ssm_state = torch.zeros((B, di, N), dtype=torch.float32,
+                                device=x.device)
+    xz = x @ params["in_proj"].to(cdt)
+    y, conv_state, ssm_state = _mamba_inner(params, xz, conv_state,
+                                            ssm_state, cfg, engine)
+    return y @ params["out_proj"].to(cdt), conv_state, ssm_state
+
+
+# ---------------------------------------------------------------------------
+# transformer block (dense / moe / mamba / hymba-parallel)
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass
 class BlockIO:
     """What a block consumes/produces besides the hidden state."""
-    positions: Any = None        # [B?, S]
+    positions: Any = None        # [B?, S] or [B, S, 3] (mrope)
     q_pos: Any = None            # [S] (train/prefill) or [B] (decode,
                                  # per-slot) absolute query positions
     k_pos: Any = None            # [S] (train/prefill) or [B, W] (decode,
@@ -568,14 +661,36 @@ def _attn_branch(p, xn, io: BlockIO, cfg: ModelConfig, engine):
     return attention_out(p, ctx, cfg), new_cache
 
 
+def _mamba_branch(p, xn, io: BlockIO, cfg: ModelConfig, engine):
+    """Mamba from the layer's carried state (decode, and a prefill handed
+    one); in decode and prefill also the new state as cache entries."""
+    cs = io.cache.get("conv") if io.cache else None
+    ss = io.cache.get("ssm") if io.cache else None
+    out, cs, ss = apply_mamba(p, xn, cfg, engine, cs, ss)
+    return out, ({"conv": cs, "ssm": ss}
+                 if io.mode in ("decode", "prefill") else {})
+
+
 def apply_block(p, x, io: BlockIO, cfg: ModelConfig, engine):
     """Returns (x_out, new_cache_dict, aux_loss_increment)."""
-    check_ported(cfg)
     new_cache: dict[str, Any] = {}
     xn = apply_norm(p["ln1"], x, cfg)
-    attn_out, ac = _attn_branch(p["attn"], xn, io, cfg, engine)
-    new_cache.update(ac)
-    x = x + attn_out
+    if cfg.use_mamba:
+        out, mc = _mamba_branch(p["mamba"], xn, io, cfg, engine)
+        new_cache.update(mc)
+        x = x + out
+    elif cfg.parallel_mamba:
+        attn_out, ac = _attn_branch(p["attn"], xn, io, cfg, engine)
+        mamba_out, mc = _mamba_branch(p["mamba"], xn, io, cfg, engine)
+        new_cache.update(ac)
+        new_cache.update(mc)
+        # hymba: the mean of the per-branch normalized outputs
+        x = x + 0.5 * (apply_norm(p["ln_attn_out"], attn_out, cfg)
+                       + apply_norm(p["ln_mamba_out"], mamba_out, cfg))
+    else:
+        attn_out, ac = _attn_branch(p["attn"], xn, io, cfg, engine)
+        new_cache.update(ac)
+        x = x + attn_out
     aux = 0.0
     if cfg.has_ffn:
         xn2 = apply_norm(p["ln2"], x, cfg)

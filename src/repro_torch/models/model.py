@@ -12,14 +12,18 @@ run layer i under its own engine (``engine_of_layer``: a per-layer
 
 Slot cache contract: ``{"layers": {"k", "v": [L, B, W, KV, hd]}, "cur":
 [B] or scalar, "k_pos": [B, W] or [W]}``. Ring slot of absolute position
-p is p % W; k_pos = -1 marks an empty or padded slot.
+p is p % W; k_pos = -1 marks an empty or padded slot. A Mamba stack adds
+``layers.conv`` [L, B, ck-1, di] (compute dtype) and ``layers.ssm``
+[L, B, di, N] (f32); a pure-SSM stack (falcon-mamba) has no k/v and no
+``k_pos``.
 
 Paged cache contract (the serve engine's default): ``layers.k/v`` are
 one shared page pool [L, P, page_size, KV, hd] and ``page_tbl`` [B, n]
 maps each slot's logical ring pages to pool pages; ``k_pos`` is
 [B, n * page_size]. Logical ring slot j of row b lives at page
 ``page_tbl[b, j // page_size]``, offset ``j % page_size``. Physical page
-0 is the trash page: dead and unallocated logical pages map there.
+0 is the trash page: dead and unallocated logical pages map there. The
+hybrid block's ``conv`` / ``ssm`` stay per slot beside the pool.
 
 Decode, chunked prefill and the engine's inserts write the cache in
 place.
@@ -36,15 +40,18 @@ from repro_torch.core.activations import (ActivationEngine, engine_of_layer,
                                           init_act_params)
 
 from .config import ModelConfig
-from .layers import (BlockIO, apply_block, apply_norm, check_ported, dtype_of,
-                     init_block, init_norm)
+from .layers import (BlockIO, apply_block, apply_norm, dtype_of, init_block,
+                     init_norm)
 
 # leaves the reference casts to the compute dtype at every use
 # (layers.py `.astype(cdt)`): attention / FFN matrices (the MoE expert
-# stacks and shared expert too), biases, embedding. The MoE router is
-# not one of them: it routes in f32.
+# stacks and shared expert too), biases, embedding, and Mamba's
+# projections and conv. Not the MoE router (it routes in f32), nor
+# Mamba's A_log, D and dt_proj_b (used in f32).
 _COMPUTE_LEAVES = frozenset({"wq", "wk", "wv", "wo", "bq", "bk", "bv",
-                             "w_gate", "w_up", "w_down", "embed"})
+                             "w_gate", "w_up", "w_down", "embed",
+                             "in_proj", "conv_w", "conv_b", "x_proj",
+                             "dt_proj_w", "out_proj"})
 
 
 # ---------------------------------------------------------------------------
@@ -53,13 +60,16 @@ _COMPUTE_LEAVES = frozenset({"wq", "wk", "wv", "wo", "bq", "bk", "bv",
 
 def init_lm(gen: torch.Generator, cfg: ModelConfig, device):
     """Random parameters with the reference's initializer scales and key
-    paths (blocks stacked on a leading layer axis)."""
-    check_ported(cfg)
-    V, d = cfg.padded_vocab, cfg.d_model
+    paths (blocks stacked on a leading layer axis). A multi-codebook
+    model (K = n_codebooks > 1) has one embedding and one head per
+    codebook: [K, V, d] and [K, d, V]."""
+    V, d, K = cfg.padded_vocab, cfg.d_model, cfg.n_codebooks
+    lead = (K,) if K > 1 else ()
     params: dict[str, Any] = {
-        "embed": torch.randn((V, d), generator=gen, device=device) * 0.02,
+        "embed": torch.randn(lead + (V, d), generator=gen, device=device)
+        * 0.02,
         "ln_f": init_norm(cfg, device),
-        "lm_head": torch.randn((d, V), generator=gen, device=device)
+        "lm_head": torch.randn(lead + (d, V), generator=gen, device=device)
         * (1.0 / np.sqrt(d)),
     }
     layers = [init_block(gen, cfg, device) for _ in range(cfg.n_layers)]
@@ -99,7 +109,6 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cuda"):
     """The reference package's parameter tree (as numpy leaves, layer-
     stacked, e.g. ``jax.tree.map(np.asarray, params)``) -> this port's
     parameters. Both packages then compute the same function."""
-    check_ported(cfg)
 
     def conv(t):
         if isinstance(t, dict):
@@ -110,10 +119,23 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cuda"):
     missing = {"embed", "ln_f", "lm_head", "blocks"} - set(out)
     if missing:
         raise ValueError(f"parameter tree lacks {sorted(missing)}")
-    if out["blocks"]["attn"]["wq"].shape[0] != cfg.n_layers:
-        raise ValueError(f"tree has {out['blocks']['attn']['wq'].shape[0]} "
-                         f"layers, {cfg.name} has {cfg.n_layers}")
+    n = _first_leaf(out["blocks"]).shape[0]      # every leaf is layer-stacked
+    if n != cfg.n_layers:
+        raise ValueError(f"tree has {n} layers, {cfg.name} has "
+                         f"{cfg.n_layers}")
     return out
+
+
+def _first_leaf(tree):
+    """The first tensor of a nested dict (None when it holds none: a
+    non-parametric norm's ``{}``)."""
+    if not isinstance(tree, dict):
+        return tree
+    for v in tree.values():
+        leaf = _first_leaf(v)
+        if leaf is not None:
+            return leaf
+    return None
 
 
 def compute_params(params, cfg: ModelConfig):
@@ -179,13 +201,31 @@ class _EmbedRows(torch.autograd.Function):
         return grad, None
 
 
-def embed_tokens(params, tokens, cfg: ModelConfig):
-    return _EmbedRows.apply(params["embed"].to(dtype_of(cfg)), tokens.long())
+def embed_tokens(params, tokens, cfg: ModelConfig, patch_embeds=None):
+    """Token embeddings in the compute dtype: tokens [B, S], or [B, S, K]
+    for K codebooks (the K planes' embeddings summed, plane 0 first); a
+    patch-embedding arch adds ``patch_embeds`` [B, S, d] when given."""
+    cdt = dtype_of(cfg)
+    emb = params["embed"].to(cdt)
+    tokens = tokens.long()
+    if cfg.n_codebooks > 1:
+        x = sum(_EmbedRows.apply(emb[k], tokens[..., k])
+                for k in range(cfg.n_codebooks))
+    else:
+        x = _EmbedRows.apply(emb, tokens)
+    if cfg.patch_embed_input and patch_embeds is not None:
+        x = x + patch_embeds.to(cdt)
+    return x
 
 
 def lm_logits(params, h, cfg: ModelConfig):
-    """f32 head (a full f32 GEMM: TF32 stays off)."""
-    return h.to(torch.float32) @ params["lm_head"].to(torch.float32)
+    """f32 head (a full f32 GEMM: TF32 stays off); K codebooks give
+    [B, S, K, V]."""
+    head = params["lm_head"].to(torch.float32)
+    hf = h.to(torch.float32)
+    if cfg.n_codebooks > 1:
+        return torch.einsum("bsd,kdv->bskv", hf, head)
+    return hf @ head
 
 
 # ---------------------------------------------------------------------------
@@ -199,8 +239,16 @@ def _bind_engine(engine, params):
     return engine.bind(act) if act else engine
 
 
-def _positions_for(cfg: ModelConfig, S: int, device, offset=0):
-    return torch.arange(S, dtype=torch.int32, device=device)[None, :] + offset
+def _positions_for(cfg: ModelConfig, S: int, device, offset=0, batch=None):
+    """RoPE positions [1, S] from ``offset``; under M-RoPE the batch's
+    ``mrope_positions`` [B, S, 3] when it has them, else the text
+    positions on all three sections."""
+    if cfg.rope_kind == "mrope" and batch and "mrope_positions" in batch:
+        return batch["mrope_positions"]
+    pos = torch.arange(S, dtype=torch.int32, device=device)[None, :] + offset
+    if cfg.rope_kind == "mrope":
+        return pos[..., None].expand(pos.shape + (3,))
+    return pos
 
 
 # aten matmuls whose outputs remat="dots" keeps (the counterpart of
@@ -233,13 +281,15 @@ def _remat_block(block_fn, remat: str):
     raise ValueError(f"unknown remat {remat!r} (none | block | dots)")
 
 
-def run_stack_train(params, x, cfg: ModelConfig, engine, remat: str = "block"):
+def run_stack_train(params, x, cfg: ModelConfig, engine, remat: str = "block",
+                    batch=None):
     """Full-sequence stack under a remat policy (``_remat_block``). Returns
     (x, the MoE aux loss summed over layers and divided by n_layers: a 0-d
-    f32 zero for dense blocks)."""
+    f32 zero for dense blocks). ``batch`` may carry ``mrope_positions``."""
     S = x.shape[1]
     ar = torch.arange(S, dtype=torch.int32, device=x.device)
-    io = BlockIO(mode="train", positions=_positions_for(cfg, S, x.device),
+    io = BlockIO(mode="train",
+                 positions=_positions_for(cfg, S, x.device, batch=batch),
                  q_pos=ar, k_pos=ar)
 
     def block_fn(x, layer_params, eng):
@@ -255,32 +305,45 @@ def run_stack_train(params, x, cfg: ModelConfig, engine, remat: str = "block"):
     return x, aux / cfg.n_layers
 
 
+def _has_kv(cfg: ModelConfig) -> bool:
+    """Whether the stack keeps a KV ring (and with it ``k_pos``)."""
+    return cfg.has_attention or cfg.parallel_mamba
+
+
 def run_stack_prefill(params, x, cfg: ModelConfig, engine, capacity: int,
-                      lengths=None):
+                      lengths=None, batch=None):
     """Returns (x, stacked cache). With ``lengths`` (int [B]) the prefill
     is ragged: row b's prompt occupies positions [0, lengths[b]) of the
     right-padded block, the cache is per-slot and pad positions are
-    excluded from it (k_pos = -1)."""
+    excluded from it (k_pos = -1). Pad tokens never reach a real row's
+    k/v, but they do run through its Mamba state: a stateful arch
+    prefills ragged only at lengths == S (the engine's exact buckets)."""
     S = x.shape[1]
     ar = torch.arange(S, dtype=torch.int32, device=x.device)
-    io = BlockIO(mode="prefill", positions=_positions_for(cfg, S, x.device),
+    io = BlockIO(mode="prefill",
+                 positions=_positions_for(cfg, S, x.device, batch=batch),
                  q_pos=ar, k_pos=ar)
-    ks, vs = [], []
+    caches: dict[str, list] = {}
     for i in range(cfg.n_layers):
         x, cache, _ = apply_block(_layer(params["blocks"], i), x, io, cfg,
                                   engine_of_layer(engine, i))
-        for out, name in ((ks, "k"), (vs, "v")):
-            kv = cache[name]
-            out.append(_prefill_kv_to_cache(kv, capacity, S)
+        for name, val in cache.items():
+            if name in ("k", "v"):
+                val = (_prefill_kv_to_cache(val, capacity, S)
                        if lengths is None
-                       else _prefill_kv_to_cache_ragged(kv, capacity, lengths))
-    layers = {"k": torch.stack(ks), "v": torch.stack(vs)}
+                       else _prefill_kv_to_cache_ragged(val, capacity,
+                                                        lengths))
+            caches.setdefault(name, []).append(val)
+    out = {"layers": {name: torch.stack(v) for name, v in caches.items()}}
     if lengths is None:
-        return x, {"layers": layers,
-                   "cur": torch.tensor(S, dtype=torch.int32, device=x.device),
-                   "k_pos": _prefill_slot_positions(capacity, S, x.device)}
-    return x, {"layers": layers, "cur": lengths.to(torch.int32),
-               "k_pos": _prefill_slot_positions_ragged(capacity, lengths)}
+        out["cur"] = torch.tensor(S, dtype=torch.int32, device=x.device)
+        if _has_kv(cfg):
+            out["k_pos"] = _prefill_slot_positions(capacity, S, x.device)
+    else:
+        out["cur"] = lengths.to(torch.int32)
+        if _has_kv(cfg):
+            out["k_pos"] = _prefill_slot_positions_ragged(capacity, lengths)
+    return x, out
 
 
 def _prefill_kv_to_cache(kv, capacity: int, S: int):
@@ -330,7 +393,7 @@ def _prefill_slot_positions_ragged(capacity: int, lengths):
 
 def run_stack_prefill_prefix(params, x, cfg: ModelConfig, engine,
                              prefix_kv, prefix_len: int, capacity: int,
-                             page_size: int, lengths):
+                             page_size: int, lengths, batch=None):
     """Ragged prefill of prompt *suffixes* against an already-cached,
     page-aligned shared prefix (prefix caching).
 
@@ -347,7 +410,8 @@ def run_stack_prefill_prefix(params, x, cfg: ModelConfig, engine,
     dev = x.device
     ar = torch.arange(S, dtype=torch.int32, device=dev)
     io = BlockIO(mode="prefill",
-                 positions=_positions_for(cfg, S, dev, offset=prefix_len),
+                 positions=_positions_for(cfg, S, dev, offset=prefix_len,
+                                          batch=batch),
                  q_pos=prefix_len + ar,
                  k_pos=torch.arange(prefix_len + S, dtype=torch.int32,
                                     device=dev))
@@ -370,7 +434,7 @@ def run_stack_prefill_prefix(params, x, cfg: ModelConfig, engine,
 
 def run_stack_prefill_chunk(params, x, cfg: ModelConfig, engine, pool_kv,
                             tbl_row, k_pos_row, pos: int, clen: int,
-                            page_size: int):
+                            page_size: int, batch=None):
     """Resume a ragged prefill at prompt offset ``pos`` for ONE paged slot
     (chunked admission: serve/engine.py interleaves these chunks with
     decode chunks under a token budget).
@@ -400,7 +464,8 @@ def run_stack_prefill_chunk(params, x, cfg: ModelConfig, engine, pool_kv,
     own_pos = pos + i
     real = i < clen
     io = BlockIO(mode="prefill",
-                 positions=_positions_for(cfg, S, dev, offset=pos),
+                 positions=_positions_for(cfg, S, dev, offset=pos,
+                                          batch=batch),
                  q_pos=own_pos,
                  k_pos=torch.cat([k_pos_row, torch.where(real, own_pos, -1)]))
     ring_slot = torch.remainder(own_pos, W).to(torch.int64)
@@ -421,8 +486,7 @@ def run_stack_prefill_chunk(params, x, cfg: ModelConfig, engine, pool_kv,
     return x, new_row
 
 
-def run_stack_decode(params, x, cfg: ModelConfig, engine, cache,
-                     write_mask=None):
+def run_stack_decode(params, x, cfg: ModelConfig, engine, cache, batch=None):
     """One-token step. x: [B,1,d]. Returns (x, new_cache).
 
     ``cur`` is either a scalar (lockstep batch) or int [B] (per-slot);
@@ -433,21 +497,27 @@ def run_stack_decode(params, x, cfg: ModelConfig, engine, cache,
     slot ``cur % W`` lives at page ``page_tbl[b, slot // ps]``, offset
     ``slot % ps``; decode scatters one token through the table and
     gathers the row's W keys back out, all on the device. With
-    ``write_mask`` [B] bool (paged only), masked rows keep their cache
-    bit for bit: their k/v writes land on the trash page, their k_pos row
-    is untouched and their ``cur`` does not advance. The chunked-prefill
+    ``batch["write_mask"]`` [B] bool (paged only), masked rows keep their
+    cache bit for bit: their k/v writes land on the trash page, their
+    k_pos row is untouched and their ``cur`` does not advance. The chunked-prefill
     engine decodes while some slots are mid-prefill; without the mask
     every decode step would scribble ring slots their chunks have yet to
-    fill."""
+    fill.
+
+    A Mamba layer's ``conv`` / ``ssm`` state advances in place for every
+    row, masked or not, as in the reference (a masked row is dead or not
+    yet admitted; its next insert overwrites the state). Under M-RoPE
+    the text positions advance all three sections per slot, unless
+    ``batch`` carries ``mrope_positions``."""
     B = x.shape[0]
     cur = cache["cur"]
     per_slot = cur.dim() > 0
     cur_b = cur if per_slot else cur.expand(B)                     # [B]
-    k_pos_vec = cache["k_pos"]
-    W = k_pos_vec.shape[-1]
+    k_pos_vec = cache.get("k_pos")
+    W = k_pos_vec.shape[-1] if k_pos_vec is not None else 1
     slot = torch.remainder(cur_b, W).to(torch.int64)
     tbl = cache.get("page_tbl")
-    wm = write_mask if tbl is not None else None
+    wm = batch.get("write_mask") if (tbl is not None and batch) else None
     lcache_extra = {"slot": slot}
     if tbl is not None:
         ps = cache["layers"]["k"].shape[2]                 # [L,P,ps,KV,hd]
@@ -456,23 +526,36 @@ def run_stack_decode(params, x, cfg: ModelConfig, engine, cache,
         if wm is not None:
             page = torch.where(wm, page, 0)
         lcache_extra = {"page": page, "off": slot % ps, "page_tbl": tbl64}
-    positions = cur_b[:, None].to(torch.int32)                     # [B, 1]
-    kp = k_pos_vec if k_pos_vec.dim() == 2 else k_pos_vec[None, :].expand(B, W)
-    upd = torch.arange(W, device=x.device)[None, :] == slot[:, None]
-    if wm is not None:
-        upd = upd & wm[:, None]
-    k_pos_new = torch.where(upd, cur_b[:, None].to(kp.dtype), kp)  # [B, W]
+    if cfg.rope_kind == "mrope" and batch and "mrope_positions" in batch:
+        positions = batch["mrope_positions"]
+    else:
+        positions = cur_b[:, None].to(torch.int32)                 # [B, 1]
+        if cfg.rope_kind == "mrope":
+            positions = positions[..., None].expand(B, 1, 3)
+    k_pos_new = None
+    if k_pos_vec is not None:
+        kp = k_pos_vec if k_pos_vec.dim() == 2 \
+            else k_pos_vec[None, :].expand(B, W)
+        upd = torch.arange(W, device=x.device)[None, :] == slot[:, None]
+        if wm is not None:
+            upd = upd & wm[:, None]
+        k_pos_new = torch.where(upd, cur_b[:, None].to(kp.dtype), kp)
     layers = cache["layers"]
     for i in range(cfg.n_layers):
-        lcache = {"k": layers["k"][i], "v": layers["v"][i], **lcache_extra}
+        lcache = {name: t[i] for name, t in layers.items()}
+        lcache.update(lcache_extra)
         io = BlockIO(mode="decode", positions=positions, q_pos=cur_b,
                      k_pos=k_pos_new, cache=lcache)
-        x, _, _ = apply_block(_layer(params["blocks"], i), x, io, cfg,
-                              engine_of_layer(engine, i))
+        x, out, _ = apply_block(_layer(params["blocks"], i), x, io, cfg,
+                                engine_of_layer(engine, i))
+        for name in ("conv", "ssm"):
+            if name in out:
+                layers[name][i].copy_(out[name])
     adv = 1 if wm is None else wm.to(cur.dtype)
-    new_cache = {"layers": layers, "cur": cur + adv,
-                 "k_pos": k_pos_new if (per_slot or k_pos_vec.dim() == 2)
-                 else k_pos_new[0]}
+    new_cache = {"layers": layers, "cur": cur + adv}
+    if k_pos_new is not None:
+        new_cache["k_pos"] = (k_pos_new if (per_slot or k_pos_vec.dim() == 2)
+                              else k_pos_new[0])
     if tbl is not None:
         new_cache["page_tbl"] = tbl
     return x, new_cache
@@ -488,24 +571,37 @@ def cache_capacity(cfg: ModelConfig, seq_len: int) -> int:
     return seq_len
 
 
+def _ssm_layers(cfg: ModelConfig, rows: int, device) -> dict:
+    """Zero Mamba state of ``rows`` slots (none for attention-only
+    stacks): conv [L, rows, ck-1, di] in the compute dtype, ssm
+    [L, rows, di, N] in f32."""
+    if not (cfg.use_mamba or cfg.parallel_mamba):
+        return {}
+    L, di = cfg.n_layers, cfg.d_inner_
+    return {"conv": torch.zeros((L, rows, cfg.conv_kernel - 1, di),
+                                dtype=dtype_of(cfg), device=device),
+            "ssm": torch.zeros((L, rows, di, cfg.ssm_state),
+                               dtype=torch.float32, device=device)}
+
+
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                per_slot: bool = False, device="cuda"):
     """Zero-filled cache (serving from scratch). Per-slot caches start
-    fully invalid: cur = 0, every k_pos = -1 (masked)."""
-    check_ported(cfg)
+    fully invalid: cur = 0, every k_pos = -1 (masked). A pure-SSM stack's
+    cache is its Mamba state and ``cur`` alone."""
     L, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim_
     W = cache_capacity(cfg, seq_len)
-    cdt = dtype_of(cfg)
-    layers = {name: torch.zeros((L, batch, W, KV, hd), dtype=cdt,
-                                device=device) for name in ("k", "v")}
-    if per_slot:
-        return {"layers": layers,
-                "cur": torch.zeros((batch,), dtype=torch.int32, device=device),
-                "k_pos": torch.full((batch, W), -1, dtype=torch.int32,
-                                    device=device)}
-    return {"layers": layers,
-            "cur": torch.zeros((), dtype=torch.int32, device=device),
-            "k_pos": torch.full((W,), -1, dtype=torch.int32, device=device)}
+    layers = _ssm_layers(cfg, batch, device)
+    lead = (batch,) if per_slot else ()
+    cache = {"layers": layers,
+             "cur": torch.zeros(lead, dtype=torch.int32, device=device)}
+    if _has_kv(cfg):
+        for name in ("k", "v"):
+            layers[name] = torch.zeros((L, batch, W, KV, hd),
+                                       dtype=dtype_of(cfg), device=device)
+        cache["k_pos"] = torch.full(lead + (W,), -1, dtype=torch.int32,
+                                    device=device)
+    return cache
 
 
 def pages_per_slot(cfg: ModelConfig, seq_len: int, page_size: int) -> int:
@@ -521,13 +617,19 @@ def init_paged_cache(cfg: ModelConfig, slots: int, n_pages: int,
     """Zero page pool k/v [L, n_pages, page_size, KV, hd]; every page
     table entry [slots, pages_per_slot] points at the trash page
     (physical page 0), every k_pos [slots, pages_per_slot * page_size] is
-    -1 (masked) and every ``cur`` is 0."""
-    check_ported(cfg)
+    -1 (masked) and every ``cur`` is 0. A hybrid stack keeps its Mamba
+    state per slot beside the pool; a pure-SSM stack has nothing to page
+    and raises."""
+    if not _has_kv(cfg):
+        raise ValueError(f"{cfg.name}: paged cache requires a KV ring "
+                         "(pure-SSM stacks have nothing to page)")
     L, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim_
     n_slot = pages_per_slot(cfg, seq_len, page_size)
     cdt = dtype_of(cfg)
-    layers = {name: torch.zeros((L, n_pages, page_size, KV, hd), dtype=cdt,
-                                device=device) for name in ("k", "v")}
+    layers = _ssm_layers(cfg, slots, device)
+    for name in ("k", "v"):
+        layers[name] = torch.zeros((L, n_pages, page_size, KV, hd),
+                                   dtype=cdt, device=device)
     return {"layers": layers,
             "cur": torch.zeros((slots,), dtype=torch.int32, device=device),
             "k_pos": torch.full((slots, n_slot * page_size), -1,
@@ -546,8 +648,8 @@ def loss_fn(params, batch, cfg: ModelConfig, engine: ActivationEngine,
     nll + aux + z_loss * mean(lse^2), with the f32 head. Returns (total,
     {"nll", "aux"}), 0-d f32 tensors."""
     engine = _bind_engine(engine, params)
-    x = embed_tokens(params, batch["tokens"], cfg)
-    x, aux = run_stack_train(params, x, cfg, engine, remat)
+    x = embed_tokens(params, batch["tokens"], cfg, batch.get("patch_embeds"))
+    x, aux = run_stack_train(params, x, cfg, engine, remat, batch=batch)
     x = apply_norm(params["ln_f"], x, cfg)
     logits = lm_logits(params, x, cfg)                     # f32
     lse = torch.logsumexp(logits, dim=-1)
@@ -560,8 +662,8 @@ def loss_fn(params, batch, cfg: ModelConfig, engine: ActivationEngine,
 def forward_fn(params, batch, cfg: ModelConfig, engine: ActivationEngine):
     """Full-sequence logits, no cache (tests / evaluation)."""
     engine = _bind_engine(engine, params)
-    x = embed_tokens(params, batch["tokens"], cfg)
-    x, _ = run_stack_train(params, x, cfg, engine, remat="none")
+    x = embed_tokens(params, batch["tokens"], cfg, batch.get("patch_embeds"))
+    x, _ = run_stack_train(params, x, cfg, engine, remat="none", batch=batch)
     x = apply_norm(params["ln_f"], x, cfg)
     return lm_logits(params, x, cfg)
 
@@ -577,9 +679,9 @@ def prefill_fn(params, batch, cfg: ModelConfig, engine: ActivationEngine,
     if lengths is None:
         lengths = batch.get("lengths")
     engine = _bind_engine(engine, params)
-    x = embed_tokens(params, tokens, cfg)
+    x = embed_tokens(params, tokens, cfg, batch.get("patch_embeds"))
     x, cache = run_stack_prefill(params, x, cfg, engine, capacity,
-                                 lengths=lengths)
+                                 lengths=lengths, batch=batch)
     x = apply_norm(params["ln_f"], x, cfg)
     if lengths is None:
         last = x[:, -1:]
@@ -600,10 +702,10 @@ def prefill_prefix_fn(params, batch, cfg: ModelConfig,
     in the pool and are never rewritten."""
     lengths = batch["lengths"]
     engine = _bind_engine(engine, params)
-    x = embed_tokens(params, batch["tokens"], cfg)
+    x = embed_tokens(params, batch["tokens"], cfg, batch.get("patch_embeds"))
     x, cache = run_stack_prefill_prefix(params, x, cfg, engine, prefix_kv,
                                         prefix_len, capacity, page_size,
-                                        lengths)
+                                        lengths, batch=batch)
     x = apply_norm(params["ln_f"], x, cfg)
     rows = torch.arange(x.shape[0], device=x.device)
     last = x[rows, (lengths - 1).to(torch.int64)][:, None]       # [B, 1, d]
@@ -619,10 +721,11 @@ def prefill_chunk_fn(params, batch, cfg: ModelConfig,
     only on the final chunk, where the engine samples the first generated
     token from them. Returns (logits [1, V], new k_pos row)."""
     engine = _bind_engine(engine, params)
-    x = embed_tokens(params, batch["tokens"], cfg)                # [1, S, d]
+    x = embed_tokens(params, batch["tokens"], cfg,
+                     batch.get("patch_embeds"))                   # [1, S, d]
     x, new_row = run_stack_prefill_chunk(params, x, cfg, engine, pool_kv,
                                          tbl_row, k_pos_row, pos, clen,
-                                         page_size)
+                                         page_size, batch=batch)
     x = apply_norm(params["ln_f"], x, cfg)
     last = x[:, clen - 1:clen]                                    # [1, 1, d]
     return lm_logits(params, last, cfg)[:, 0], new_row
@@ -632,8 +735,8 @@ def decode_fn(params, batch, cache, cfg: ModelConfig, engine: ActivationEngine):
     """One decode step. A paged cache honours ``batch["write_mask"]``
     (run_stack_decode)."""
     engine = _bind_engine(engine, params)
-    x = embed_tokens(params, batch["tokens"], cfg)         # [B, 1, d]
-    x, cache = run_stack_decode(params, x, cfg, engine, cache,
-                                write_mask=batch.get("write_mask"))
+    x = embed_tokens(params, batch["tokens"], cfg,
+                     batch.get("patch_embeds"))            # [B, 1, d]
+    x, cache = run_stack_decode(params, x, cfg, engine, cache, batch=batch)
     x = apply_norm(params["ln_f"], x, cfg)
     return lm_logits(params, x, cfg)[:, 0], cache

@@ -31,7 +31,8 @@ rows are then scattered into the big cache; a slot write replaces the
 entire row (all W positions, or the row's pages), so no state of the
 previous occupant leaks into the new request's attention.
 
-Token-budget schedule (``EngineConfig(chunk_prefill=N)``, paged only):
+Token-budget schedule (``EngineConfig(chunk_prefill=N)``, paged archs
+without SSM state; the others keep one-shot admission):
 each ``step()`` packs a token budget with one decode chunk over the
 decode-phase slots and one prefill chunk of at most N prompt tokens per
 mid-prompt slot (scheduler.py::plan_step). Admission binds a slot and
@@ -40,6 +41,20 @@ prompt from the slot's pages, and the final chunk samples the first
 token and arms the slot's decode state on the device. The decode chunk
 is enqueued first and the chunks after it; a decode step's write mask
 keeps mid-prefill slots' pages and positions untouched.
+
+Stateful archs (Mamba: falcon-mamba, hymba) prefill at exact prompt
+lengths, since pad tokens would run through the SSM state; a pure-SSM
+stack has no KV ring to page and serves on the slot contract whatever
+``cache`` asks, and prefix sharing and chunked prefill are off for them
+(their state depends on every earlier token), as in the reference.
+
+Multi-codebook archs (musicgen: ``cfg.n_codebooks = K > 1``) run through
+the same engine and schedules: a token is a [K] plane vector ([S, K]
+prompts, [B, K] decode state, K-tuple host records), the embeddings sum
+the K planes and the K heads give [B, K, V] logits; the cache is
+post-embedding, so page tables, prefix chains and write masks are
+unchanged. EOS is tested on codebook 0; token stats count plane tokens
+(K per position).
 
 Sampling is schedule-invariant: greedy rows take the argmax (first index
 on ties); a row with temperature > 0 draws with a ``torch.Generator``
@@ -92,16 +107,20 @@ def token_seed(seed: int, uid: int, index: int) -> int:
 
 
 def _draw(logits_row, temperature: float, gen: torch.Generator):
+    """One row's draw: logits [..., V] -> int32 [...] (a multi-codebook
+    row's planes drawn in order from the one generator)."""
     probs = torch.softmax(logits_row.to(torch.float32)
                           / max(temperature, 1e-6), dim=-1)
-    return torch.multinomial(probs, 1, generator=gen)[0].to(torch.int32)
+    got = torch.multinomial(probs.reshape(-1, probs.shape[-1]), 1,
+                            generator=gen)
+    return got.reshape(probs.shape[:-1]).to(torch.int32)
 
 
 def sample_tokens(gen: torch.Generator, logits, temperature):
     """Per-row sampling: temperature <= 0 -> greedy (argmax, first index
-    on ties). logits [B, V]; ``temperature`` a host sequence of B floats;
-    rows with temperature > 0 draw from ``gen`` in row order. Returns
-    int32 [B] on logits' device."""
+    on ties). logits [B, V] (or [B, K, V]); ``temperature`` a host
+    sequence of B floats; rows with temperature > 0 draw from ``gen`` in
+    row order. Returns int32 [B] (or [B, K]) on logits' device."""
     out = torch.argmax(logits, dim=-1).to(torch.int32)
     for i, t in enumerate(temperature):
         if t > 0.0:
@@ -114,7 +133,8 @@ def sample_tokens_indexed(seed: int, uids, indices, logits, temperature):
     draws with a generator seeded by ``token_seed(seed, uids[i],
     indices[i])``; temperature <= 0 is greedy. ``uids`` / ``indices`` /
     ``temperature`` are host sequences of length B (no device sync).
-    Returns int32 [B]."""
+    logits [B, V] (or [B, K, V]: the K planes draw in order under the
+    row's one generator). Returns int32 [B] (or [B, K])."""
     out = torch.argmax(logits, dim=-1).to(torch.int32)
     for i, t in enumerate(temperature):
         if t > 0.0:
@@ -148,7 +168,9 @@ def make_slot_insert(cfg: ModelConfig):
         for name, big in cache["layers"].items():
             big[:, slots] = small_cache["layers"][name].to(big.dtype)
         cache["cur"][slots] = small_cache["cur"].to(cache["cur"].dtype)
-        cache["k_pos"][slots] = small_cache["k_pos"].to(cache["k_pos"].dtype)
+        if "k_pos" in cache:                     # pure-SSM stacks have none
+            cache["k_pos"][slots] = small_cache["k_pos"].to(
+                cache["k_pos"].dtype)
         for name, val in slot_vals.items():
             state[name][slots] = val.to(state[name].dtype)
         return cache, state
@@ -163,14 +185,18 @@ def make_paged_insert(cfg: ModelConfig, page_size: int):
     write harmlessly into page 0), install the rows' page tables
     ``tbl_rows`` [N, pages_per_slot] and per-slot vectors at ``slots``
     [N]. On a prefix hit ``write_rows`` covers only the suffix pages, so
-    shared prefix pages are never rewritten."""
+    shared prefix pages are never rewritten. A hybrid stack's conv / ssm
+    state is per slot: it goes to rows ``slots``."""
 
     def insert(cache, state, slots, small_cache, slot_vals, tbl_rows,
                write_rows):
-        for name, pool in cache["layers"].items():       # [L, P, ps, KV, hd]
-            sm = small_cache["layers"][name]              # [L, N, n_w*ps, KV, hd]
-            L, N, Wx = sm.shape[:3]
-            pool[:, write_rows] = sm.to(pool.dtype).reshape(
+        for name, big in cache["layers"].items():
+            sm = small_cache["layers"][name]
+            if name not in ("k", "v"):            # conv / ssm stay per slot
+                big[:, slots] = sm.to(big.dtype)
+                continue
+            L, N, Wx = sm.shape[:3]               # [L, N, n_w*ps, KV, hd]
+            big[:, write_rows] = sm.to(big.dtype).reshape(
                 (L, N, Wx // page_size, page_size) + tuple(sm.shape[3:]))
         cache["cur"][slots] = small_cache["cur"].to(cache["cur"].dtype)
         cache["k_pos"][slots] = small_cache["k_pos"].to(cache["k_pos"].dtype)
@@ -212,10 +238,11 @@ def make_prefix_prefill_sample(cfg: ModelConfig, page_size: int,
 
 def make_decode_chunk(cfg: ModelConfig, n_steps: int, paged: bool = False):
     """(params, cache, state, seed, uids, emitted0, temps) ->
-    (cache, state, toks [T, B]): ``n_steps`` decode steps enqueued on the
-    device with no host sync inside. Rows record their sampled token while
-    active and 0 afterwards; ``emitted`` / ``active`` advance so the host
-    can replay termination exactly (EOS or budget). ``uids`` /
+    (cache, state, toks [T, B] or [T, B, K]): ``n_steps`` decode steps
+    enqueued on the device with no host sync inside. Rows record their
+    sampled token while active and 0 afterwards; ``emitted`` / ``active``
+    advance so the host can replay termination exactly (EOS, on codebook
+    0 for K > 1 planes, or budget). ``uids`` /
     ``emitted0`` / ``temps`` are the host's per-slot request ids, tokens
     drawn so far and temperatures (sampling keys only).
 
@@ -226,13 +253,14 @@ def make_decode_chunk(cfg: ModelConfig, n_steps: int, paged: bool = False):
     decodes while some slots are mid-prefill, and those slots' pages
     must not be scribbled by the shared decode chunk."""
     engine = steps_mod.make_engine(cfg)
+    multi = cfg.n_codebooks > 1
 
     def chunk(params, cache, state, seed, uids, emitted0, temps):
         tok, emitted, active = state["tok"], state["emitted"], state["active"]
         budget, eos = state["budget"], state["eos"]
         toks = []
         for t in range(n_steps):
-            batch = {"tokens": tok[:, None]}
+            batch = {"tokens": tok[:, None]}          # [B, 1] or [B, 1, K]
             if paged:
                 batch["write_mask"] = active
             logits, cache = M.decode_fn(params, batch, cache, cfg, engine)
@@ -241,9 +269,11 @@ def make_decode_chunk(cfg: ModelConfig, n_steps: int, paged: bool = False):
             nxt = sample_tokens_indexed(seed, uids,
                                         [e + t for e in emitted0],
                                         logits, temps)
-            nxt = torch.where(active, nxt, torch.zeros_like(nxt))
+            nxt = torch.where(active[:, None] if multi else active, nxt,
+                              torch.zeros_like(nxt))
             emitted = emitted + active.to(torch.int32)
-            active = active & (nxt != eos) & (emitted < budget)
+            head = nxt[:, 0] if multi else nxt
+            active = active & (head != eos) & (emitted < budget)
             tok = nxt
             toks.append(nxt)
         new_state = dict(state, tok=tok, emitted=emitted, active=active)
@@ -264,8 +294,11 @@ def make_chunk_prefill(cfg: ModelConfig, page_size: int):
     throwaway the host never reads. The slot's ``active`` stays False
     until the final chunk, so interleaved decode chunks leave its pages
     untouched (write mask). The final chunk's first token samples with
-    the (uid, 0) key — what one-shot admission would have drawn."""
+    the (uid, 0) key — what one-shot admission would have drawn. K > 1
+    planes feed chunk tokens [1, S, K] and arm a [K] first token, EOS
+    tested on codebook 0."""
     step = steps_mod.make_prefill_chunk_step(cfg, page_size)
+    multi = cfg.n_codebooks > 1
 
     def chunk(params, cache, state, batch, slot, pos, clen, first, final,
               uid, seed, temp, budget, eos):
@@ -289,7 +322,8 @@ def make_chunk_prefill(cfg: ModelConfig, page_size: int):
         if final:
             state["tok"][slot] = tok0
             state["emitted"][slot] = 1
-            state["active"][slot] = (tok0 != eos) if budget > 1 else False
+            head = tok0[0] if multi else tok0
+            state["active"][slot] = (head != eos) if budget > 1 else False
             state["budget"][slot] = budget
             state["eos"][slot] = eos
         return cache, state, tok0
@@ -320,11 +354,11 @@ class EngineConfig:
                                 # + 1, the slot contract's memory
     prefix_cache: bool = True   # share page-aligned common prompt
                                 # prefixes across requests (paged, no
-                                # sliding window)
+                                # sliding window, no SSM state)
     chunk_prefill: int = 0      # > 0: admission streams each prompt in
                                 # chunks of at most this many tokens,
                                 # interleaved with decode under the
-                                # token budget (paged only; clamped to
+                                # token budget (paged, no SSM; clamped to
                                 # the padded ring). 0 = one-shot
     token_budget: int | None = None  # per-iteration token cap of the
                                 # chunked schedule: decode steps x
@@ -364,7 +398,9 @@ class EngineConfig:
 
 @dataclasses.dataclass
 class EngineStats:
-    """Cumulative engine counters (seconds end at a device sync)."""
+    """Cumulative engine counters (seconds end at a device sync). Token
+    counters count plane tokens: K per position for K codebooks, so K = 1
+    and K > 1 rates compare."""
     prefill_s: float = 0.0
     prefill_tokens: int = 0        # real prompt tokens prefilled
     prefill_padded_tokens: int = 0  # incl. bucket padding
@@ -487,16 +523,27 @@ class ServeEngine:
                                "on the CPU")
         self.cfg = cfg
         self.ecfg = ecfg or EngineConfig()
+        # K > 1 codebooks: every token is a [K] plane vector
+        self.K = cfg.n_codebooks
         self.capacity = M.cache_capacity(cfg, self.ecfg.max_len)
-        # every block the port serves has a KV ring to page (pure-SSM
-        # stacks, which would keep the slot contract, are not ported)
-        self.paged = self.ecfg.cache == "paged" and cfg.has_attention
-        # prefix pages replay cached k/v verbatim; sliding-window rings
-        # are not in sequence order, so they opt out
+        stateful = cfg.use_mamba or cfg.parallel_mamba
+        # pad tokens would run through the SSM / conv state, so stateful
+        # archs prefill at exact prompt lengths (scheduler.py)
+        self._exact_buckets = stateful
+        # the paged contract needs a KV ring; pure-SSM stacks fall back to
+        # the slot contract (their whole state is O(1) per row anyway)
+        self.paged = (self.ecfg.cache == "paged"
+                      and (cfg.has_attention or cfg.parallel_mamba))
+        # prefix pages replay cached k/v verbatim: SSM state depends on
+        # the whole history and sliding-window rings are not in sequence
+        # order, so both opt out
         self.prefix_enabled = (self.paged and self.ecfg.prefix_cache
-                               and cfg.sliding_window is None)
-        # chunked prefill resumes a prompt from its pages mid-stream
-        self.chunked = self.ecfg.chunk_prefill > 0 and self.paged
+                               and cfg.sliding_window is None
+                               and not stateful)
+        # chunked prefill resumes a prompt from its pages mid-stream,
+        # which no SSM / conv state can do
+        self.chunked = (self.ecfg.chunk_prefill > 0 and self.paged
+                        and not stateful)
         B = self.ecfg.slots
         dev = self.device
         self.params = M.compute_params(_to_device(params, dev), cfg)
@@ -529,7 +576,8 @@ class ServeEngine:
             prefill_capacity = self.capacity
             self._insert = make_slot_insert(cfg)
         self.state = {
-            "tok": torch.zeros((B,), dtype=torch.int32, device=dev),
+            "tok": torch.zeros((B, self.K) if self.K > 1 else (B,),
+                               dtype=torch.int32, device=dev),
             "emitted": torch.zeros((B,), dtype=torch.int32, device=dev),
             "active": torch.zeros((B,), dtype=torch.bool, device=dev),
             "budget": torch.zeros((B,), dtype=torch.int32, device=dev),
@@ -567,8 +615,19 @@ class ServeEngine:
                eos_id: Optional[int] = None, uid: Optional[int] = None,
                arrival_s: Optional[float] = None) -> int:
         """Queue one request; returns its uid (sampling keys fold it in,
-        so a caller-chosen uid keeps its stream wherever it is placed)."""
-        toks = [int(t) for t in np.asarray(prompt_tokens).reshape(-1)]
+        so a caller-chosen uid keeps its stream wherever it is placed).
+        Multi-codebook engines (K > 1) take prompts [S, K] and record
+        every token as a K-tuple; lengths, buckets and page costs stay
+        positional."""
+        arr = np.asarray(prompt_tokens)
+        if self.K > 1:
+            if arr.ndim != 2 or arr.shape[-1] != self.K:
+                raise ValueError(
+                    f"multi-codebook prompts must be [S, {self.K}], got "
+                    f"shape {arr.shape}")
+            toks = [tuple(int(x) for x in row) for row in arr]
+        else:
+            toks = [int(t) for t in arr.reshape(-1)]
         if not toks:
             raise ValueError("empty prompt")
         if len(toks) > self.ecfg.max_prompt_len:
@@ -602,7 +661,8 @@ class ServeEngine:
 
     def _bucket_of(self, length: int) -> int:
         return bucket_len(length, min_bucket=self.ecfg.min_bucket,
-                          max_len=self.ecfg.max_prompt_len)
+                          max_len=self.ecfg.max_prompt_len,
+                          exact=self._exact_buckets)
 
     def _chunk_bucket(self, length: int) -> int:
         """Padded chunk length: the reference's chunk buckets, so both
@@ -610,6 +670,16 @@ class ServeEngine:
         return bucket_len(
             length, min_bucket=min(self.ecfg.min_bucket, self._chunk_tokens),
             max_len=self._chunk_tokens)
+
+    def _head(self, tok) -> int:
+        """Codebook-0 id of one sampled token (a scalar, or a [K] plane
+        row): the plane the EOS contract tests."""
+        return int(tok[0]) if self.K > 1 else int(tok)
+
+    def _as_token(self, tok):
+        """One sampled token as its host record: an int, or a K-tuple of
+        plane ids (hashable, so prefix chains key on it)."""
+        return tuple(int(x) for x in tok) if self.K > 1 else int(tok)
 
     def _match_of(self, req: Request) -> list:
         """Cached prefix page chain for a request (possibly empty),
@@ -694,7 +764,7 @@ class ServeEngine:
             self._tbl[b, :len(sp.pages)] = sp.pages
             self._tbl[b, len(sp.pages):] = 0
             self._tbl_dirty = True
-            self.stats.prefix_hit_tokens += sp.n_shared * ps
+            self.stats.prefix_hit_tokens += sp.n_shared * ps * self.K
             self.stats.prefill_requests += 1
             self.sched.bind(b, SlotRun(request=req, tokens=[],
                                        admitted_at=now))
@@ -721,7 +791,8 @@ class ServeEngine:
         pre_len = n_pre * ps
         lens = [len(r.tokens) - pre_len for r in reqs]     # suffix lengths
         bucket = self._bucket_of(lens[0])
-        padded = np.zeros((N, bucket), np.int32)
+        K = self.K
+        padded = np.zeros((N, bucket, K) if K > 1 else (N, bucket), np.int32)
         for i, r in enumerate(reqs):
             padded[i, :lens[i]] = np.asarray(r.tokens[pre_len:], np.int32)
         dev = self.device
@@ -743,12 +814,12 @@ class ServeEngine:
         else:
             tok0, small_cache = self._prefill(self.params, batch, uids,
                                               self.ecfg.seed, temps)
-        tok0 = tok0.cpu().numpy()                      # [N] ints; syncs
+        tok0 = tok0.cpu().numpy()                 # [N] or [N, K] ints; syncs
         now = time.perf_counter()
         self.stats.prefill_s += now - t0
-        self.stats.prefill_tokens += sum(lens)
-        self.stats.prefix_hit_tokens += N * pre_len
-        self.stats.prefill_padded_tokens += N * bucket
+        self.stats.prefill_tokens += sum(lens) * K
+        self.stats.prefix_hit_tokens += N * pre_len * K
+        self.stats.prefill_padded_tokens += N * bucket * K
         self.stats.prefill_batches += 1
         self.stats.prefill_requests += N
 
@@ -759,10 +830,10 @@ class ServeEngine:
         # are fully overwritten by the slot's next occupant
         live = np.ones(N, bool)
         for i, (req, t, budget) in enumerate(zip(reqs, tok0, budgets)):
-            if int(t) == req.eos_id or budget <= 1:
-                reason = "eos" if int(t) == req.eos_id else "length"
-                self._complete(req, [int(t)], reason, admitted_at=now,
-                               token_times=[now])
+            if self._head(t) == req.eos_id or budget <= 1:
+                reason = "eos" if self._head(t) == req.eos_id else "length"
+                self._complete(req, [self._as_token(t)], reason,
+                               admitted_at=now, token_times=[now])
                 live[i] = False
                 if plans:
                     self._release_plan(plans[i])
@@ -813,7 +884,7 @@ class ServeEngine:
                                             sp.pages[:n_full])
         for i in np.nonzero(live)[0]:
             self.sched.bind(slots[i], SlotRun(
-                request=reqs[i], tokens=[int(tok0[i])],
+                request=reqs[i], tokens=[self._as_token(tok0[i])],
                 admitted_at=now, token_times=[now]))
             if self.paged:
                 self._slot_pages[slots[i]] = plans[i]
@@ -958,17 +1029,17 @@ class ServeEngine:
         return True
 
     def _harvest(self, active: list, toks, now: float) -> None:
-        """Fold one synced chunk's tokens [T, B] into the bound runs;
+        """Fold one synced chunk's tokens [T, B(, K)] into the bound runs;
         evict and complete rows that hit EOS or their budget."""
         for b in active:
             run = self.sched.slots[b]
             req = run.request
             budget = min(req.max_new, self.ecfg.max_len - len(req.tokens))
             for t in range(toks.shape[0]):
-                tok = int(toks[t, b])
-                run.tokens.append(tok)
+                tok = self._head(toks[t, b])
+                run.tokens.append(self._as_token(toks[t, b]))
                 run.token_times.append(now)
-                self.stats.decode_tokens += 1
+                self.stats.decode_tokens += self.K
                 if tok == req.eos_id or len(run.tokens) >= budget:
                     self.sched.evict(b)
                     if self.paged:
@@ -1011,7 +1082,9 @@ class ServeEngine:
         for b, c in plan.chunks:
             req = self.sched.slots[b].request
             pos = self._slot_pages[b].prefill_pos
-            padded = np.zeros((1, self._chunk_bucket(c)), np.int32)
+            sbucket = self._chunk_bucket(c)
+            padded = np.zeros((1, sbucket, self.K) if self.K > 1
+                              else (1, sbucket), np.int32)
             padded[0, :c] = np.asarray(req.tokens[pos:pos + c], np.int32)
             chunk_tokens.append(torch.as_tensor(padded, device=self.device))
         toks = None
@@ -1039,8 +1112,8 @@ class ServeEngine:
             # compute lands in the next decode sync (decode_s)
             self.stats.prefill_s += time.perf_counter() - tc
             self.stats.prefill_chunks += 1
-            self.stats.prefill_tokens += c
-            self.stats.prefill_padded_tokens += tokens.shape[1]
+            self.stats.prefill_tokens += c * self.K
+            self.stats.prefill_padded_tokens += tokens.shape[1] * self.K
             sp.prefill_pos = pos + c
             sp.first_chunk = False
             if final:
@@ -1057,7 +1130,8 @@ class ServeEngine:
 
         ps = self.ecfg.page_size
         for b, tok0 in finals:
-            t = int(tok0.cpu())                            # syncs
+            raw = tok0.cpu().numpy()                       # syncs
+            t = self._head(raw)
             now = time.perf_counter()
             run = self.sched.slots[b]
             req = run.request
@@ -1066,7 +1140,7 @@ class ServeEngine:
                 n_full = len(req.tokens) // ps
                 self._pool.register(req.tokens[:n_full * ps],
                                     sp.pages[:n_full])
-            run.tokens.append(t)
+            run.tokens.append(self._as_token(raw))
             run.token_times.append(now)
             gen = min(req.max_new, self.ecfg.max_len - len(req.tokens))
             if t == req.eos_id or gen <= 1:

@@ -206,5 +206,8 @@ def test_register_resolves_like_reference(monkeypatch, with_smoke):
         t = TR.get("my-olmo", smoke=smoke, n_layers=3)
         assert (t.name, t.n_layers, t.d_model, t.d_ff, t.vocab_size) == \
             (j.name, j.n_layers, j.d_model, j.d_ff, j.vocab_size)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TR.get("falcon-mamba-7b")
+    # an id neither registered nor a config module raises, as in the
+    # reference
+    for reg in (JR, TR):
+        with pytest.raises(ModuleNotFoundError):
+            reg.get("no-such-arch")

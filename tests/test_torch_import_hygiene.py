@@ -126,32 +126,39 @@ def test_core_exports_the_reference_names_that_are_ported():
     assert get_engine().cfg.impl == "exact"
 
 
-# the families of ROADMAP.md, Queue A item 9 that the port has not reached
-UNPORTED_ARCHS = ("qwen2-vl-2b", "falcon-mamba-7b", "hymba-1.5b",
-                  "musicgen-large")
+# the families ported last: M-RoPE with patch embeddings, Mamba-1, the
+# hybrid block and multi-codebook heads
+NEW_ARCHS = ("qwen2-vl-2b", "falcon-mamba-7b", "hymba-1.5b",
+             "musicgen-large")
 
 
-def test_registry_knows_the_ten_archs_and_ports_six():
+def test_registry_knows_the_ten_archs_and_ports_ten():
     from repro_torch.configs import registry
     ids = registry.assigned_archs()
-    assert len(ids) == 10 and set(UNPORTED_ARCHS) <= set(ids)
-    ported = [a for a in ids if a not in UNPORTED_ARCHS]
-    for arch in ported:
+    assert len(ids) == 10 and set(NEW_ARCHS) <= set(ids)
+    for arch in ids:
         assert registry.get(arch).name == arch
-    assert sorted(ported) == sorted(
+    assert sorted(ids) == sorted(
         ["yi-34b", "olmo-1b", "qwen3-0.6b", "qwen2.5-3b", "mixtral-8x22b",
-         "llama4-scout-17b-a16e"])
+         "llama4-scout-17b-a16e"] + list(NEW_ARCHS))
 
 
-@pytest.mark.parametrize("arch", UNPORTED_ARCHS)
-def test_unported_arch_names_item_9(arch):
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_new_family_resolves_to_full_and_smoke(arch):
+    """Each of the last four families resolves to its full config and its
+    smoke config: the same family at tiny widths."""
     from repro_torch.configs import registry
-    with pytest.raises(NotImplementedError, match="item 9"):
-        registry.get(arch, smoke=True)
+    full, smoke = registry.get(arch), registry.get(arch, smoke=True)
+    assert (full.name, smoke.name) == (arch, arch + "-smoke")
+    assert smoke.family == full.family
+    for name in ("use_mamba", "parallel_mamba", "rope_kind",
+                 "patch_embed_input", "n_codebooks", "glu", "mlp_act"):
+        assert getattr(smoke, name) == getattr(full, name), name
+    assert smoke.d_model < full.d_model and smoke.n_layers < full.n_layers
 
 
 def test_new_archs_run_without_jax():
-    """Each arch this slice ported (and a per-layer assignment) builds and
+    """Each arch beyond qwen3-0.6b (and a per-layer assignment) builds and
     runs one forward in a process that never loads jax or the
     reference."""
     code = (
@@ -162,11 +169,14 @@ def test_new_archs_run_without_jax():
         "from repro_torch.models import model as M\n"
         "cfgs = [registry.get(a, smoke=True) for a in ('olmo-1b', "
         "'qwen2.5-3b', 'yi-34b', 'mixtral-8x22b', "
-        "'llama4-scout-17b-a16e')]\n"
+        "'llama4-scout-17b-a16e', 'qwen2-vl-2b', 'falcon-mamba-7b', "
+        "'hymba-1.5b', 'musicgen-large')]\n"
         "cfgs.append(act_layers_of(cfgs[0], ('pwl-d16', 'cr-d32')))\n"
         "for cfg in cfgs:\n"
         "    p = M.materialize_params(cfg, seed=0, device='cpu')\n"
-        "    t = torch.zeros((1, 5), dtype=torch.int32)\n"
+        "    K = cfg.n_codebooks\n"
+        "    t = torch.zeros((1, 5) + ((K,) if K > 1 else ()), "
+        "dtype=torch.int32)\n"
         "    y = M.forward_fn(p, {'tokens': t}, cfg, steps.make_engine(cfg))\n"
         "    assert bool(torch.isfinite(y).all()), cfg.name\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "

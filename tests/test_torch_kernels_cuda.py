@@ -501,7 +501,14 @@ def test_table_lookup_backward_is_deterministic_and_sync_free(cuda):
 # engine), elementwise_2d at d_ff on every FFN or expert activation
 ARCHS = ("olmo-1b", "qwen2.5-3b", "yi-34b", "mixtral-8x22b",
          "llama4-scout-17b-a16e")
-GLU_ARCHS = tuple(a for a in ARCHS if a != "mixtral-8x22b")
+# qwen2-vl-2b (K 1536, N 8960) and hymba-1.5b (K 1600, N 5504) fuse their
+# gated FFNs too
+GLU_ARCHS = tuple(a for a in ARCHS if a != "mixtral-8x22b") + (
+    "qwen2-vl-2b", "hymba-1.5b")
+# Mamba's engine calls at d_inner, in f32: silu of the gate z and softplus
+# of dt; decode (2 rows) of falcon-mamba-7b (8192) and the longest served
+# prompt (100 rows) of hymba-1.5b (3200)
+MAMBA_SHAPES = ((2, 8192), (100, 3200))
 
 
 def _widths(arch):
@@ -578,6 +585,66 @@ def test_elementwise_kernel_at_arch_shapes(cuda, scheme, dtype):
         for rows in _engine_rows():
             x = torch.from_numpy(rand((rows, cols), seed=rows)).to(cuda, dt)
             _check_elementwise(spec, p, "silu", x)
+
+
+@pytest.mark.parametrize("shape", MAMBA_SHAPES)
+@pytest.mark.parametrize("scheme,act", [
+    (s, a) for s in ("cr_spline",) + SCHEMES for a in ("silu", "softplus")
+    if (s, a) != ("rational", "softplus")])
+def test_elementwise_kernel_at_mamba_shapes(cuda, scheme, act, shape):
+    """elementwise_2d on f32 inputs at Mamba's widths, every scheme that
+    has the epilogue (rational has no softplus): bitwise the plain
+    version, the same bits again."""
+    spec, p = _any_scheme(scheme, act, cuda)
+    x = torch.from_numpy(rand(shape, seed=shape[0])).to(cuda)
+    _check_elementwise(spec, p, act, x)
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "hymba-1.5b"])
+def test_mamba_block_on_card_matches_cpu(cuda, arch):
+    """One kernelized Mamba-carrying block (f32) on the card against the
+    CPU on the same params: output and the carried conv / ssm state
+    within 1e-5 relative, three elementwise_2d launches for the Mamba
+    branch; at bf16 a decode-shaped step makes no host sync."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.common import act_impl_of
+    from repro_torch.core.activations import ActivationEngine, init_act_params
+    from repro_torch.models import layers as TL
+    cfg = act_impl_of(registry.get(arch, smoke=True, compute_dtype="float32"),
+                      "cr_spline", use_kernel=True)
+    layer_cfgs = cfg.layer_activation_configs()
+    eng_on = {dev: ActivationEngine(layer_cfgs[0]).bind(
+        {t: torch.as_tensor(a, device=dev)
+         for t, a in init_act_params(layer_cfgs).items()})
+        for dev in ("cpu", "cuda")}
+    params = TL.init_mamba(torch.Generator().manual_seed(0), cfg, "cpu")
+    x = torch.randn((2, 9, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1)) * 0.5
+    want = TL.apply_mamba(params, x, cfg, eng_on["cpu"])
+    on = {k: v.to(cuda) for k, v in params.items()}
+    n0 = tepi.LAUNCHES["elementwise_2d"]
+    got = TL.apply_mamba(on, x.to(cuda), cfg, eng_on["cuda"])
+    torch.cuda.synchronize()
+    assert tepi.LAUNCHES["elementwise_2d"] - n0 == 3
+    for g, w in zip(got, want):
+        scale = float(w.abs().max())
+        assert float((g.cpu() - w).abs().max()) <= 1e-5 * scale
+    bf = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    onb = {k: v.to(torch.bfloat16) if k in ("in_proj", "conv_w", "conv_b",
+                                            "x_proj", "dt_proj_w",
+                                            "out_proj") else v
+           for k, v in on.items()}
+    xd = x[:, :1].to(cuda, torch.bfloat16)
+    _, cs, ss = TL.apply_mamba(onb, xd, bf, eng_on["cuda"])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        TL.apply_mamba(onb, xd, bf, eng_on["cuda"], cs, ss)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("arch,impl", [
