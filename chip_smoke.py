@@ -59,9 +59,10 @@ lines:
      ``train_fused`` / ``train_kernelized``: the cr_spline pair trains at
      full width (bf16 compute, batch 8 x seq 128) through ``TrainDriver``
      and the port's pipeline, 5 steps without remat and 2 under
-     remat="block": finite losses, nothing skipped, the path's kernel
-     exactly 28 launches a step (56 under "block", whose checkpoint reruns
-     each block's forward), the other none; step wall ms, tokens/s, peak
+     remat="block": finite losses, nothing skipped, each kernel exactly
+     ``launches_per_forward`` x steps launches (28 a step for the path's
+     kernel; twice that under "block", whose checkpoint reruns each
+     block's forward), the other none; step wall ms, tokens/s, peak
      memory, and one step that must make no host sync (CUDA's sync debug
      mode).
      Then ``train_cr_fixed``: 3 steps without remat (quantization-aware,
@@ -94,10 +95,28 @@ lines:
      launch exactly ``launches_per_forward(cfg)`` x forwards times, every
      glu_2d launch on its type's variant, and each launch's shape is
      recorded (``ShapeLog``; the ``kernel_shapes`` of each serve line).
+     Then (3c) ``train_<arch>``: the families trained at full width as
+     the qwen3 pair is (TRAIN_ARCH_RUNS: qwen2-vl-2b and hymba-1.5b
+     fused, musicgen-large and falcon-mamba-7b kernelized, mixtral-8x22b
+     kernelized under gshard and ragged; 2 steps without remat, 1 under
+     "block"), their state updated in place (TrainHyper(donate=True)),
+     the depth cut where the card cannot hold it (``reduced``): the same
+     gates, each kernel's launches from ``launches_per_forward``.
+     Then (3d) the multi-replica tier on qwen3-0.6b fused (bf16):
+     ``serve_routed`` (2 in-process replicas through the launcher's
+     ``serve_routed``, 8 requests: tokens equal one engine's, launches
+     exact over the fleet, one copy of the weights), and
+     ``serve_routed_backpressure`` (queue_limit 2, reject and shed, 12
+     requests: every request accounted for, survivors' tokens equal one
+     engine's, every page back), ``serve_routed_autoscale`` (1..3
+     replicas: a burst scales up, idle steps drain and retire, nothing
+     lost), ``serve_process_replica`` (an engine in a spawned worker with
+     its own CUDA context: the in-process replica's tokens, exit code 0).
      Then ``kernel_check_served_shapes``: both kernels at every distinct
-     shape and type those runs launched them at, for every scheme,
-     against their plain versions at phase 2's tolerances, glu_2d on the
-     variant the served launch took, a repeated launch bit-identical.
+     shape and type the served and trained runs launched them at, for
+     every scheme, against their plain versions at phase 2's tolerances,
+     glu_2d on the variant the launch took, a repeated launch
+     bit-identical.
   4. kernel timings at the main path's shapes (decode 2 rows, prefill 128
      rows, 256 rows, the largest ragged prefill two slots form, and 1024,
      a training step's rows), beside the bound from the card's data-sheet
@@ -118,7 +137,9 @@ lines:
      one train step of each trained deployment under the profiler
      (``trace_train_*``); the same for the ``*_fixed`` deployments
      (``trace_fixed_*``, ``trace_train_cr_fixed``), then the per-layer
-     runs' and the archs' (each arch rebuilt from its seed). The archs'
+     runs' and the archs' (each arch rebuilt from its seed), and one train
+     step each of falcon-mamba and hymba (``trace_train_<arch>``: where
+     the scan's backward spends its time). The archs'
      shapes are timed too: of each arch run's recorded launches, each
      kernel's decode shape and its largest per type and epilogue
      (cr_spline: ``glu_2d`` beside two ``torch.matmul`` calls, cuBLAS
@@ -141,14 +162,18 @@ lines:
      depth, MoE at one layer, falcon-mamba at two):
      each kernel launched ``launches_per_forward`` times on the card,
      1e-4 relative, and the MoE top-k experts of every token identical on
-     both devices (the smallest top-k margin printed).
+     both devices (the smallest top-k margin printed). Then
+     ``train_f32_vs_cpu_<arch>``: each arch train run's loss and gradient
+     at f32 (batch 1 x 32, the same depths), card against CPU: the loss,
+     the gradient's norm and every leaf's gradient within 1e-4.
   6. the ``{"kernels": [...]}`` line: one entry per (kernel, scheme), its
      top-level times at decode and ``by_rows`` at every timed row count;
      ``elementwise_2d``'s entries add ``copy_ms``, ``glu_2d``'s the
      ``variant`` its decode launch took; the trained deployments' entries
      add ``train_launches`` (per remat run); the cr_spline entries add
-     ``by_shape`` (the archs' shapes) and ``arch_launches`` (the kernel's
-     launches in each arch and per-layer run).
+     ``by_shape`` (the archs' shapes), ``arch_launches`` (the kernel's
+     launches in each arch and per-layer run), ``train_arch_launches``
+     (in each arch train run) and, for glu_2d, ``routed_launches``.
 
 Then the card's ``nvidia-smi`` name/power line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises, exits non-zero and
@@ -202,9 +227,10 @@ SLOTS, MAX_PROMPT, MAX_LEN, CHUNK = 2, 128, 160, 8
 GLU_PREFILL_MAX = 2 * MAX_PROMPT    # the largest ragged prefill two slots form
 # training (the launcher's defaults): batch 8 x seq 128 = 1024 rows a
 # kernel launch; 5 steps without remat, then 2 under remat="block"
+# (remat, steps, forwards a step: "block" reruns each block's forward)
 TRAIN_BATCH, TRAIN_SEQ = 8, 128
 TRAIN_ROWS = TRAIN_BATCH * TRAIN_SEQ
-TRAIN_RUNS = (("none", 5, 1), ("block", 2, 2))   # (remat, steps, fwd/layer)
+TRAIN_RUNS = (("none", 5, 1), ("block", 2, 2))
 # decode, prefill, 2 x prefill, a training step
 ROWS_TIMED = (SLOTS, MAX_PROMPT, GLU_PREFILL_MAX, TRAIN_ROWS)
 GRAD_ROWS = (TRAIN_ROWS, 1000)      # kernel gradient checks: train + ragged
@@ -232,7 +258,7 @@ FIXED_ENGINE_SHAPE = (1024, 3072)
 # against the CPU on the same inputs (max |diff| over max |cpu|)
 FIXED_GRAD_TOL = 1e-6
 FIXED_LEAF_GRAD_TOL = 1e-5      # the act leaf's (per knot for CR windows)
-FIXED_TRAIN_RUNS = (("none", 3, 0),)   # train_cr_fixed: 3 steps, no remat
+FIXED_TRAIN_RUNS = (("none", 3, 1),)   # train_cr_fixed: 3 steps, no remat
 # f32 logits and one f32 train step of a *_fixed deployment, card against
 # the CPU (relative): the activation is quantized to Q2.13, so a gate
 # value that the card's and the CPU's GEMMs round ~1e-6 apart can land
@@ -259,6 +285,25 @@ ARCH_RUNS = (("olmo-1b", None), ("qwen2.5-3b", None), ("yi-34b", 8),
 ARCH_F32_LAYERS = {"mixtral-8x22b": 1, "llama4-scout-17b-a16e": 1,
                    "falcon-mamba-7b": 2}
 ARCH_F32_TOKENS = 32
+# ROADMAP item 9b: the families trained at full width (widths never cut),
+# bf16, batch 8 x seq 128 from the port's pipeline: (arch, depth, its
+# deployments, its runs as TRAIN_RUNS). Their state (f32 weights, grads
+# and two Adam moments, 16 B a param) is updated in place
+# (TrainHyper(donate=True)): the functional step holds the old and the
+# new state at once, 28 B a param and more. The depth is cut where state
+# and activations would not fit one card (None: every layer): mixtral's
+# one layer is 2.9 B params (54 GB peak on an H100); falcon-mamba's scan
+# keeps ~1 GB a layer for the backward, and at 24 of its 64 layers a step
+# without remat peaked at 78.9 of the card's 85 GB, so it trains at 20.
+TRAIN_ARCH_STEPS = (("none", 2, 1), ("block", 1, 2))
+TRAIN_ARCH_RUNS = (
+    ("qwen2-vl-2b", None, ("fused",), TRAIN_ARCH_STEPS),
+    ("hymba-1.5b", None, ("fused",), TRAIN_ARCH_STEPS),
+    ("musicgen-large", None, ("kernelized",), TRAIN_ARCH_STEPS),
+    ("falcon-mamba-7b", 20, ("kernelized",), TRAIN_ARCH_STEPS),
+    ("mixtral-8x22b", 1, ("kernelized", "ragged"), TRAIN_ARCH_STEPS))
+TRAIN_ARCH_HYPER = {"donate": True}
+TRAIN_ARCH_TRACED = ("falcon-mamba-7b", "hymba-1.5b")
 # f32 operations of each epilogue's wiring around its one tanh unit
 # (csrc/approximant.cuh epi_arg + epi_out)
 WIRING_OPS = {"tanh": 0, "sigmoid": 3, "silu": 4, "gelu_tanh": 8,
@@ -552,17 +597,17 @@ class ShapeLog:
             setattr(self.epi, k, fn)
 
 
-# every distinct launch of the counted served runs (``drive``), as
-# ShapeLog keys them, with its number of launches
+# every distinct launch of the counted served runs (``drive``) and train
+# runs (``phase_train``), as ShapeLog keys them, with its number of launches
 SERVED_SHAPES: dict = {}
 
 
 def phase_kernel_checks_served(torch, epi, dev, worst):
-    """Both kernels at every distinct shape the counted served runs of
-    phase 3 launched them at (SERVED_SHAPES: every deployment, cache,
-    type and arch served), for every scheme, on random inputs of that
-    shape and type: phase 2's tolerances, the variant the served launch
-    took (glu_2d), and a repeated launch bit-identical. Updates
+    """Both kernels at every distinct shape the counted served and train
+    runs of phase 3 launched them at (SERVED_SHAPES: every deployment,
+    cache, type and arch served or trained), for every scheme, on random
+    inputs of that shape and type: phase 2's tolerances, the variant the
+    launch took (glu_2d), and a repeated launch bit-identical. Updates
     ``worst``."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
@@ -1184,45 +1229,56 @@ def host_syncs(torch, fn) -> int:
                for w in caught)
 
 
-def phase_train(torch, epi, name, cfg, weights, dev, card, kernel,
-                runs=TRAIN_RUNS):
+def phase_train(torch, epi, name, cfg, weights, dev, card, runs=TRAIN_RUNS,
+                hyper=None, **extra):
     """Train at full width through the port's TrainDriver and pipeline:
-    TRAIN_RUNS (5 steps without remat, then 2 under remat="block",
-    continuing the same run), each with the launch counts zeroed just
-    before and read just after. The path's kernel must launch n_layers x
-    steps times without remat and twice that under "block" (the
+    ``runs`` (TRAIN_RUNS: 5 steps without remat, then 2 under
+    remat="block", continuing the same run), each with the launch counts
+    zeroed just before and read just after. Each kernel must launch
+    exactly launches_per_forward(cfg) x forwards a step x steps times
+    (a step is one forward without remat and two under "block", whose
     checkpoint reruns each block's forward in the backward; the
-    recompute backward of the kernels launches none), the other kernel
-    never, every bf16 glu_2d launch on tma_wgmma; every loss finite,
-    nothing skipped. With ``kernel`` None (a ``*_fixed`` deployment) and
-    its ``runs``, neither kernel launches. Then one more step under
-    CUDA's sync debug mode must make no host sync. Returns the line."""
+    recompute backward of the kernels launches none), every bf16 glu_2d
+    launch on tma_wgmma; every loss finite, nothing skipped. ``hyper``
+    adds TrainHyper fields (``donate`` for a model whose state fills the
+    card: then the steps update ``weights``' tensors in place). Then one
+    more step under CUDA's sync debug mode must make no host sync.
+    Emits and returns the line, with ``extra``."""
     import tempfile
     from repro_torch.ft import FTConfig, TrainDriver
     from repro_torch.launch import steps as TS
     from repro_torch.optim import adamw
+    hyper = hyper or {}
     params = with_act(torch, weights, cfg, dev)
     opt = adamw.init_state(params)
     pipe = train_pipe(cfg, TRAIN_BATCH, TRAIN_SEQ, dev)
+    per_fwd = launches_per_forward(cfg)
     line = {"phase": "train_" + name, "card": card, "arch": cfg.name,
             "layers": cfg.n_layers, "vocab": cfg.vocab_size,
             "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
-            "compute_dtype": cfg.compute_dtype, "scheme": cfg.act_impl
-            or cfg.activation.impl, "runs": {}}
+            "planes": cfg.n_codebooks, "compute_dtype": cfg.compute_dtype,
+            "scheme": cfg.act_impl or cfg.activation.impl,
+            "moe_impl": cfg.moe_impl if cfg.n_experts else None,
+            "hyper": hyper, "launches_per_forward": per_fwd, **extra,
+            "runs": {}}
     step = 0
     with tempfile.TemporaryDirectory() as ckpt:
         ft = FTConfig(ckpt_dir=ckpt, ckpt_every=10 ** 9, log_every=0)
-        for remat, n_steps, per_layer in runs:
+        for remat, n_steps, fwd in runs:
             step_fn = TS.make_train_step(cfg, TS.TrainHyper(
-                remat=remat, opt=train_opt()))
+                remat=remat, opt=train_opt(), **hyper))
             drv = TrainDriver(step_fn, pipe, params, opt, ft,
                               start_step=step, log=lambda *_: None)
+            del params, opt
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             for counts in (epi.LAUNCHES, epi.GLU_VARIANTS):
                 for k in counts:
                     counts[k] = 0
-            drv.run(n_steps)
+            with ShapeLog(epi) as log:
+                drv.run(n_steps)
+            for key, n in log.shapes.items():
+                SERVED_SHAPES[key] = SERVED_SHAPES.get(key, 0) + n
             launches = dict(epi.LAUNCHES)
             variants = dict(epi.GLU_VARIANTS)
             peak = torch.cuda.max_memory_allocated()
@@ -1231,11 +1287,9 @@ def phase_train(torch, epi, name, cfg, weights, dev, card, kernel,
             assert all(math.isfinite(r.loss) and not r.skipped
                        for r in recs), \
                 [(r.loss, r.skipped) for r in recs]
-            for k, n in launches.items():
-                want = per_layer * cfg.n_layers * n_steps if k == kernel \
-                    else 0
-                assert n == want, (remat, launches)
-            if kernel == "glu_2d":
+            want = {k: n * fwd * n_steps for k, n in per_fwd.items()}
+            assert launches == want, (name, remat, launches, want)
+            if launches["glu_2d"]:
                 assert variants == {"tma_wgmma": launches["glu_2d"],
                                     "wmma": 0, "simt_f32": 0}, variants
             walls = [r.wall_s * 1e3 for r in recs]
@@ -1247,13 +1301,15 @@ def phase_train(torch, epi, name, cfg, weights, dev, card, kernel,
                 "gnorms": [r.gnorm for r in recs],
                 "skipped": sum(r.skipped for r in recs),
                 "launches": launches, "glu_variants": variants,
-                "launches_per_step": launches.get(kernel, 0) / n_steps,
+                "launches_per_step": {k: n / n_steps
+                                      for k, n in launches.items()},
                 "step_wall_ms": walls, "step_wall_ms_median": steady,
                 "train_tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / steady * 1e3,
                 "max_memory_allocated_gb": peak / 1e9}
             params, opt, step = drv.params, drv.opt_state, drv.step
-        step_fn = TS.make_train_step(cfg, TS.TrainHyper(remat="none",
-                                                        opt=train_opt()))
+            del drv
+        step_fn = TS.make_train_step(cfg, TS.TrainHyper(
+            remat=runs[0][0], opt=train_opt(), **hyper))
         batch = pipe(step)
         torch.cuda.synchronize()
         line["host_syncs_per_step"] = host_syncs(
@@ -1266,19 +1322,23 @@ def phase_train(torch, epi, name, cfg, weights, dev, card, kernel,
     return line
 
 
-def phase_train_trace(torch, name, cfg, weights, dev, train_line):
-    """Where a train step's time goes: one step (remat none) under the
-    profiler, after one warm step, against the unprofiled median wall
-    time per step of the train run: device busy ms, idle share, kernels
-    per step and the top kernels with their launches."""
+def phase_train_trace(torch, name, cfg, weights, dev, train_line,
+                      hyper=None):
+    """Where a train step's time goes: one step (the train line's first
+    remat) under the profiler, after one warm step, against the
+    unprofiled median wall time per step of that run: device busy ms,
+    idle share, kernels per step and the top kernels with their
+    launches. ``hyper`` as phase_train's."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch import steps as TS
     from repro_torch.optim import adamw
     params = with_act(torch, weights, cfg, dev)
     opt = adamw.init_state(params)
     batch = train_pipe(cfg, TRAIN_BATCH, TRAIN_SEQ, dev)(0)
-    step_fn = TS.make_train_step(cfg, TS.TrainHyper(remat="none",
-                                                    opt=train_opt()))
+    remat = next(iter(train_line["runs"]))
+    step_fn = TS.make_train_step(cfg, TS.TrainHyper(remat=remat,
+                                                    opt=train_opt(),
+                                                    **(hyper or {})))
     params, opt, m = step_fn(params, opt, batch, 1)
     float(m["loss"])
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1286,14 +1346,14 @@ def phase_train_trace(torch, name, cfg, weights, dev, train_line):
         float(m["loss"])
     evs = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
-    wall = train_line["runs"]["none"]["step_wall_ms_median"]
+    wall = train_line["runs"][remat]["step_wall_ms_median"]
     busy = sum(us for _, us in evs) / 1e3
     by_name = {}
     for n, us in evs:
         t, k = by_name.get(n, (0.0, 0))
         by_name[n] = (t + us, k + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP_KERNELS]
-    emit({"phase": "trace_train_" + name, "remat": "none",
+    emit({"phase": "trace_train_" + name, "remat": remat,
           "wall_ms_per_step": wall, "device_busy_ms_per_step": busy,
           "device_idle_share": 1.0 - busy / wall if evs else None,
           "repro_kernel_ms_per_step": sum(us for n, us in evs
@@ -1856,6 +1916,426 @@ def phase_arch_f32_vs_cpu(torch, np, epi, registry, dev, card):
         release(torch)
 
 
+def train_arch_name(arch, cfg, deps) -> str:
+    """An arch train run's name: the arch, and for MoE its dispatch."""
+    return arch if len(deps) == 1 else f"{arch}_{cfg.moe_impl}"
+
+
+def phase_train_archs(torch, epi, registry, dev, card, runs=TRAIN_ARCH_RUNS):
+    """Train each arch of ``runs`` at full width (random weights, seed 0,
+    bf16 compute) through phase_train, in place (TRAIN_ARCH_HYPER), each
+    deployment built, trained and freed before the next. Returns {name:
+    train line}."""
+    from repro_torch.models import model as M
+    lines = {}
+    for arch, depth, deps, arch_runs in runs:
+        full, base = arch_config(registry, arch, depth)
+        cfgs = dict(arch_deployments(base))
+        reduced = {} if depth is None else {"n_layers": [depth,
+                                                         full.n_layers]}
+        for dep in deps:
+            name = train_arch_name(arch, cfgs[dep], deps)
+            weights = M.materialize_params(base, seed=0, device=dev)
+            lines[name] = phase_train(
+                torch, epi, name, cfgs[dep], weights, dev, card,
+                runs=arch_runs, hyper=TRAIN_ARCH_HYPER, deployment=dep,
+                reduced=reduced, full_layers=full.n_layers,
+                params_trained=cfgs[dep].param_count())
+            del weights
+            release(torch)
+    return lines
+
+
+def phase_train_arch_traces(torch, registry, dev, lines,
+                            runs=TRAIN_ARCH_RUNS):
+    """One profiled train step of each arch of TRAIN_ARCH_TRACED
+    (phase_train_trace), on the same model rebuilt from the same seed."""
+    from repro_torch.models import model as M
+    for arch, depth, deps, _ in runs:
+        if arch not in TRAIN_ARCH_TRACED:
+            continue
+        _, base = arch_config(registry, arch, depth)
+        cfgs = dict(arch_deployments(base))
+        for dep in deps:
+            name = train_arch_name(arch, cfgs[dep], deps)
+            weights = M.materialize_params(base, seed=0, device=dev)
+            phase_train_trace(torch, name, cfgs[dep], weights, dev,
+                              lines[name], hyper=TRAIN_ARCH_HYPER)
+            del weights
+            release(torch)
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items()
+                for k, v in _flat(sub, f"{prefix}/{key}").items()}
+    return {prefix.lstrip("/"): tree}
+
+
+def phase_train_arch_f32_vs_cpu(torch, epi, registry, dev, card,
+                                runs=TRAIN_ARCH_RUNS):
+    """Each arch train run's deployment at f32, batch TRAIN_F32_BATCH x
+    TRAIN_F32_SEQ from the pipeline (qwen2-vl's patch embeddings and
+    M-RoPE positions, musicgen's 4 planes), at the served f32 depth
+    (ARCH_F32_LAYERS: MoE one layer, falcon-mamba two; else the train
+    depth): the loss and its gradient (what a train step computes before
+    the optimizer, which the qwen3 train_f32_vs_cpu lines hold and which
+    is the same for every arch) on the card (kernels, each launched
+    launches_per_forward(cfg) times) and on the CPU (plain versions), same
+    weights. The loss, the gradient's global norm (the act leaf's frozen
+    gradient left out, as the step clips) and every leaf's gradient (the
+    act leaf per knot, ``knot_grad``) within 1e-4 relative (max |diff|
+    over max |cpu|); MoE: the top-k experts of every token identical."""
+    from repro_torch.launch import steps as TS
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import global_norm, tree_leaves, tree_map
+    tol = 1e-4
+    for arch, depth, deps, _ in runs:
+        full, base = arch_config(registry, arch,
+                                 ARCH_F32_LAYERS.get(arch, depth))
+        base = dataclasses.replace(base, compute_dtype="float32")
+        cfgs = dict(arch_deployments(base))
+        t0 = time.perf_counter()
+        weights = M.materialize_params(base, seed=0, device=dev)
+        weights_cpu = _tree_to(weights, "cpu")
+        cpu_batch = train_pipe(base, TRAIN_F32_BATCH, TRAIN_F32_SEQ, "cpu")(0)
+        setup_s = time.perf_counter() - t0
+        for dep in deps:
+            cfg = cfgs[dep]
+            engine = TS.make_engine(cfg)
+            got, routes, secs = {}, {}, {}
+            for where, tree in ((dev, weights), ("cpu", weights_cpu)):
+                t0 = time.perf_counter()
+                leaf = tree_map(lambda t: t.detach().requires_grad_(),
+                                with_act(torch, tree, cfg, where))
+                batch = {k: v.to(where) for k, v in cpu_batch.items()}
+                n0 = dict(epi.LAUNCHES)
+                with RoutingLog(torch, L) as log:
+                    loss, _ = M.loss_fn(leaf, batch, cfg, engine,
+                                        remat="none")
+                launched = {k: n - n0[k] for k, n in epi.LAUNCHES.items()}
+                leaves = tree_leaves(leaf)
+                by_id = dict(zip(map(id, leaves), torch.autograd.grad(
+                    loss, leaves, allow_unused=True, materialize_grads=True)))
+                grads = tree_map(lambda t: by_id[id(t)], leaf)
+                del leaf, leaves, by_id
+                got[str(where)] = {
+                    "loss": float(loss.detach()),
+                    "gnorm": float(global_norm({k: v for k, v in
+                                                grads.items() if k != "act"})),
+                    "grads": _flat(grads)}
+                routes[str(where)] = log
+                secs[str(where)] = time.perf_counter() - t0
+                if where == dev:
+                    assert launched == launches_per_forward(cfg), (
+                        arch, dep, launched)
+                del grads, loss
+            card_, cpu = got[str(dev)], got["cpu"]
+            rel = {k: abs(card_[k] - cpu[k]) / abs(cpu[k])
+                   for k in ("loss", "gnorm")}
+            t0 = time.perf_counter()
+            for k, g in cpu["grads"].items():
+                # the act leaf per knot on the host; the rest on the card
+                a = card_["grads"][k]
+                if k.startswith("act/"):
+                    a, g = knot_grad(torch, a.cpu()), knot_grad(torch, g)
+                else:
+                    g = g.to(dev)
+                scale = float(g.abs().max())
+                diff = float((a - g).abs().max())
+                rel["grad " + k] = diff / scale if scale else diff
+                del a, g
+            secs.update(setup=setup_s, compare=time.perf_counter() - t0)
+            name = train_arch_name(arch, cfgs[dep], deps)
+            line = {"phase": "train_f32_vs_cpu_" + name, "card": card,
+                    "arch": arch, "deployment": dep,
+                    "moe_impl": cfg.moe_impl if cfg.n_experts else None,
+                    "layers": cfg.n_layers, "full_layers": full.n_layers,
+                    "batch": TRAIN_F32_BATCH, "seq": TRAIN_F32_SEQ,
+                    "inputs": sorted(cpu_batch),
+                    "loss": {"card": card_["loss"], "cpu": cpu["loss"]},
+                    "gnorm": {"card": card_["gnorm"], "cpu": cpu["gnorm"]},
+                    "launches": launches_per_forward(cfg),
+                    "rel_max": max(rel.values()), "rel": rel,
+                    "tolerance_rel": tol, "act_grad_compared": "per knot",
+                    "optimizer": "not compared here (train_f32_vs_cpu)",
+                    "seconds": {"setup": secs["setup"],
+                                "card": secs[str(dev)], "cpu": secs["cpu"],
+                                "compare": secs["compare"]}}
+            same = True
+            if cfg.n_experts:
+                rc, rp = routes[str(dev)], routes["cpu"]
+                same = len(rc.ids) == len(rp.ids) and all(
+                    torch.equal(x, y) for x, y in zip(rc.ids, rp.ids))
+                line.update(routing_identical=same,
+                            routing_calls=len(rc.ids),
+                            min_topk_margin=min(rc.margins + rp.margins))
+            emit(line)
+            del got
+            assert same, (arch, dep, "top-k experts differ between card and "
+                          "CPU", line.get("min_topk_margin"))
+            assert all(v <= tol for v in rel.values()), (name, rel)
+        del weights, weights_cpu
+        release(torch)
+
+
+def routed_prompts(np, cfg, n):
+    """``n`` distinct prompts cycling through PROMPT_LENS, from seed 3: no
+    two share a cached prefix page, so no engine's run depends on what
+    another request left in its pool."""
+    rng = np.random.RandomState(3)
+    return [rng.randint(0, cfg.vocab_size, (PROMPT_LENS[i % len(PROMPT_LENS)],)
+                        ).astype(np.int32) for i in range(n)]
+
+
+def routed_ecfg(**kw):
+    """The EngineConfig serve_routed builds for ROUTED_PROMPTS-style
+    prompts (the longest prompt, MAX_NEW tokens), for the single engine
+    each routed run is held to."""
+    top = max(PROMPT_LENS)
+    return dict(slots=SLOTS, max_prompt_len=top, max_len=top + MAX_NEW,
+                chunk=CHUNK, page_size=PAGE_SIZE, seed=0, **kw)
+
+
+def single_engine(torch, cfg, params, prompts, dev, **kw):
+    """One ServeEngine on ``prompts`` (routed_ecfg): (tokens per uid,
+    wall seconds of the run, its EngineStats)."""
+    from repro_torch.serve import EngineConfig, ServeEngine
+    eng = ServeEngine(cfg, params, EngineConfig(**routed_ecfg(**kw)),
+                      device=dev)
+    for p in prompts:
+        eng.submit(p, max_new=MAX_NEW)
+    t0 = time.perf_counter()
+    done = eng.run()
+    return {c.uid: c.tokens for c in done}, time.perf_counter() - t0, \
+        eng.stats
+
+
+def routed(torch, epi, cfg, params, prompts, dev, **kw):
+    """``serve_routed`` (the launcher's entry point) on ``prompts`` with
+    the launch counts zeroed just before and read just after, every
+    launch's shape into SERVED_SHAPES. Returns (tokens [B, MAX_NEW],
+    router, launches, wall seconds)."""
+    from repro_torch.launch.serve import serve_routed
+    for counts in (epi.LAUNCHES, epi.GLU_VARIANTS):
+        for k in counts:
+            counts[k] = 0
+    t0 = time.perf_counter()
+    with ShapeLog(epi) as log:
+        toks, _, router = serve_routed(
+            cfg, params, prompts, MAX_NEW, slots=SLOTS, chunk=CHUNK,
+            page_size=PAGE_SIZE, device=dev, **kw)
+    wall = time.perf_counter() - t0
+    for key, n in log.shapes.items():
+        SERVED_SHAPES[key] = SERVED_SHAPES.get(key, 0) + n
+    return toks, router, dict(epi.LAUNCHES), wall
+
+
+def fleet_forwards(router) -> int:
+    st = router.engine_totals()
+    return st.prefill_batches + st.prefill_chunks + st.decode_steps
+
+
+def phase_routed(torch, np, epi, cfg, weights, dev, card):
+    """The multi-replica tier on the card (qwen3-0.6b at full width, bf16,
+    fused cr_spline: glu_2d on every FFN), through ``serve_routed``. Every
+    engine admits serially (admission="serial"): a request's prefill is a
+    batch of one wherever it lands, so its GEMMs have the same shapes as
+    on one engine (batched admission groups requests by placement, and a
+    bf16 GEMM of another shape may round otherwise).
+
+    ``serve_routed``: 2 in-process replicas serve 8 greedy requests
+    (PROMPT_LENS twice, MAX_NEW tokens): tokens per request equal one
+    engine's on the same 8; glu_2d launches launches_per_forward x the
+    fleet's forwards (summed over replicas), all tma_wgmma; the replicas'
+    weight tensors the same storage; completed == submitted. Prints the
+    fleet's and the single engine's decode tok/s (information), the
+    router- and engine-queue waits p50 / p99 and peak memory.
+
+    ``serve_routed_backpressure``: queue_limit=2 under "reject" and
+    "shed", 12 requests: completed + shed + rejected == submitted, every
+    surviving request the single engine's tokens, the dropped rows zero,
+    every replica's pages back (pages_in_use 0).
+
+    ``serve_routed_autoscale``: AutoscaleConfig(1..3 replicas, window 2),
+    a burst of 12 requests from one replica, then idle router steps:
+    at least one scale-up and one scale-down (a drained replica retired),
+    every request completed."""
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.serve import AutoscaleConfig
+    params = with_act(torch, weights, cfg, dev)
+    kw = {"admission": "serial"}
+    p8, p12 = routed_prompts(np, cfg, 8), routed_prompts(np, cfg, 12)
+    single_engine(torch, cfg, params, p8[:len(PROMPT_LENS)], dev, **kw)
+    torch.cuda.synchronize()
+    want8, single_wall, single_st = single_engine(torch, cfg, params, p8,
+                                                  dev, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    toks, router, launches, wall = routed(torch, epi, cfg, params, p8, dev,
+                                          replicas=2, **kw)
+    peak = torch.cuda.max_memory_allocated()
+    rs, st = router.stats, router.engine_totals()
+    want = {k: n * fleet_forwards(router)
+            for k, n in launches_per_forward(cfg).items()}
+    engines = [r.engine for _, r in sorted(router.replicas.items())]
+    ptrs = [[t.data_ptr() for t in tree_leaves(e.params)] for e in engines]
+    done = sorted(router.completions, key=lambda c: c.uid)
+    line = routed_line = {
+            "phase": "serve_routed", "card": card, "arch": cfg.name,
+            "layers": cfg.n_layers, "replicas": len(engines),
+            "requests": len(p8), "engine_kw": kw,
+            "submitted": rs.submitted, "completed": rs.completed,
+            "tokens_identical_to_single_engine": all(
+                toks[u].tolist() == want8[u] for u in range(len(p8))),
+            "launches": launches, "want_launches": want,
+            "fleet_forwards": fleet_forwards(router),
+            "weights_shared": all(p == ptrs[0] for p in ptrs[1:]),
+            "weight_tensors": len(ptrs[0]),
+            "fleet_decode_tokens_per_s": st.decode_tokens_per_s,
+            "single_decode_tokens_per_s": single_st.decode_tokens_per_s,
+            "fleet_wall_s": wall, "single_wall_s": single_wall,
+            "router_queue_ms_p50_p99": np.percentile(
+                [c.router_queue_s * 1e3 for c in done], (50, 99)).tolist(),
+            "engine_queue_ms_p50_p99": np.percentile(
+                [c.engine_queue_s * 1e3 for c in done], (50, 99)).tolist(),
+            "max_memory_allocated_gb": peak / 1e9,
+            "per_replica_forwards": [
+                r.stats().prefill_batches + r.stats().decode_steps
+                for _, r in sorted(router.replicas.items())]}
+    emit(line)
+    assert line["tokens_identical_to_single_engine"], "routed != single"
+    assert launches == want, (launches, want)
+    assert epi.GLU_VARIANTS["tma_wgmma"] == launches["glu_2d"], \
+        dict(epi.GLU_VARIANTS)
+    assert line["weights_shared"] and len(engines) == 2
+    assert rs.completed == rs.submitted == len(p8), rs
+    router.close()
+    del router, engines, toks
+
+    want12, _, _ = single_engine(torch, cfg, params, p12, dev, **kw)
+    out = {"phase": "serve_routed_backpressure", "card": card,
+           "requests": len(p12), "queue_limit": 2, "replicas": 2}
+    for policy in ("reject", "shed"):
+        toks, router, launches, _ = routed(
+            torch, epi, cfg, params, p12, dev, replicas=2, queue_limit=2,
+            policy=policy, **kw)
+        rs = router.stats
+        zero = [b for b in range(len(p12)) if not toks[b].any()]
+        out[policy] = {
+            "submitted": rs.submitted, "completed": rs.completed,
+            "shed": rs.shed, "rejected": rs.rejected,
+            "shed_rate": rs.shed_rate, "reject_rate": rs.reject_rate,
+            "queue_peak": rs.queue_peak, "zero_rows": zero,
+            "survivors_identical": all(toks[b].tolist() == want12[b]
+                                       for b in range(len(p12))
+                                       if b not in zero),
+            "pages_in_use": [r.stats().pages_in_use
+                             for r in router.replicas.values()],
+            "launches": launches,
+            "want_launches": {k: n * fleet_forwards(router) for k, n in
+                              launches_per_forward(cfg).items()}}
+        router.close()
+        del router
+    emit(out)
+    for policy in ("reject", "shed"):
+        o = out[policy]
+        assert o["completed"] + o["shed"] + o["rejected"] == o["submitted"] \
+            == len(p12), o
+        assert o["shed" if policy == "shed" else "rejected"] > 0, o
+        assert len(o["zero_rows"]) == o["shed"] + o["rejected"], o
+        assert o["survivors_identical"], (policy, "survivor != single")
+        assert o["pages_in_use"] == [0, 0], o
+        assert o["launches"] == o["want_launches"], o
+
+    acfg = AutoscaleConfig(min_replicas=1, max_replicas=3, window=2)
+    toks, router, launches, wall = routed(
+        torch, epi, cfg, params, p12, dev, replicas=1, autoscale=acfg, **kw)
+    burst = dataclasses.asdict(router.stats)
+    idle = 0
+    while (len(router.replicas) > acfg.min_replicas
+           and idle < 40 * acfg.window):
+        router.step()
+        idle += 1
+    rs = router.stats
+    line = {"phase": "serve_routed_autoscale", "card": card,
+            "autoscale": dataclasses.asdict(acfg), "requests": len(p12),
+            "burst": burst, "idle_steps": idle,
+            "after_idle": dataclasses.asdict(rs),
+            "replicas_left": sorted(router.replicas), "wall_s": wall,
+            "tokens_identical_to_single_engine": all(
+                toks[b].tolist() == want12[b] for b in range(len(p12)))}
+    emit(line)
+    assert burst["completed"] == burst["submitted"] == len(p12), burst
+    assert rs.scale_ups >= 1 and rs.scale_downs >= 1 and rs.retired >= 1, rs
+    assert len(router.replicas) == acfg.min_replicas
+    assert line["tokens_identical_to_single_engine"], "autoscaled != single"
+    router.close()
+    del router, params
+    release(torch)
+    return routed_line
+
+
+def phase_process_replica(torch, np, base, dev, card, smoke=False):
+    """``ProcessReplica`` on the card: a spawned worker opens its own CUDA
+    context, materializes qwen3-0.6b at full width from seed 0 and casts
+    it to bf16 (ReplicaSpec defaults), and serves 4 greedy requests
+    (PROMPT_LENS, MAX_NEW tokens) with the tokens of an InProcessReplica
+    built here from ``materialize_params(cfg, seed=0)`` cast the same
+    way; the worker exits 0 after close(). The spec's config is the
+    registry's (its plain activation engine: no kernel of the port runs
+    there), and a worker's launches would not reach this process's
+    counters anyway."""
+    from repro_torch.launch.serve import _tree_cast
+    from repro_torch.models import model as M
+    from repro_torch.serve import (EngineConfig, InProcessReplica,
+                                   ProcessReplica, ReplicaSpec, Router,
+                                   RouterConfig, ServeEngine)
+    ecfg = routed_ecfg()
+    prompts = routed_prompts(np, base, len(PROMPT_LENS))
+    t0 = time.perf_counter()
+    remote = ProcessReplica(ReplicaSpec(arch="qwen3-0.6b", smoke=smoke,
+                                        seed=0, engine=ecfg, device=str(dev)))
+    startup = time.perf_counter() - t0
+    try:
+        params = _tree_cast(M.materialize_params(base, seed=0, device=dev),
+                            torch.bfloat16)
+        local = InProcessReplica(ServeEngine(base, params,
+                                             EngineConfig(**ecfg), device=dev))
+        free, total = torch.cuda.mem_get_info()
+        out = {}
+        for name, rep in (("in_process", local), ("process", remote)):
+            router = Router(lambda rid, rep=rep: rep, RouterConfig())
+            for p in prompts:
+                router.submit(p, max_new=MAX_NEW)
+            t0 = time.perf_counter()
+            out[name] = ({c.uid: c.tokens for c in router.run()},
+                         time.perf_counter() - t0)
+        worker_stats = dataclasses.asdict(remote.stats())
+    finally:
+        remote.close()
+    line = {"phase": "serve_process_replica", "card": card,
+            "arch": base.name, "layers": base.n_layers,
+            "activation": base.activation.tag(), "requests": len(prompts),
+            "startup_s": startup,
+            "serve_s": {k: v[1] for k, v in out.items()},
+            "card_memory_used_gb_both_contexts": (total - free) / 1e9,
+            "tokens_identical": out["process"][0] == out["in_process"][0],
+            "worker_exitcode": remote.exitcode,
+            "worker_prefill_requests": worker_stats["prefill_requests"],
+            "worker_decode_tokens": worker_stats["decode_tokens"],
+            "launches": "not counted: the worker's kernel counters live in "
+                        "its own process, and the registry config runs no "
+                        "kernel of the port"}
+    emit(line)
+    assert line["tokens_identical"], "process replica != in-process"
+    assert remote.exitcode == 0, remote.exitcode
+    assert all(len(t) == MAX_NEW for t in out["process"][0].values())
+    del local, params
+    release(torch)
+
+
 def with_act(torch, params, cfg, device):
     """``params`` with the ``act`` leaf of ``cfg``'s scheme: the weights
     are shared, only the approximant params differ between schemes."""
@@ -1973,16 +2453,14 @@ def main() -> int:
                           served[name]["toks"])
     # train the cr_spline pair at full width, also before any profiling,
     # then cr_fixed (quantization-aware: the straight-through gradient)
-    trained = {name: phase_train(torch, epi, name, cfg, weights, dev, card,
-                                 kernel)
-               for name, scheme, kernel, cfg in deployments
+    trained = {name: phase_train(torch, epi, name, cfg, weights, dev, card)
+               for name, scheme, _, cfg in deployments
                if scheme == "cr_spline"}
     fixed_deps = [(f"fixed_{scheme}", impl, act_impl_of(base, impl))
                   for scheme, impl in zip(SCHEMES, FIXED_IMPLS)]
     _, fixed_train, fixed_train_cfg = fixed_deps[0]       # cr_fixed
     fixed_trained = phase_train(torch, epi, fixed_train, fixed_train_cfg,
-                                weights, dev, card, None,
-                                runs=FIXED_TRAIN_RUNS)
+                                weights, dev, card, runs=FIXED_TRAIN_RUNS)
     torch.cuda.empty_cache()
     # serve under each bit-accurate integer datapath: no kernel launches
     for name, _, cfg in fixed_deps:
@@ -1999,6 +2477,14 @@ def main() -> int:
     per_layer = phase_per_layer(torch, epi, base, weights, prompts, dev,
                                 card, served["kernelized"]["toks"])
     release(torch)
+    # 3c. train the families the card had not trained (ROADMAP item 9b)
+    train_arch_lines = phase_train_archs(torch, epi, registry, dev, card)
+    release(torch)
+    # 3d. the multi-replica tier (ROADMAP item 10): routed, backpressure,
+    #     autoscale, and an engine in a spawned worker
+    routed_line = phase_routed(torch, np, epi, fused_of(base), weights, dev,
+                               card)
+    phase_process_replica(torch, np, base, dev, card)
     # both kernels against their plain versions at every shape the
     # counted served runs launched them at
     phase_kernel_checks_served(torch, epi, dev, worst)
@@ -2028,6 +2514,8 @@ def main() -> int:
                     with_act(torch, weights, cfg, dev), prompts, dev, line,
                     "paged")
     phase_arch_traces(torch, np, registry, dev, arch_lines)
+    release(torch)
+    phase_train_arch_traces(torch, registry, dev, train_arch_lines)
     release(torch)
 
     # 5. f32 prefill logits: card (kernels) vs CPU (plain versions)
@@ -2070,6 +2558,8 @@ def main() -> int:
     release(torch)
     # every new arch at f32, card against CPU (MoE: routing identical)
     phase_arch_f32_vs_cpu(torch, np, epi, registry, dev, card)
+    # each arch train run's loss and gradient at f32, card against CPU
+    phase_train_arch_f32_vs_cpu(torch, epi, registry, dev, card)
 
     # 6. the kernels line: one entry per (kernel, scheme), its launches on
     #    its own deployment's run, its timings at the decode shape (the
@@ -2115,6 +2605,12 @@ def main() -> int:
                 for run, line in list(arch_lines.items())
                 + [("serve_per_layer_" + d, ln)
                    for d, (_, ln) in per_layer.items()]}
+            if kernel == "glu_2d":
+                kernels[-1]["routed_launches"] = routed_line["launches"][kernel]
+            kernels[-1]["train_arch_launches"] = {
+                line["phase"]: {remat: run["launches"][kernel]
+                                for remat, run in line["runs"].items()}
+                for line in train_arch_lines.values()}
     emit({"phase": "total", "wall_s": time.perf_counter() - t_start,
           "card": card})
     emit({"kernels": kernels})

@@ -14,8 +14,11 @@ by default (``--cache slot`` for per-slot rings; ``--page-size``,
 ``--no-prefix-cache``, ``--chunk-prefill``, ``--token-budget`` shape the
 paged path). Every assigned ``--arch`` serves; a multi-codebook arch
 (musicgen-large) takes [B, S, K] prompts and returns [B, gen, K] tokens.
-Flags of parts not yet ported (``--model-parallel``, ``--replicas``,
-``--autoscale``, ...) raise.
+``--replicas N`` (N > 1) or ``--autoscale MIN:MAX`` serves through the
+multi-replica ``Router`` (``serve_routed``: in-process engines sharing
+one copy of the weights, a bounded router queue under
+``--router-queue`` / ``--router-policy``). ``--model-parallel`` other
+than 1 is not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -28,7 +31,10 @@ import torch
 
 from repro_torch.configs import registry
 from repro_torch.models import model as M
-from repro_torch.serve import EngineConfig, ServeEngine
+from repro_torch.serve import (AutoscaleConfig, EngineConfig,
+                               InProcessReplica, Router, RouterConfig,
+                               ServeEngine)
+from repro_torch.serve.engine import _to_device
 
 
 @dataclasses.dataclass
@@ -116,13 +122,81 @@ def serve_batch(cfg, params, prompts, gen_tokens: int, *,
         planes=K)
 
 
+def serve_routed(cfg, params, prompts, gen_tokens: int, *,
+                 replicas: int = 2, queue_limit: int = 64,
+                 policy: str = "reject", autoscale=None,
+                 temperature: float = 0.0, seed: int = 0,
+                 slots: int | None = None, chunk: int = 8,
+                 eos_id: int | None = None, device="cuda", **engine_kw):
+    """Serve ``prompts`` through the multi-replica Router: N in-process
+    ``ServeEngine`` replicas on ``device`` behind load-aware dispatch, a
+    bounded router queue, and optionally the stats-driven autoscaler
+    (``autoscale=AutoscaleConfig(...)``). The weights are moved to the
+    device and cast to the compute dtype once, here, so every replica
+    (those the autoscaler adds too) holds the same tensors: one copy.
+
+    ``prompts`` is int [B, S] ([B, S, K] for K codebooks: they route
+    exactly like scalar streams, replicas are engines), or a list of B
+    prompts of any lengths (``stats.prompt_len`` is then the longest;
+    ``router.engine_totals()`` counts the real tokens).
+
+    Returns (tokens int32 [B, gen] or [B, gen, K] on the CPU, stats,
+    router): row b holds request b's tokens; rows the router shed or
+    rejected under backpressure stay all zero (shed uids appear in
+    ``router.completions`` with finish_reason="shed"); ``stats``
+    aggregates the surviving fleet's engine counters."""
+    if not isinstance(prompts, (list, tuple)):
+        prompts = list(np.asarray(prompts))
+    B, S = len(prompts), max(len(p) for p in prompts)
+    ecfg = EngineConfig(slots=slots or max(1, B // max(replicas, 1)),
+                        max_prompt_len=S, max_len=S + gen_tokens,
+                        chunk=max(1, min(chunk, gen_tokens - 1) or 1),
+                        seed=seed, **engine_kw)
+    shared = M.compute_params(_to_device(params, torch.device(device)), cfg)
+
+    def factory(rid):
+        return InProcessReplica(ServeEngine(cfg, shared, ecfg, device=device))
+
+    router = Router(factory, RouterConfig(
+        replicas=replicas, queue_limit=queue_limit, policy=policy,
+        autoscale=autoscale))
+    # a rejected request takes no uid, so the uids after it do not count
+    # rows: keep each accepted one's row
+    row_of = {}
+    for b in range(B):
+        uid = router.submit(prompts[b], gen_tokens, temperature=temperature,
+                            eos_id=eos_id)
+        if uid is not None:
+            row_of[uid] = b
+    done = router.run()
+    K = cfg.n_codebooks
+    rows = np.zeros((B, gen_tokens, K) if K > 1 else (B, gen_tokens),
+                    np.int32)
+    for c in done:
+        if c.tokens:
+            rows[row_of[c.uid], :len(c.tokens)] = np.asarray(c.tokens,
+                                                             np.int32)
+    st = router.engine_totals()
+    return torch.from_numpy(rows), ServeStats(
+        st.prefill_s, st.decode_s, B, S, gen_tokens,
+        decode_steps=st.decode_steps, decode_tokens=st.decode_tokens,
+        planes=K), router
+
+
+def _parse_autoscale(spec: str | None):
+    """--autoscale MIN:MAX -> AutoscaleConfig (None passes through)."""
+    if spec is None:
+        return None
+    try:
+        lo, hi = (int(x) for x in spec.split(":"))
+    except ValueError:
+        raise SystemExit(f"--autoscale wants MIN:MAX, got {spec!r}")
+    return AutoscaleConfig(min_replicas=lo, max_replicas=hi)
+
+
 # flag -> (default, ROADMAP item) of reference flags not ported yet
 _UNPORTED_FLAGS = {
     "model_parallel": (1, "Queue A item 12"),
-    "replicas": (1, "Queue A item 10"),
-    "autoscale": (None, "Queue A item 10"),
-    "router_queue": (64, "Queue A item 10"),
-    "router_policy": ("reject", "Queue A item 10"),
 }
 
 
@@ -168,15 +242,24 @@ def main(argv=None):
                    help="token budget per engine iteration (requires "
                         "--chunk-prefill; default slots*chunk + "
                         "chunk_prefill)")
+    p.add_argument("--replicas", type=int, default=1,
+                   help="> 1: serve through the multi-replica Router "
+                        "(in-process engine replicas, load-aware "
+                        "dispatch; one copy of the weights)")
+    p.add_argument("--router-queue", type=int, default=64,
+                   help="bounded router admission queue (backpressure)")
+    p.add_argument("--router-policy", choices=("reject", "shed"),
+                   default="reject",
+                   help="queue-full policy: reject the newcomer or shed "
+                        "the oldest queued request")
+    p.add_argument("--autoscale", default=None, metavar="MIN:MAX",
+                   help="enable the stats-driven autoscaler with this "
+                        "replica range (implies the router path)")
     p.add_argument("--device", default="cuda",
                    help="torch device to serve on (cuda, or cpu)")
     p.add_argument("--json", default=None, help="write stats JSON here")
     # reference flags of parts not yet ported: accepted, raise if set
     p.add_argument("--model-parallel", type=int, default=1)
-    p.add_argument("--replicas", type=int, default=1)
-    p.add_argument("--autoscale", default=None)
-    p.add_argument("--router-queue", type=int, default=64)
-    p.add_argument("--router-policy", default="reject")
     args = p.parse_args(argv)
 
     for name, (default, item) in _UNPORTED_FLAGS.items():
@@ -208,13 +291,30 @@ def main(argv=None):
     prompts = rng.randint(0, min(cfg.vocab_size, 4096),
                           (args.batch, args.prompt_len) + planes
                           ).astype(np.int32)
-    tokens, stats = serve_batch(
-        cfg, params, prompts, args.gen, temperature=args.temperature,
-        seed=args.seed, slots=args.slots, chunk=args.chunk,
-        eos_id=args.eos_id, cache=args.cache, page_size=args.page_size,
-        prefix_cache=not args.no_prefix_cache,
-        chunk_prefill=args.chunk_prefill, token_budget=args.token_budget,
-        device=args.device)
+    cache_kw = dict(cache=args.cache, page_size=args.page_size,
+                    prefix_cache=not args.no_prefix_cache,
+                    chunk_prefill=args.chunk_prefill,
+                    token_budget=args.token_budget)
+    router = None
+    if args.replicas > 1 or args.autoscale:
+        tokens, stats, router = serve_routed(
+            cfg, params, prompts, args.gen, replicas=args.replicas,
+            queue_limit=args.router_queue, policy=args.router_policy,
+            autoscale=_parse_autoscale(args.autoscale),
+            temperature=args.temperature, seed=args.seed, slots=args.slots,
+            chunk=args.chunk, eos_id=args.eos_id, device=args.device,
+            **cache_kw)
+        rs = router.stats
+        print(f"[serve] router: {rs.completed}/{rs.submitted} completed "
+              f"(shed {rs.shed}, rejected {rs.rejected}) over "
+              f"{len(router.replicas)} replicas "
+              f"(peak {rs.replica_peak}, +{rs.scale_ups}/-{rs.scale_downs} "
+              f"scale actions)")
+    else:
+        tokens, stats = serve_batch(
+            cfg, params, prompts, args.gen, temperature=args.temperature,
+            seed=args.seed, slots=args.slots, chunk=args.chunk,
+            eos_id=args.eos_id, device=args.device, **cache_kw)
     print(f"[serve] prefill {stats.prefill_tokens_per_s:,.0f} tok/s "
           f"({stats.prefill_s*1e3:.0f} ms), decode "
           f"{stats.decode_tokens_per_s:,.0f} tok/s "
@@ -222,8 +322,11 @@ def main(argv=None):
           f"{args.batch} seqs) on {args.device}")
     print("[serve] sample output tokens:", tokens[0, :16].tolist())
     if args.json:
+        doc = dataclasses.asdict(stats)
+        if router is not None:
+            doc["router"] = dataclasses.asdict(router.stats)
         with open(args.json, "w") as f:
-            json.dump(dataclasses.asdict(stats), f, indent=2)
+            json.dump(doc, f, indent=2)
     return stats
 
 

@@ -44,6 +44,13 @@ class TrainHyper:
                                   # zeroed before the clip, params and
                                   # moments restored after the update, so
                                   # the datapath stays the registry build
+    donate: bool = False          # update params and optimizer state in
+                                  # place (the caller's trees are given
+                                  # up, as jax.jit's donate_argnums gives
+                                  # up buffers): one copy of both on the
+                                  # device instead of two, the same
+                                  # numbers. Port-only, for models whose
+                                  # state fills the card (16 B a param)
 
 
 def opt_state_axes(params_axes):
@@ -135,6 +142,23 @@ def make_train_step(cfg: ModelConfig, hyper: TrainHyper = TrainHyper()):
         return ((acc_l * inv, tree_map(lambda v: v * inv, acc_m)),
                 tree_map(lambda v: v * inv, acc_g))
 
+    def donated_update(params, opt_state, grads, loss, step):
+        """The update below, in place on ``params`` and ``opt_state``."""
+        gnorm = adamw.clip_by_global_norm_(grads, hyper.opt.clip_norm)
+        if hyper.grad_compression:
+            grads, new_err = compress.compress_grads(grads,
+                                                     opt_state["error"])
+        lr = adamw.cosine_schedule(hyper.opt, step, loss.device)
+        ok = (torch.isfinite(loss) & torch.isfinite(gnorm)
+              if hyper.skip_nonfinite else None)
+        adamw.adamw_update_(grads, opt_state, params, hyper.opt, lr, ok=ok,
+                            frozen=() if hyper.train_act else ("act",))
+        if hyper.grad_compression:
+            opt_state["error"] = new_err if ok is None else tree_map(
+                lambda n, o: torch.where(ok, n, o), new_err,
+                opt_state["error"])
+        return gnorm, lr, ok
+
     def train_step(params, opt_state, batch, step):
         if hyper.microbatches > 1:
             (loss, metrics), grads = accumulate(params, batch)
@@ -146,6 +170,13 @@ def make_train_step(cfg: ModelConfig, hyper: TrainHyper = TrainHyper()):
                 # global-norm clip (gnorm then matches a model without them)
                 grads = dict(grads,
                              act=tree_map(torch.zeros_like, grads["act"]))
+            if hyper.donate:
+                gnorm, lr, ok = donated_update(params, opt_state, grads,
+                                               loss, step)
+                if ok is not None:
+                    metrics = dict(metrics, skipped=(~ok).to(torch.int32))
+                return params, opt_state, dict(metrics, loss=loss,
+                                               gnorm=gnorm, lr=lr)
             grads, gnorm = adamw.clip_by_global_norm(grads,
                                                      hyper.opt.clip_norm)
             if hyper.grad_compression:

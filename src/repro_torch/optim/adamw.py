@@ -7,7 +7,10 @@ arithmetic is f32, in the reference's order, and every scalar that
 depends on the step (the schedule's learning rate, the bias corrections)
 is a 0-d f32 tensor on the params' device, so it rounds as the
 reference's ``jnp.float32`` does and nothing waits for the host.
-Updates are functional: new tensors, the inputs untouched.
+Updates are functional: new tensors, the inputs untouched. The ``_``
+variants (``clip_by_global_norm_``, ``adamw_update_``) do the same
+arithmetic in place, for a caller that gives its trees up (one copy of
+params and state on the device instead of two).
 """
 from __future__ import annotations
 
@@ -87,17 +90,31 @@ def global_norm(tree):
                           for l in leaves))
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    gnorm = global_norm(grads)
+def _clip_scale(gnorm, max_norm: float):
     # a true division, as the reference's (``max_norm / tensor`` in torch
     # multiplies by a rounded reciprocal)
-    scale = torch.clamp(torch.full_like(gnorm, max_norm)
-                        / torch.clamp(gnorm, min=1e-12), max=1.0)
+    return torch.clamp(torch.full_like(gnorm, max_norm)
+                       / torch.clamp(gnorm, min=1e-12), max=1.0)
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    gnorm = global_norm(grads)
+    scale = _clip_scale(gnorm, max_norm)
     return tree_map(lambda g: g * scale, grads), gnorm
 
 
-def adamw_update(grads, state, params, cfg: AdamWConfig, lr):
-    count = state["count"] + 1
+def clip_by_global_norm_(grads, max_norm: float):
+    """``clip_by_global_norm`` in place on ``grads``; returns gnorm."""
+    gnorm = global_norm(grads)
+    scale = _clip_scale(gnorm, max_norm)
+    for g in tree_leaves(grads):
+        g.mul_(scale)
+    return gnorm
+
+
+def _leaf_update(cfg: AdamWConfig, lr, count):
+    """One leaf's AdamW step at the incremented ``count``: (g, m, v, p) ->
+    (new p, new m, new v)."""
     b1c = 1.0 - cfg.b1 ** count.to(torch.float32)
     b2c = 1.0 - cfg.b2 ** count.to(torch.float32)
 
@@ -110,6 +127,49 @@ def adamw_update(grads, state, params, cfg: AdamWConfig, lr):
         step_ = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * p
         return p - lr * step_, m, v
 
+    return upd
+
+
+def adamw_update(grads, state, params, cfg: AdamWConfig, lr):
+    count = state["count"] + 1
+    upd = _leaf_update(cfg, lr, count)
     new_p, new_m, new_v = tree_unzip(
         tree_map(upd, grads, state["m"], state["v"], params), 3)
     return new_p, {"m": new_m, "v": new_v, "count": count}
+
+
+# elements of a leaf updated at once in place: the temporaries of one
+# piece (a few f32 copies of it) stay ~1 GB however large the leaf (a
+# layer-stacked projection of a 7B model is 1.6 G elements at 24 layers)
+UPDATE_PIECE = 1 << 26
+
+
+def _pieces(leaves):
+    """The same leaves cut into pieces of at most UPDATE_PIECE elements
+    (views: writes land in the leaves); whole where one is not
+    contiguous."""
+    if not all(t.is_contiguous() for t in leaves):
+        return [leaves]
+    return list(zip(*(t.view(-1).split(UPDATE_PIECE) for t in leaves)))
+
+
+def adamw_update_(grads, state, params, cfg: AdamWConfig, lr, ok=None,
+                  frozen=()):
+    """``adamw_update`` in place: each leaf's new p, m and v come from the
+    same arithmetic (element by element) and are written over the old
+    ones, a piece of a leaf at a time, so the device holds one piece's new
+    values beside the trees, not a second copy of them. With ``ok`` (a
+    0-d bool tensor) every leaf and ``count`` keep their old values where
+    it is false, chosen on the device. The top-level subtrees named in
+    ``frozen`` are left as they are (the functional step restores them
+    after the update)."""
+    count = state["count"] + 1
+    upd = _leaf_update(cfg, lr, count)
+    keys = [k for k in params if k not in frozen]
+    for leaves in zip(*(tree_leaves({k: t[k] for k in keys})
+                        for t in (grads, state["m"], state["v"], params))):
+        for g, m, v, p in _pieces(leaves):
+            for old, new in zip((p, m, v), upd(g, m, v, p)):
+                old.copy_(new if ok is None else torch.where(ok, new, old))
+    state["count"].copy_(count if ok is None
+                         else torch.where(ok, count, state["count"]))

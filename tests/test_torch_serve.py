@@ -263,10 +263,11 @@ def test_launcher_main_on_cpu(tmp_path, capsys):
                               "--act-impl", scheme] + extra)
             assert st.decode_steps == 2
         assert f"act_impl={scheme}" in capsys.readouterr().out
-    for flags in (["--model-parallel", "2"], ["--replicas", "2"],
-                  ["--autoscale", "1:2"]):
-        with pytest.raises(SystemExit):
-            tserve.main(["--smoke", "--device", "cpu"] + flags)
+    # the router flags are ported (tests/test_torch_router.py); only
+    # tensor parallelism is not
+    assert set(tserve._UNPORTED_FLAGS) == {"model_parallel"}
+    with pytest.raises(SystemExit):
+        tserve.main(["--smoke", "--device", "cpu", "--model-parallel", "2"])
 
 
 @pytest.mark.parametrize("flags", [

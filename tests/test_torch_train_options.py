@@ -3,6 +3,8 @@ weights (``qwen3-0.6b`` smoke, f32): remat="dots", microbatches=2,
 grad_compression, and a non-finite batch that must be skipped with the
 params unchanged. Setup, helpers and tolerances are
 ``test_torch_train.py``'s (see its docstring)."""
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -81,3 +83,50 @@ def test_nonfinite_batch_is_skipped_with_params_unchanged():
         np.testing.assert_array_equal(flat(tp2)[k], v)
     for k, v in flat(topt).items():
         np.testing.assert_array_equal(flat(to2)[k], v)
+
+
+@pytest.mark.parametrize("train_act", [False, True])
+def test_donated_step_equals_functional_step(train_act, monkeypatch):
+    """TrainHyper(donate=True) updates params and state in place with the
+    functional step's arithmetic: three steps (the second on a batch with
+    an inf embedding row, which both must skip) give bitwise the same
+    params, moments, count and metrics, and the donated trees are the
+    ones passed in. Leaves are updated in pieces (cut small here, so the
+    larger ones split unevenly)."""
+    monkeypatch.setattr(TA, "UPDATE_PIECE", 1000)
+    from repro_torch.configs import registry
+    from repro_torch.data import DataConfig, SyntheticPipeline
+    from repro_torch.launch import steps as TS
+    from repro_torch.models import model as TM
+    cfg = registry.get("qwen3-0.6b", smoke=True)
+    cfg = dataclasses.replace(cfg, compute_dtype="float32", n_layers=2)
+    pipe = SyntheticPipeline(cfg, DataConfig(seed=1, vocab_size=512), 2, 8,
+                             device="cpu")
+    opt = TA.AdamWConfig(warmup_steps=1)
+    trees = {}
+    for donate in (False, True):
+        params = TM.materialize_params(cfg, seed=0, device="cpu")
+        state = TA.init_state(params)
+        step_fn = TS.make_train_step(cfg, TS.TrainHyper(
+            opt=opt, remat="none", train_act=train_act, donate=donate))
+        metrics = []
+        for step in (1, 2, 3):
+            batch = pipe(step)
+            if step == 2:
+                params = dict(params, embed=params["embed"].clone())
+                params["embed"][int(batch["tokens"][0, 0])] = float("inf")
+            p_in, s_in = params, state
+            params, state, m = step_fn(params, state, batch, step)
+            assert (params is p_in and state is s_in) == donate
+            metrics.append({k: float(v) for k, v in m.items()})
+            if step == 2:
+                params = dict(params, embed=torch.nan_to_num(
+                    params["embed"], posinf=0.0))
+        assert [m["skipped"] for m in metrics] == [0, 1, 0]
+        trees[donate] = (flat(params), flat(state), metrics)
+    (fp, fs, fm), (dp, ds, dm) = trees[False], trees[True]
+    np.testing.assert_equal(dm, fm)        # NaN metrics of the skip alike
+    for got, want in ((dp, fp), (ds, fs)):
+        assert set(got) == set(want)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
