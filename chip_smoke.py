@@ -102,6 +102,12 @@ lines:
      "block"), their state updated in place (TrainHyper(donate=True)),
      the depth cut where the card cannot hold it (``reduced``): the same
      gates, each kernel's launches from ``launches_per_forward``.
+     The same runs train (ROADMAP item 9c) olmo-1b fused (16 layers),
+     qwen2.5-3b kernelized (36), yi-34b fused (4 of 60), llama4-scout
+     fused (1 of 48: the shared expert's glu_2d at K = 5120), and
+     qwen3-0.6b under pwl, poly and rational, fused and kernelized, and
+     under two per-layer assignments; each train line names its
+     ``scheme``.
      Then (3d) the multi-replica tier on qwen3-0.6b fused (bf16):
      ``serve_routed`` (2 in-process replicas through the launcher's
      ``serve_routed``, 8 requests: tokens equal one engine's, launches
@@ -112,6 +118,20 @@ lines:
      replicas: a burst scales up, idle steps drain and retire, nothing
      lost), ``serve_process_replica`` (an engine in a spawned worker with
      its own CUDA context: the in-process replica's tokens, exit code 0).
+     Then (3e) the autotuner (``repro_torch.core.autotune``):
+     ``autotune_grid`` (every FULL_GRID candidate and the baseline scored
+     on the card: tags, gates and max_err equal to the CPU's bit for
+     bit), ``autotune_olmo-1b`` (olmo-1b at full width, bf16, trained 40
+     steps at batch 8 x seq 64 under the uniform cr_fixed depth-64
+     baseline, then the greedy per-layer search: every layer assigned,
+     loss at most the baseline's, the final assignment's loss bits
+     reproduced, no kernel launch), ``serve_autotuned_olmo-1b`` (the
+     tuned assignment served on the paged cache, no host sync in a
+     decode chunk) and ``autotune_f32_vs_cpu`` (its f32 eval loss, card
+     against CPU, AUTOTUNE_F32_TOL); then ``examples``: the four
+     examples/torch_*.py in-process on the card (the quickstart launches
+     elementwise_2d once; train_lm twice into one checkpoint directory,
+     the second resuming).
      Then ``kernel_check_served_shapes``: both kernels at every distinct
      shape and type the served and trained runs launched them at, for
      every scheme, against their plain versions at phase 2's tolerances,
@@ -138,13 +158,14 @@ lines:
      (``trace_train_*``); the same for the ``*_fixed`` deployments
      (``trace_fixed_*``, ``trace_train_cr_fixed``), then the per-layer
      runs' and the archs' (each arch rebuilt from its seed), and one train
-     step each of falcon-mamba and hymba (``trace_train_<arch>``: where
-     the scan's backward spends its time). The archs'
-     shapes are timed too: of each arch run's recorded launches, each
+     step each of falcon-mamba and hymba at a cut depth
+     (``trace_train_<arch>``, TRAIN_ARCH_TRACED: where the scan's
+     backward spends its time). The archs' shapes are timed too: of each arch run's recorded launches, each
      kernel's decode shape and its largest per type and epilogue
      (cr_spline: ``glu_2d`` beside two ``torch.matmul`` calls, cuBLAS
      warmed first; ``elementwise_2d`` beside a copy; Mamba's f32 softplus
-     and silu among them). Profiling comes after serving and training
+     and silu among them), and glu_2d at the train runs' FFN shapes
+     (TRAIN_GLU_TIMED, M = 1024). Profiling comes after serving and training
      because a profiled process keeps paying tracing costs on every later
      launch.
   5. f32 prefill logits of every deployment on the card (kernels) against
@@ -158,14 +179,20 @@ lines:
      each arch's fused deployment (kernelized for falcon-mamba and
      musicgen, which have no gated FFN), and the MoE archs' kernelized
      ragged one, at batch 1 x 32 (qwen2-vl with patch embeddings and
-     distinct t / h / w positions, musicgen [1, 32, 4]; at the served
-     depth, MoE at one layer, falcon-mamba at two):
+     distinct t / h / w positions, musicgen [1, 32, 4]; at the depth
+     ARCH_F32_LAYERS gives, else the served one):
      each kernel launched ``launches_per_forward`` times on the card,
      1e-4 relative, and the MoE top-k experts of every token identical on
      both devices (the smallest top-k margin printed). Then
      ``train_f32_vs_cpu_<arch>``: each arch train run's loss and gradient
-     at f32 (batch 1 x 32, the same depths), card against CPU: the loss,
-     the gradient's norm and every leaf's gradient within 1e-4.
+     at f32 (batch 1 x 32, the same depths, else the train depth), card
+     against CPU: the loss, the gradient's norm and every leaf's gradient
+     within ``train_f32_tol`` (1e-4; PWL_F32_TOL with a pwl layer,
+     FIXED_F32_TOL with a ``*_fixed`` one; a Pade leaf keeps 1e-4, a pwl /
+     poly act leaf's rows are printed only). The kernelized pwl run also
+     prints where the two devices' gates straddle a knot
+     (``knot_crossings``) and a control that must fail PWL_F32_TOL: the
+     CPU's gradient under a backward taking the next segment's slope.
   6. the ``{"kernels": [...]}`` line: one entry per (kernel, scheme), its
      top-level times at decode and ``by_rows`` at every timed row count;
      ``elementwise_2d``'s entries add ``copy_ms``, ``glu_2d``'s the
@@ -175,6 +202,7 @@ lines:
      launches in each arch and per-layer run), ``train_arch_launches``
      (in each arch train run) and, for glu_2d, ``routed_launches``.
 
+Every phase line carries ``t_s``, the seconds since the script started.
 Then the card's ``nvidia-smi`` name/power line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises, exits non-zero and
 prints no ok line.
@@ -191,6 +219,7 @@ import subprocess
 import sys
 import time
 
+T_START = time.perf_counter()
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
@@ -269,6 +298,19 @@ FIXED_TRAIN_RUNS = (("none", 3, 1),)   # train_cr_fixed: 3 steps, no remat
 # the step takes 2.5e-4, ~5x.
 FIXED_LOGITS_TOL = 6e-5
 FIXED_F32_TOL = 2.5e-4
+# f32 gradients, card against the CPU, of a deployment with a pwl layer:
+# the unit's slope jumps at every knot, so a gate value that the two
+# devices' GEMMs put ~1e-7 apart on either side of a knot takes another
+# slope, and the gradient of that hidden unit's column of w_gate moves
+# with it. On an H100 (NVIDIA H100 80GB HBM3, 700.00 W), qwen3-0.6b fused
+# and kernelized pwl read 1.29e-3 (28 layers) and 4.26e-4 (8) on w_gate
+# with the loss bitwise equal; the limit is ~2.3x the worst reading. The
+# kernelized pwl line prints where the two devices' gates straddle a knot
+# (``knot_crossings``) and a control: the CPU's gradient under a backward
+# that takes the next segment's slope must fail this limit. CR splines and
+# Pade are smooth, and poly's cubic pieces meet with slopes ~1e-4 apart
+# (3.5e-6 - 5.4e-6 on the H100): they keep 1e-4.
+PWL_F32_TOL = 3e-3
 LSB_Q213 = 2.0 ** -13
 # the archs served at full width (widths never cut), each with the depth
 # it is served at where the f32 masters and bf16 copies of the whole
@@ -279,15 +321,50 @@ ARCH_RUNS = (("olmo-1b", None), ("qwen2.5-3b", None), ("yi-34b", 8),
              ("mixtral-8x22b", 2), ("llama4-scout-17b-a16e", 2),
              ("qwen2-vl-2b", None), ("hymba-1.5b", None),
              ("musicgen-large", None), ("falcon-mamba-7b", None))
-# card against CPU at f32: the MoE archs at one layer (the CPU copy ~12-17
-# GB), falcon-mamba at two (its 64 would be a 29 GB CPU copy), the others
-# at their served depth; batch 1 x 32 tokens
+# card against CPU at f32 (serve logits and train gradients), batch 1 x 32
+# tokens: the MoE archs at one layer (the CPU copy ~12-17 GB), falcon-mamba
+# at two (its 64 would be a 29 GB CPU copy), yi-34b at two and the others
+# at four (qwen3-0.6b at eight: its TRAIN_ARCH_RUNS line only, the
+# non-CR schemes and the per-layer runs; phase 5's cr_spline and cr_fixed
+# steps compare all 28 layers): the CPU's f32 forward and
+# backward of every layer took 266 s of the script's 1,070 s at the
+# served / trained depths (an H100 run), against a 1,200 s limit
 ARCH_F32_LAYERS = {"mixtral-8x22b": 1, "llama4-scout-17b-a16e": 1,
-                   "falcon-mamba-7b": 2}
+                   "falcon-mamba-7b": 2, "yi-34b": 2, "olmo-1b": 4,
+                   "qwen2.5-3b": 4, "qwen2-vl-2b": 4, "hymba-1.5b": 4,
+                   "musicgen-large": 4, "qwen3-0.6b": 8}
 ARCH_F32_TOKENS = 32
+
+
+def served_dep(name, label=None):
+    """A train run's deployment (label, config builder): the arch's
+    ``arch_deployments`` entry ``name``."""
+    return label or name, lambda base: dict(arch_deployments(base))[name]
+
+
+def scheme_dep(kind, scheme):
+    """qwen3-0.6b's ``kind`` ("fused" / "kernelized") deployment under
+    ``scheme``, as phase 3 serves it: (label, config builder)."""
+    def build(base):
+        from repro_torch.configs.common import act_impl_of, fused_of
+        if kind == "fused":
+            return fused_of(act_impl_of(base, scheme))
+        return act_impl_of(base, scheme, use_kernel=True)
+    return f"{kind}_{scheme}", build
+
+
+def per_layer_dep(name):
+    """The ``per_layer_configs`` entry ``name``: (label, config
+    builder)."""
+    return (f"per_layer_{name}",
+            lambda base: dict(per_layer_configs(base))[name])
+
+
 # ROADMAP item 9b: the families trained at full width (widths never cut),
 # bf16, batch 8 x seq 128 from the port's pipeline: (arch, depth, its
-# deployments, its runs as TRAIN_RUNS). Their state (f32 weights, grads
+# deployments as (label, config builder), its runs as TRAIN_RUNS). A run
+# of one deployment is named after the arch, else after the arch and the
+# label. Their state (f32 weights, grads
 # and two Adam moments, 16 B a param) is updated in place
 # (TrainHyper(donate=True)): the functional step holds the old and the
 # new state at once, 28 B a param and more. The depth is cut where state
@@ -295,15 +372,64 @@ ARCH_F32_TOKENS = 32
 # one layer is 2.9 B params (54 GB peak on an H100); falcon-mamba's scan
 # keeps ~1 GB a layer for the backward, and at 24 of its 64 layers a step
 # without remat peaked at 78.9 of the card's 85 GB, so it trains at 20.
+# ROADMAP item 9c adds the rest the card had not trained: olmo-1b fused
+# (1.28 B params), qwen2.5-3b kernelized (3.4 B, every layer), yi-34b fused
+# at 4 of 60 layers (3.15 B; 5 would be 3.71 B, 59.3 GB of state before
+# activations), llama4-scout fused at 1 of 48 (4.27 B, 68.4 GB of state:
+# its shared expert runs glu_2d at K = 5120), and qwen3-0.6b under the
+# other three schemes, fused and kernelized, and under two per-layer
+# assignments (the kernelized mix of four schemes and the float / fixed
+# half-and-half).
 TRAIN_ARCH_STEPS = (("none", 2, 1), ("block", 1, 2))
 TRAIN_ARCH_RUNS = (
-    ("qwen2-vl-2b", None, ("fused",), TRAIN_ARCH_STEPS),
-    ("hymba-1.5b", None, ("fused",), TRAIN_ARCH_STEPS),
-    ("musicgen-large", None, ("kernelized",), TRAIN_ARCH_STEPS),
-    ("falcon-mamba-7b", 20, ("kernelized",), TRAIN_ARCH_STEPS),
-    ("mixtral-8x22b", 1, ("kernelized", "ragged"), TRAIN_ARCH_STEPS))
+    ("qwen2-vl-2b", None, (served_dep("fused"),), TRAIN_ARCH_STEPS),
+    ("hymba-1.5b", None, (served_dep("fused"),), TRAIN_ARCH_STEPS),
+    ("musicgen-large", None, (served_dep("kernelized"),), TRAIN_ARCH_STEPS),
+    ("falcon-mamba-7b", 20, (served_dep("kernelized"),), TRAIN_ARCH_STEPS),
+    ("mixtral-8x22b", 1, (served_dep("kernelized", "gshard"),
+                          served_dep("ragged")), TRAIN_ARCH_STEPS),
+    ("olmo-1b", None, (served_dep("fused"),), TRAIN_ARCH_STEPS),
+    ("qwen2.5-3b", None, (served_dep("kernelized"),), TRAIN_ARCH_STEPS),
+    ("yi-34b", 4, (served_dep("fused"),), TRAIN_ARCH_STEPS),
+    ("llama4-scout-17b-a16e", 1, (served_dep("fused"),), TRAIN_ARCH_STEPS),
+    ("qwen3-0.6b", None, tuple(scheme_dep(kind, scheme)
+                               for scheme in SCHEMES[1:]
+                               for kind in ("fused", "kernelized"))
+     + (per_layer_dep("kernelized"), per_layer_dep("float_fixed")),
+     TRAIN_ARCH_STEPS))
 TRAIN_ARCH_HYPER = {"donate": True}
-TRAIN_ARCH_TRACED = ("falcon-mamba-7b", "hymba-1.5b")
+# glu_2d at the train runs' FFN shapes (M = TRAIN_ROWS: olmo-1b, the
+# qwen2.5-3b width, yi-34b, llama4-scout's shared expert), each timed
+# alone in phase 4 beside its bound and two cuBLAS GEMMs
+TRAIN_GLU_TIMED = ((TRAIN_ROWS, 2048, 8192), (TRAIN_ROWS, 2048, 11008),
+                   (TRAIN_ROWS, 7168, 20480), (TRAIN_ROWS, 5120, 8192))
+# one profiled train step of the Mamba families (where the scan's backward
+# spends its time), at a cut depth: at the trained 20 / 32 layers the two
+# traces took 79 s (100-171 k kernels a step), the layers being alike
+TRAIN_ARCH_TRACED = {"falcon-mamba-7b": 5, "hymba-1.5b": 8}
+TRACE_WALL_STEPS = 3            # unprofiled steps a train trace's wall reads
+# the autotuner (core/autotune.py) on the card: the reference's autotune
+# arch at full width (olmo-1b: 16 layers, d 2048, bf16), trained under the
+# uniform baseline (cr_fixed, depth 64) at the reference's batch 8 x seq 64
+# for 40 steps, then searched over FULL_GRID (an evaluation took ~0.1 s on
+# an H100, so the first sweep's 113 evaluations take ~11 s)
+AUTOTUNE_ARCH = "olmo-1b"
+AUTOTUNE_STEPS, AUTOTUNE_BATCH, AUTOTUNE_SEQ = 40, 8, 64
+# the tuned assignment's f32 eval loss, card against CPU (relative): read
+# 0.0, 3.4e-7 and 5.1e-7 on an H100 (NVIDIA H100 80GB HBM3, 700.00 W) over
+# three tuned assignments; the limit is ~4x the worst, and under what one
+# layer's unit moves the loss on average (all 16 layers from cr_fixed-d64
+# to pwl_fixed-d32 moved it 5.7e-5 relative, ~3.6e-6 a layer)
+AUTOTUNE_F32_TOL = 2e-6
+# the examples/torch_*.py run in-process on the card (--device added):
+# (example, argv); the second train_lm run is the first's command again,
+# which resumes from its checkpoint
+EXAMPLE_RUNS = (("torch_quickstart", []),
+                ("torch_train_lm", ["--preset", "100m", "--steps", "10"]),
+                ("torch_train_lm", ["--preset", "100m", "--steps", "10"]),
+                ("torch_serve_spline_lm", []),
+                ("torch_activation_ablation", ["--method", "all",
+                                               "--steps", "8"]))
 # f32 operations of each epilogue's wiring around its one tanh unit
 # (csrc/approximant.cuh epi_arg + epi_out)
 WIRING_OPS = {"tanh": 0, "sigmoid": 3, "silu": 4, "gelu_tanh": 8,
@@ -311,7 +437,18 @@ WIRING_OPS = {"tanh": 0, "sigmoid": 3, "silu": 4, "gelu_tanh": 8,
 
 
 def emit(obj) -> None:
+    """One JSON line; a phase line also gets ``t_s``, the seconds since the
+    script started."""
+    if "phase" in obj:
+        obj = dict(obj, t_s=time.perf_counter() - T_START)
     print(json.dumps(obj), flush=True)
+
+
+def zero_launches(epi) -> None:
+    """Every kernel's launch count and every glu_2d variant's to 0."""
+    for counts in (epi.LAUNCHES, epi.GLU_VARIANTS):
+        for k in counts:
+            counts[k] = 0
 
 
 def card_line() -> str:
@@ -876,9 +1013,10 @@ def arch_time_cases(torch, epi, dev, gen, arch_lines):
     """phase_kernel_times' cases at the archs' shapes, under cr_spline (the
     scheme they serve): of each arch run's launches (``kernel_shapes`` of
     its serve line), for each kernel, type and epilogue, the decode shape
-    (fewest rows) and the largest; glu_2d beside two torch.matmul calls,
-    elementwise_2d beside a copy. Keyed (kernel, "cr_spline", "MxKxN" or
-    "RxC"), the name suffixed ":<dtype>:<act>" unless bf16 silu."""
+    (fewest rows) and the largest, and glu_2d at TRAIN_GLU_TIMED; glu_2d
+    beside two torch.matmul calls, elementwise_2d beside a copy. Keyed
+    (kernel, "cr_spline", "MxKxN" or "RxC"), the name suffixed
+    ":<dtype>:<act>" unless bf16 silu."""
     picked = {}
     for line in arch_lines.values():
         groups = {}
@@ -888,6 +1026,8 @@ def arch_time_cases(torch, epi, dev, gen, arch_lines):
             got.sort()
             picked.setdefault((kernel, got[0], dt, act), "decode")
             picked.setdefault((kernel, got[-1], dt, act), "prefill")
+    for shape in TRAIN_GLU_TIMED:
+        picked.setdefault(("glu_2d", shape, "bfloat16", "silu"), "train")
     cases = {}
     for (kernel, shape, dt, act), where in sorted(picked.items()):
         name = "x".join(map(str, shape))
@@ -969,9 +1109,7 @@ def drive(torch, epi, cfg, params, prompts, dev, **ecfg):
     type's variant (tma_wgmma at bf16, simt_f32 at f32); every request
     completes with MAX_NEW tokens and every page comes back. Each launch's
     shape goes into SERVED_SHAPES. Returns a Served."""
-    for counts in (epi.LAUNCHES, epi.GLU_VARIANTS):
-        for k in counts:
-            counts[k] = 0
+    zero_launches(epi)
     with ShapeLog(epi) as log:
         done, eng = serve(torch, cfg, params, prompts, dev, **ecfg)
     launches = dict(epi.LAUNCHES)
@@ -1141,6 +1279,22 @@ def phase_chunked(torch, epi, name, cfg, params32, prompts, dev, card,
     emit(out)
 
 
+def decode_chunk_sync_check(torch, cfg, eng):
+    """One decode chunk of ``eng`` (requests admitted; with its write mask
+    when paged) under CUDA's sync debug mode "error". A decode chunk
+    enqueues all its steps without one host sync: any sync inside (a copy
+    from host memory, .item(), ...) raises here."""
+    from repro_torch.serve.engine import make_decode_chunk
+    chunk = make_decode_chunk(cfg, CHUNK, paged=eng.paged)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        chunk(eng.params, eng.cache, eng.state, 0, [0] * SLOTS,
+              [0] * SLOTS, [0.0] * SLOTS)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
 def phase_trace(torch, name, cfg, params, prompts, dev, serve_line, cache):
     """Where a decode step's time goes: one decode chunk of the same
     engine under the profiler (device activity only). Device busy time
@@ -1152,7 +1306,6 @@ def phase_trace(torch, name, cfg, params, prompts, dev, serve_line, cache):
     the chunk makes the host wait."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve import EngineConfig, ServeEngine
-    from repro_torch.serve.engine import make_decode_chunk
     eng = ServeEngine(cfg, params, EngineConfig(
         slots=SLOTS, max_prompt_len=MAX_PROMPT, max_len=MAX_LEN,
         chunk=CHUNK, page_size=PAGE_SIZE, cache=cache), device=dev)
@@ -1163,16 +1316,7 @@ def phase_trace(torch, name, cfg, params, prompts, dev, serve_line, cache):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         eng.step()                      # one decode chunk, ends at a sync
     steps = eng.stats.decode_steps - steps0
-    # a decode chunk enqueues all its steps without one host sync: any
-    # sync inside (a copy from host memory, .item(), ...) raises here
-    chunk = make_decode_chunk(cfg, CHUNK, paged=eng.paged)
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        chunk(eng.params, eng.cache, eng.state, 0, [0] * SLOTS,
-              [0] * SLOTS, [0.0] * SLOTS)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
+    decode_chunk_sync_check(torch, cfg, eng)
     evs = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     wall_step = serve_line["decode_s"] / serve_line["decode_steps"]
@@ -1257,7 +1401,7 @@ def phase_train(torch, epi, name, cfg, weights, dev, card, runs=TRAIN_RUNS,
             "layers": cfg.n_layers, "vocab": cfg.vocab_size,
             "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
             "planes": cfg.n_codebooks, "compute_dtype": cfg.compute_dtype,
-            "scheme": cfg.act_impl or cfg.activation.impl,
+            "scheme": train_scheme(cfg),
             "moe_impl": cfg.moe_impl if cfg.n_experts else None,
             "hyper": hyper, "launches_per_forward": per_fwd, **extra,
             "runs": {}}
@@ -1272,9 +1416,7 @@ def phase_train(torch, epi, name, cfg, weights, dev, card, runs=TRAIN_RUNS,
             del params, opt
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            for counts in (epi.LAUNCHES, epi.GLU_VARIANTS):
-                for k in counts:
-                    counts[k] = 0
+            zero_launches(epi)
             with ShapeLog(epi) as log:
                 drv.run(n_steps)
             for key, n in log.shapes.items():
@@ -1325,10 +1467,11 @@ def phase_train(torch, epi, name, cfg, weights, dev, card, runs=TRAIN_RUNS,
 def phase_train_trace(torch, name, cfg, weights, dev, train_line,
                       hyper=None):
     """Where a train step's time goes: one step (the train line's first
-    remat) under the profiler, after one warm step, against the
-    unprofiled median wall time per step of that run: device busy ms,
-    idle share, kernels per step and the top kernels with their
-    launches. ``hyper`` as phase_train's."""
+    remat) under the profiler, after a warm step and TRACE_WALL_STEPS
+    unprofiled steps whose median wall time it is held against (the same
+    depth, which may be cut below the train run's): device busy ms, idle
+    share, kernels per step and the top kernels with their launches.
+    ``hyper`` as phase_train's."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch import steps as TS
     from repro_torch.optim import adamw
@@ -1341,12 +1484,18 @@ def phase_train_trace(torch, name, cfg, weights, dev, train_line,
                                                     **(hyper or {})))
     params, opt, m = step_fn(params, opt, batch, 1)
     float(m["loss"])
+    walls = []
+    for step in range(2, 2 + TRACE_WALL_STEPS):
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batch, step)
+        float(m["loss"])
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = statistics.median(walls)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _, _, m = step_fn(params, opt, batch, 2)
+        _, _, m = step_fn(params, opt, batch, 2 + TRACE_WALL_STEPS)
         float(m["loss"])
     evs = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
-    wall = train_line["runs"][remat]["step_wall_ms_median"]
     busy = sum(us for _, us in evs) / 1e3
     by_name = {}
     for n, us in evs:
@@ -1354,6 +1503,7 @@ def phase_train_trace(torch, name, cfg, weights, dev, train_line,
         by_name[n] = (t + us, k + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP_KERNELS]
     emit({"phase": "trace_train_" + name, "remat": remat,
+          "layers": cfg.n_layers, "train_layers": train_line["layers"],
           "wall_ms_per_step": wall, "device_busy_ms_per_step": busy,
           "device_idle_share": 1.0 - busy / wall if evs else None,
           "repro_kernel_ms_per_step": sum(us for n, us in evs
@@ -1916,9 +2066,34 @@ def phase_arch_f32_vs_cpu(torch, np, epi, registry, dev, card):
         release(torch)
 
 
-def train_arch_name(arch, cfg, deps) -> str:
-    """An arch train run's name: the arch, and for MoE its dispatch."""
-    return arch if len(deps) == 1 else f"{arch}_{cfg.moe_impl}"
+def train_arch_name(arch, label, deps) -> str:
+    """An arch train run's name: the arch alone when it trains one
+    deployment, else the arch and the deployment's label."""
+    return arch if len(deps) == 1 else f"{arch}_{label}"
+
+
+def train_scheme(cfg) -> str:
+    """The scheme of a train run's layers (a ``*_fixed`` impl as named;
+    "per_layer" under a per-layer assignment): the train line's
+    ``scheme``, by which the kernels line finds each scheme's runs."""
+    from repro_torch.core.activations import scheme_of
+    if cfg.act_layers:
+        return "per_layer"
+    impl = cfg.layer_activation_configs()[0].impl
+    return scheme_of(impl) or impl
+
+
+def train_f32_tol(cfg, tol: float) -> float:
+    """The f32 train comparison's tolerance for ``cfg``: FIXED_F32_TOL
+    where a layer runs a ``*_fixed`` datapath, PWL_F32_TOL where a layer's
+    unit is pwl (see both), else ``tol``."""
+    from repro_torch.core.activations import fixed_scheme_of, scheme_of
+    layers = cfg.layer_activation_configs()
+    if any(fixed_scheme_of(c.impl) for c in layers):
+        return FIXED_F32_TOL
+    if any(scheme_of(c.impl) == "pwl" for c in layers):
+        return PWL_F32_TOL
+    return tol
 
 
 def phase_train_archs(torch, epi, registry, dev, card, runs=TRAIN_ARCH_RUNS):
@@ -1930,17 +2105,16 @@ def phase_train_archs(torch, epi, registry, dev, card, runs=TRAIN_ARCH_RUNS):
     lines = {}
     for arch, depth, deps, arch_runs in runs:
         full, base = arch_config(registry, arch, depth)
-        cfgs = dict(arch_deployments(base))
         reduced = {} if depth is None else {"n_layers": [depth,
                                                          full.n_layers]}
-        for dep in deps:
-            name = train_arch_name(arch, cfgs[dep], deps)
+        for label, build in deps:
+            name, cfg = train_arch_name(arch, label, deps), build(base)
             weights = M.materialize_params(base, seed=0, device=dev)
             lines[name] = phase_train(
-                torch, epi, name, cfgs[dep], weights, dev, card,
-                runs=arch_runs, hyper=TRAIN_ARCH_HYPER, deployment=dep,
+                torch, epi, name, cfg, weights, dev, card,
+                runs=arch_runs, hyper=TRAIN_ARCH_HYPER, deployment=label,
                 reduced=reduced, full_layers=full.n_layers,
-                params_trained=cfgs[dep].param_count())
+                params_trained=cfg.param_count())
             del weights
             release(torch)
     return lines
@@ -1949,17 +2123,17 @@ def phase_train_archs(torch, epi, registry, dev, card, runs=TRAIN_ARCH_RUNS):
 def phase_train_arch_traces(torch, registry, dev, lines,
                             runs=TRAIN_ARCH_RUNS):
     """One profiled train step of each arch of TRAIN_ARCH_TRACED
-    (phase_train_trace), on the same model rebuilt from the same seed."""
+    (phase_train_trace), at its depth there, on the model rebuilt from the
+    same seed."""
     from repro_torch.models import model as M
-    for arch, depth, deps, _ in runs:
+    for arch, _, deps, _ in runs:
         if arch not in TRAIN_ARCH_TRACED:
             continue
-        _, base = arch_config(registry, arch, depth)
-        cfgs = dict(arch_deployments(base))
-        for dep in deps:
-            name = train_arch_name(arch, cfgs[dep], deps)
+        _, base = arch_config(registry, arch, TRAIN_ARCH_TRACED[arch])
+        for label, build in deps:
+            name = train_arch_name(arch, label, deps)
             weights = M.materialize_params(base, seed=0, device=dev)
-            phase_train_trace(torch, name, cfgs[dep], weights, dev,
+            phase_train_trace(torch, name, build(base), weights, dev,
                               lines[name], hyper=TRAIN_ARCH_HYPER)
             del weights
             release(torch)
@@ -1972,7 +2146,96 @@ def _flat(tree, prefix=""):
     return {prefix.lstrip("/"): tree}
 
 
-def phase_train_arch_f32_vs_cpu(torch, epi, registry, dev, card,
+class ActInputs:
+    """Records, while active, a host copy of the input of every
+    ``elementwise_2d`` call, kernel or plain route, in call order (the
+    model reaches the wrapper through the module, as ``ShapeLog``)."""
+
+    def __init__(self, epi):
+        self.epi, self.inputs = epi, []
+
+    def __enter__(self):
+        self.orig = self.epi.elementwise_2d
+
+        def call(x, *args, **kw):
+            self.inputs.append(x.detach().cpu())
+            return self.orig(x, *args, **kw)
+
+        self.epi.elementwise_2d = call
+        return self
+
+    def __exit__(self, *exc):
+        self.epi.elementwise_2d = self.orig
+
+
+class NextSegmentSlope:
+    """While active, the act's recompute backward (``ops._act_ref_math``)
+    takes each segment's slope from the next segment's row of a pwl
+    [value, delta] table (the last keeps its own): a deliberately wrong
+    backward, with the forward untouched, that the f32 limit must
+    refuse."""
+
+    def __init__(self, torch, ops):
+        self.torch, self.ops = torch, ops
+
+    def __enter__(self):
+        torch, self.orig = self.torch, self.ops._act_ref_math
+        orig = self.orig
+
+        def wrong(spec, act, x, params):
+            delta = torch.cat([params[1:, 1:], params[-1:, 1:]])
+            return orig(spec, act, x, torch.cat([params[:, :1], delta], 1))
+
+        self.ops._act_ref_math = wrong
+        return self
+
+    def __exit__(self, *exc):
+        self.ops._act_ref_math = self.orig
+
+
+def knot_crossings(torch, card_in, cpu_in, cfg, diff):
+    """Where the card's and the CPU's gate values (``ActInputs``: one
+    [tokens, F] a layer) lie in different segments of ``cfg``'s pwl unit
+    under silu (the inner tanh's argument |v / 2| over the period;
+    ``depth`` past x_max), set against ``diff`` ([L, d, F]: |card - CPU|
+    of w_gate's gradient): the count, the worst entry with the straddling
+    tokens of its column (the gate on each device and the knot between
+    them, in gate units), and the 10 columns whose gradient differs most
+    (their max |diff|, and how many hold a crossing)."""
+    from repro_torch.core.activations import tanh_spec_of
+    assert cfg.mlp_act == "silu", cfg.mlp_act
+    spec = tanh_spec_of(cfg.activation)
+
+    def seg(v):
+        return torch.clamp(torch.floor((v * 0.5).abs() * spec.inv_period),
+                           0, spec.depth).long()
+
+    cross = torch.stack([seg(a) != seg(b) for a, b in zip(card_in, cpu_in)])
+    cols = cross.any(dim=1)                                  # [L, F]
+    colmax = diff.amax(dim=1)                                # [L, F]
+    top = torch.topk(colmax.flatten(), 10).indices
+    f = diff.shape[2]
+    l, i, j = (int(n) for n in torch.unravel_index(diff.argmax(),
+                                                   diff.shape))
+    straddle = [{"token": t, "gate": {"card": float(card_in[l][t, j]),
+                                      "cpu": float(cpu_in[l][t, j])},
+                 "segments": [int(seg(card_in[l][t, j])),
+                              int(seg(cpu_in[l][t, j]))],
+                 "knot": 2.0 * spec.period * max(
+                     int(seg(card_in[l][t, j])), int(seg(cpu_in[l][t, j])))}
+                for t in cross[l, :, j].nonzero().flatten().tolist()]
+    return {"elements": int(cross.sum()), "of": cross.numel(),
+            "columns": int(cols.sum()), "of_columns": cols.numel(),
+            "worst_w_gate_entry": {"layer": l, "row": i, "column": j,
+                                   "abs_diff": float(diff[l, i, j])},
+            "worst_column_straddles": straddle,
+            "top10_columns_with_a_crossing": int(
+                cols.flatten()[top].sum()),
+            "top10_columns": [[int(n) // f, int(n) % f] for n in top],
+            "top10_columns_max_abs_diff": colmax.flatten()[top].tolist()}
+
+
+def phase_train_arch_f32_vs_cpu(torch, epi, ops, registry, dev, card,
                                 runs=TRAIN_ARCH_RUNS):
     """Each arch train run's deployment at f32, batch TRAIN_F32_BATCH x
     TRAIN_F32_SEQ from the pipeline (qwen2-vl's patch embeddings and
@@ -1983,73 +2246,116 @@ def phase_train_arch_f32_vs_cpu(torch, epi, registry, dev, card,
     is the same for every arch) on the card (kernels, each launched
     launches_per_forward(cfg) times) and on the CPU (plain versions), same
     weights. The loss, the gradient's global norm (the act leaf's frozen
-    gradient left out, as the step clips) and every leaf's gradient (the
-    act leaf per knot, ``knot_grad``) within 1e-4 relative (max |diff|
-    over max |cpu|); MoE: the top-k experts of every token identical."""
+    gradient left out, as the step clips) and every leaf's gradient (a CR
+    act leaf per knot, ``knot_grad``; a Pade leaf per entry) within 1e-4
+    relative (max |diff| over max |cpu|; ``train_f32_tol``: looser where
+    a layer runs a ``*_fixed`` datapath or a pwl unit, but a Pade leaf
+    keeps 1e-4); MoE: the top-k experts of every token identical. A pwl /
+    poly act leaf's rows are printed, not gated. The kernelized pwl run
+    also prints ``knot_crossings``: where w_gate's gradient differs by
+    more than 1e-4, its worst entry's column must hold a gate that
+    straddles a knot; and a control: the CPU's gradient under
+    ``NextSegmentSlope`` must fail its limit."""
+    from repro_torch.core.activations import ActivationConfig, tanh_spec_of
     from repro_torch.launch import steps as TS
     from repro_torch.models import layers as L
     from repro_torch.models import model as M
     from repro_torch.optim.adamw import global_norm, tree_leaves, tree_map
     tol = 1e-4
+
+    def act_scheme(key):
+        return tanh_spec_of(ActivationConfig.from_tag(
+            key.split("/", 1)[1])).scheme
+
+    def grads_on(where, tree, cfg, engine, batch):
+        """loss, gnorm and every leaf's gradient (flat) on ``where``, the
+        routing decisions, the act inputs and the launches."""
+        leaf = tree_map(lambda t: t.detach().requires_grad_(),
+                        with_act(torch, tree, cfg, where))
+        batch = {k: v.to(where) for k, v in batch.items()}
+        n0 = dict(epi.LAUNCHES)
+        with RoutingLog(torch, L) as log, ActInputs(epi) as acts:
+            loss, _ = M.loss_fn(leaf, batch, cfg, engine, remat="none")
+        launched = {k: n - n0[k] for k, n in epi.LAUNCHES.items()}
+        leaves = tree_leaves(leaf)
+        by_id = dict(zip(map(id, leaves), torch.autograd.grad(
+            loss, leaves, allow_unused=True, materialize_grads=True)))
+        grads = tree_map(lambda t: by_id[id(t)], leaf)
+        got = {"loss": float(loss.detach()),
+               "gnorm": float(global_norm({k: v for k, v in grads.items()
+                                           if k != "act"})),
+               "grads": _flat(grads)}
+        return got, log, acts.inputs, launched
+
+    def grad_rel(got, ref, on, keep_w_gate=False):
+        """{"grad <leaf>": rel} of ``got``'s gradients against ``ref``'s,
+        the limit of each that is not the run's, the pwl / poly rows'
+        per-entry rel (printed only) and, if asked, |diff| of w_gate's
+        gradient (on the host)."""
+        rel, limits, rows_rel, wg = {}, {}, {}, None
+        for k, g in ref["grads"].items():
+            a = got["grads"][k]
+            scheme = act_scheme(k) if k.startswith("act/") else None
+            if scheme in ("pwl", "poly"):
+                # a gate value that crosses a segment boundary moves its
+                # whole contribution to the next row: no knot basis sums
+                # it back, so a row's gradient is printed, not gated
+                rows_rel[k] = float((a.cpu() - g).abs().max()
+                                    / g.abs().max())
+                continue
+            if scheme == "cr_spline":
+                a, g = knot_grad(torch, a.cpu()), knot_grad(torch, g)
+            else:
+                g = g.to(on)
+                if scheme == "rational":
+                    limits["grad " + k] = tol      # smooth: keeps 1e-4
+            diff = (a - g).abs()
+            if keep_w_gate and k == "blocks/ffn/w_gate":
+                wg = diff.cpu()
+            scale = float(g.abs().max())
+            rel["grad " + k] = (float(diff.max()) / scale if scale
+                                else float(diff.max()))
+            del a, g, diff
+        return rel, limits, rows_rel, wg
+
     for arch, depth, deps, _ in runs:
         full, base = arch_config(registry, arch,
                                  ARCH_F32_LAYERS.get(arch, depth))
         base = dataclasses.replace(base, compute_dtype="float32")
-        cfgs = dict(arch_deployments(base))
         t0 = time.perf_counter()
         weights = M.materialize_params(base, seed=0, device=dev)
         weights_cpu = _tree_to(weights, "cpu")
         cpu_batch = train_pipe(base, TRAIN_F32_BATCH, TRAIN_F32_SEQ, "cpu")(0)
         setup_s = time.perf_counter() - t0
-        for dep in deps:
-            cfg = cfgs[dep]
+        for label, build in deps:
+            cfg = build(base)
+            dep_tol = train_f32_tol(cfg, tol)
             engine = TS.make_engine(cfg)
-            got, routes, secs = {}, {}, {}
+            got, routes, acts, secs = {}, {}, {}, {}
             for where, tree in ((dev, weights), ("cpu", weights_cpu)):
                 t0 = time.perf_counter()
-                leaf = tree_map(lambda t: t.detach().requires_grad_(),
-                                with_act(torch, tree, cfg, where))
-                batch = {k: v.to(where) for k, v in cpu_batch.items()}
-                n0 = dict(epi.LAUNCHES)
-                with RoutingLog(torch, L) as log:
-                    loss, _ = M.loss_fn(leaf, batch, cfg, engine,
-                                        remat="none")
-                launched = {k: n - n0[k] for k, n in epi.LAUNCHES.items()}
-                leaves = tree_leaves(leaf)
-                by_id = dict(zip(map(id, leaves), torch.autograd.grad(
-                    loss, leaves, allow_unused=True, materialize_grads=True)))
-                grads = tree_map(lambda t: by_id[id(t)], leaf)
-                del leaf, leaves, by_id
-                got[str(where)] = {
-                    "loss": float(loss.detach()),
-                    "gnorm": float(global_norm({k: v for k, v in
-                                                grads.items() if k != "act"})),
-                    "grads": _flat(grads)}
-                routes[str(where)] = log
+                got[str(where)], routes[str(where)], acts[str(where)], \
+                    launched = grads_on(where, tree, cfg, engine, cpu_batch)
                 secs[str(where)] = time.perf_counter() - t0
                 if where == dev:
                     assert launched == launches_per_forward(cfg), (
-                        arch, dep, launched)
-                del grads, loss
+                        arch, label, launched)
             card_, cpu = got[str(dev)], got["cpu"]
             rel = {k: abs(card_[k] - cpu[k]) / abs(cpu[k])
                    for k in ("loss", "gnorm")}
+            name = train_arch_name(arch, label, deps)
+            scheme = train_scheme(cfg)
+            # the kernelized pwl run: where the gates straddle a knot, and
+            # the control
+            pwl_kern = scheme == "pwl" and launches_per_forward(cfg).get(
+                "elementwise_2d") == cfg.n_layers
             t0 = time.perf_counter()
-            for k, g in cpu["grads"].items():
-                # the act leaf per knot on the host; the rest on the card
-                a = card_["grads"][k]
-                if k.startswith("act/"):
-                    a, g = knot_grad(torch, a.cpu()), knot_grad(torch, g)
-                else:
-                    g = g.to(dev)
-                scale = float(g.abs().max())
-                diff = float((a - g).abs().max())
-                rel["grad " + k] = diff / scale if scale else diff
-                del a, g
+            grel, limits, rows_rel, wg_diff = grad_rel(card_, cpu, dev,
+                                                       keep_w_gate=pwl_kern)
+            rel.update(grel)
             secs.update(setup=setup_s, compare=time.perf_counter() - t0)
-            name = train_arch_name(arch, cfgs[dep], deps)
             line = {"phase": "train_f32_vs_cpu_" + name, "card": card,
-                    "arch": arch, "deployment": dep,
+                    "arch": arch, "deployment": label, "scheme": scheme,
                     "moe_impl": cfg.moe_impl if cfg.n_experts else None,
                     "layers": cfg.n_layers, "full_layers": full.n_layers,
                     "batch": TRAIN_F32_BATCH, "seq": TRAIN_F32_SEQ,
@@ -2058,11 +2364,34 @@ def phase_train_arch_f32_vs_cpu(torch, epi, registry, dev, card,
                     "gnorm": {"card": card_["gnorm"], "cpu": cpu["gnorm"]},
                     "launches": launches_per_forward(cfg),
                     "rel_max": max(rel.values()), "rel": rel,
-                    "tolerance_rel": tol, "act_grad_compared": "per knot",
-                    "optimizer": "not compared here (train_f32_vs_cpu)",
-                    "seconds": {"setup": secs["setup"],
-                                "card": secs[str(dev)], "cpu": secs["cpu"],
-                                "compare": secs["compare"]}}
+                    "tolerance_rel": dep_tol, "tolerance_rel_of": limits,
+                    "act_grad_compared": "CR per knot, Pade per entry",
+                    "act_rows_grad_rel_not_gated": rows_rel,
+                    "optimizer": "not compared here (train_f32_vs_cpu)"}
+            control_failed, straddled = True, True
+            if pwl_kern:
+                line["knot_crossings"] = knot_crossings(
+                    torch, acts[str(dev)], acts["cpu"], cfg, wg_diff)
+                # the pwl limit covers knot crossings only
+                straddled = (rel["grad blocks/ffn/w_gate"] <= tol or bool(
+                    line["knot_crossings"]["worst_column_straddles"]))
+                t0 = time.perf_counter()
+                with NextSegmentSlope(torch, ops):
+                    wrong = grads_on("cpu", weights_cpu, cfg, engine,
+                                     cpu_batch)[0]
+                crel = grad_rel(wrong, cpu, "cpu")[0]
+                worst = max(crel, key=crel.get)
+                control_failed = crel[worst] > dep_tol
+                line["control"] = {
+                    "fault": "backward takes the next segment's slope "
+                             "(CPU against CPU)",
+                    "loss_bitwise_equal": wrong["loss"] == cpu["loss"],
+                    "rel_max": crel[worst], "leaf": worst,
+                    "fails_the_limit": control_failed,
+                    "seconds": time.perf_counter() - t0}
+                del wrong
+            line["seconds"] = {"setup": secs["setup"], "card": secs[str(dev)],
+                               "cpu": secs["cpu"], "compare": secs["compare"]}
             same = True
             if cfg.n_experts:
                 rc, rp = routes[str(dev)], routes["cpu"]
@@ -2072,10 +2401,15 @@ def phase_train_arch_f32_vs_cpu(torch, epi, registry, dev, card,
                             routing_calls=len(rc.ids),
                             min_topk_margin=min(rc.margins + rp.margins))
             emit(line)
-            del got
-            assert same, (arch, dep, "top-k experts differ between card and "
-                          "CPU", line.get("min_topk_margin"))
-            assert all(v <= tol for v in rel.values()), (name, rel)
+            del got, acts, wg_diff
+            assert same, (arch, label, "top-k experts differ between card "
+                          "and CPU", line.get("min_topk_margin"))
+            assert all(v <= limits.get(k, dep_tol) for k, v in rel.items()), (
+                name, rel)
+            assert control_failed, ("a wrong pwl backward passes the limit",
+                                    line["control"])
+            assert straddled, ("w_gate's worst gradient column holds no "
+                               "knot crossing", line["knot_crossings"])
         del weights, weights_cpu
         release(torch)
 
@@ -2118,9 +2452,7 @@ def routed(torch, epi, cfg, params, prompts, dev, **kw):
     launch's shape into SERVED_SHAPES. Returns (tokens [B, MAX_NEW],
     router, launches, wall seconds)."""
     from repro_torch.launch.serve import serve_routed
-    for counts in (epi.LAUNCHES, epi.GLU_VARIANTS):
-        for k in counts:
-            counts[k] = 0
+    zero_launches(epi)
     t0 = time.perf_counter()
     with ShapeLog(epi) as log:
         toks, _, router = serve_routed(
@@ -2336,6 +2668,207 @@ def phase_process_replica(torch, np, base, dev, card, smoke=False):
     release(torch)
 
 
+def phase_autotune_grid(torch, dev, card):
+    """Every FULL_GRID candidate and the baseline scored on the card and
+    on the CPU (``candidate_grid`` / ``candidate_of``: NAND2 gates, and
+    the max error of the bit-accurate fixed datapath over the whole
+    Q-format lattice): tags, gates and max_err equal bit for bit. Returns
+    the card's (candidates, baseline)."""
+    from repro_torch.core import autotune as AT
+    got, secs = {}, {}
+    for where in (dev, "cpu"):
+        t0 = time.perf_counter()
+        got[str(where)] = (AT.candidate_grid(AT.FULL_GRID, device=where),
+                           AT.candidate_of(AT.BASELINE_ACT, device=where))
+        secs[str(where)] = time.perf_counter() - t0
+    (cands, base), (cpu_cands, cpu_base) = got[str(dev)], got["cpu"]
+    same = [(a.tag, a.gates, a.max_err) == (b.tag, b.gates, b.max_err)
+            for a, b in zip(cands + [base], cpu_cands + [cpu_base])]
+    emit({"phase": "autotune_grid", "card": card, "grid": "FULL_GRID",
+          "candidates": [c.row() for c in cands], "baseline": base.row(),
+          "cheaper_than_baseline": [c.tag for c in sorted(
+              cands, key=lambda c: c.gates) if c.gates < base.gates],
+          "card_equals_cpu": same, "seconds": secs})
+    assert all(same), same
+    return cands, base
+
+
+def phase_autotune(torch, epi, registry, dev, card, cands, base):
+    """The autotuner at full width on the card: ``train_smoke`` of
+    AUTOTUNE_ARCH under the uniform baseline (in place), ``make_eval_fn``
+    at the same batch and seq, ``greedy_assign`` over the grid. Gates: the
+    assignment covers every layer, its loss is at most the baseline's,
+    the final assignment evaluated again gives the same loss bits, and
+    neither kernel launches in the training or the evaluations (a
+    ``*_fixed`` datapath has no kernel). Returns (config, params,
+    AutotuneResult)."""
+    from repro_torch.core import autotune as AT
+    cfg = dataclasses.replace(registry.get(AUTOTUNE_ARCH),
+                              activation=AT.BASELINE_ACT)
+    zero_launches(epi)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = AT.train_smoke(cfg, AUTOTUNE_STEPS, AUTOTUNE_BATCH,
+                            AUTOTUNE_SEQ, device=dev)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_launches = dict(epi.LAUNCHES)
+    oracle = AT.make_eval_fn(cfg, params, batch=AUTOTUNE_BATCH,
+                             seq=AUTOTUNE_SEQ, device=dev)
+    evals = []
+
+    def eval_fn(layer_cfgs):
+        t = time.perf_counter()
+        loss = oracle(layer_cfgs)
+        evals.append(time.perf_counter() - t)
+        return loss
+
+    # one evaluation of the baseline ahead of the search, which the
+    # search's own first evaluation must reproduce bit for bit
+    first_loss = eval_fn((AT.BASELINE_ACT,) * cfg.n_layers)
+    zero_launches(epi)
+    logs = []
+    t0 = time.perf_counter()
+    res = AT.greedy_assign(eval_fn, cfg.n_layers, cands, base,
+                           log=logs.append)
+    search_s = time.perf_counter() - t0
+    again = oracle(tuple(c.act for c in res.assignment))
+    eval_launches = dict(epi.LAUNCHES)
+    line = {"phase": f"autotune_{AUTOTUNE_ARCH}", "card": card,
+            "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+            "compute_dtype": cfg.compute_dtype, "baseline": base.tag,
+            "train": {"steps": AUTOTUNE_STEPS, "batch": AUTOTUNE_BATCH,
+                      "seq": AUTOTUNE_SEQ, "seconds": train_s,
+                      "launches": train_launches},
+            "grid": "FULL_GRID", "candidates": len(cands),
+            "assignment": [c.row() for c in res.assignment],
+            "gates": res.gates, "base_gates": res.base_gates,
+            "gates_saved_frac": 1.0 - res.gates / res.base_gates,
+            "loss": res.loss, "base_loss": res.base_loss,
+            "baseline_eval_before_search": first_loss,
+            "loss_again": again, "same_loss_bits": again == res.loss,
+            "evals": res.evals, "history": res.history, "log": logs,
+            "eval_s": {"median": statistics.median(evals), "max": max(evals),
+                       "sum": sum(evals), "n": len(evals)},
+            "search_s": search_s, "eval_launches": eval_launches,
+            "max_memory_allocated_gb": torch.cuda.max_memory_allocated()
+            / 1e9}
+    emit(line)
+    assert len(res.assignment) == cfg.n_layers, res.assignment
+    assert math.isfinite(res.base_loss) and res.loss <= res.base_loss, line
+    assert first_loss == res.base_loss, (first_loss, res.base_loss)
+    assert again == res.loss, (again, res.loss)
+    assert not any(train_launches.values()), train_launches
+    assert not any(eval_launches.values()), eval_launches
+    return cfg, params, res
+
+
+def phase_autotune_f32_vs_cpu(torch, cfg, params, res, dev, card):
+    """The tuned assignment's eval loss at f32 (``eval_fn_of``, batch
+    TRAIN_F32_BATCH x TRAIN_F32_SEQ from the eval pipeline's seed) on the
+    card and on the CPU from the same weights: within AUTOTUNE_F32_TOL
+    relative (see there)."""
+    from repro_torch.core import autotune as AT
+    from repro_torch.data import DataConfig, SyntheticPipeline
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    layer_cfgs = tuple(c.act for c in res.assignment)
+    batch = SyntheticPipeline(cfg32, DataConfig(
+        seed=1234, vocab_size=cfg.vocab_size), TRAIN_F32_BATCH,
+        TRAIN_F32_SEQ, device="cpu")(0)
+    got = {}
+    for where, tree in ((dev, params), ("cpu", _tree_to(params, "cpu"))):
+        got[str(where)] = AT.eval_fn_of(cfg32, tree, [
+            {k: v.to(where) for k, v in batch.items()}])(layer_cfgs)
+    a, b = got[str(dev)], got["cpu"]
+    rel = abs(a - b) / abs(b)
+    emit({"phase": "autotune_f32_vs_cpu", "card": card, "arch": cfg.name,
+          "layers": cfg.n_layers, "batch": TRAIN_F32_BATCH,
+          "seq": TRAIN_F32_SEQ, "assignment": [c.tag for c in
+                                                res.assignment],
+          "loss": {"card": a, "cpu": b}, "rel": rel,
+          "tolerance_rel": AUTOTUNE_F32_TOL})
+    assert rel <= AUTOTUNE_F32_TOL, (a, b, rel)
+
+
+def phase_serve_autotuned(torch, np, epi, cfg, params, res, dev, card):
+    """The tuned assignment served through the ServeEngine on the paged
+    cache, on the main schedule's prompts (``phase_serve``: warm-up, then
+    the counted run; every request MAX_NEW tokens in the vocabulary, every
+    page back, no kernel launch: ``launches_per_forward`` is 0 under
+    ``*_fixed``), then one decode chunk that must make no host sync."""
+    from repro_torch.serve import EngineConfig, ServeEngine
+    tuned = dataclasses.replace(cfg, act_impl="", act_layers=tuple(
+        c.act for c in res.assignment))
+    params = with_act(torch, params, tuned, dev)
+    prompts = arch_prompts(np, tuned)
+    phase_serve(torch, epi, f"serve_autotuned_{AUTOTUNE_ARCH}", tuned,
+                params, prompts, dev, card,
+                assignment=[c.tag for c in res.assignment],
+                distinct_engines=len({c.tag for c in res.assignment}))
+    eng = ServeEngine(tuned, params, EngineConfig(
+        slots=SLOTS, max_prompt_len=MAX_PROMPT, max_len=MAX_LEN,
+        chunk=CHUNK, page_size=PAGE_SIZE), device=dev)
+    for pr in prompts[:SLOTS]:
+        eng.submit(pr, max_new=MAX_NEW)
+    eng.step()                          # admission + first decode chunk
+    decode_chunk_sync_check(torch, tuned, eng)
+    emit({"phase": f"serve_autotuned_{AUTOTUNE_ARCH}_sync", "card": card,
+          "decode_chunk_host_syncs": 0})
+
+
+def phase_examples(torch, epi, dev, card):
+    """The four examples/torch_*.py on the card, in-process through their
+    ``main(argv)`` (EXAMPLE_RUNS, ``--device`` added; train_lm into a
+    temporary ``--ckpt-dir``, twice: the second run must resume at the
+    first's last step), each finishing without an assertion. Their
+    output is kept off this script's stdout (its last line printed);
+    each run's seconds and each kernel's launches during it."""
+    import contextlib
+    import importlib.util
+    import io
+    import tempfile
+    runs = []
+    with tempfile.TemporaryDirectory() as ckpt:
+        for name, argv in EXAMPLE_RUNS:
+            spec = importlib.util.spec_from_file_location(
+                f"_example_{name}", ROOT / "examples" / f"{name}.py")
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            argv = list(argv) + ["--device", str(dev)] + (
+                ["--ckpt-dir", ckpt] if name == "torch_train_lm" else [])
+            zero_launches(epi)
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            try:
+                with contextlib.redirect_stdout(out):
+                    got = mod.main(argv)
+            except BaseException:
+                print(out.getvalue(), file=sys.stderr, flush=True)
+                raise
+            torch.cuda.synchronize()
+            run = {"example": name, "argv": argv,
+                   "seconds": time.perf_counter() - t0,
+                   "launches": dict(epi.LAUNCHES),
+                   "last_line": out.getvalue().rstrip().splitlines()[-1]}
+            if name == "torch_train_lm":
+                run["summary"] = got
+                n = sum(r["example"] == name for r in runs)
+                # the second run resumes at the first's last step and
+                # trains no more
+                steps = int(argv[argv.index("--steps") + 1])
+                assert got["steps"] == steps and got["skipped"] == 0, got
+                assert (got["loss_first"] is None) == (n == 1), got
+            runs.append(run)
+    emit({"phase": "examples", "card": card, "runs": runs,
+          "note": "torch_activation_ablation trains through the engines' "
+                  "plain routes (no use_kernel, no fused FFN): no kernel "
+                  "launches, as in the reference's"})
+    quick = runs[0]
+    assert quick["launches"] == {"elementwise_2d": 1, "glu_2d": 0}, quick
+    assert not any(runs[-1]["launches"].values()), runs[-1]
+
+
 def with_act(torch, params, cfg, device):
     """``params`` with the ``act`` leaf of ``cfg``'s scheme: the weights
     are shared, only the approximant params differ between schemes."""
@@ -2409,11 +2942,10 @@ def main() -> int:
                    ("kernelized", "cr_spline", "elementwise_2d",
                     act_impl_of(base, "cr_spline", use_kernel=True))]
     for scheme in SCHEMES[1:]:
-        deployments += [
-            (f"fused_{scheme}", scheme, "glu_2d",
-             fused_of(act_impl_of(base, scheme))),
-            (f"kernelized_{scheme}", scheme, "elementwise_2d",
-             act_impl_of(base, scheme, use_kernel=True))]
+        for kind, kernel in (("fused", "glu_2d"),
+                             ("kernelized", "elementwise_2d")):
+            name, build = scheme_dep(kind, scheme)
+            deployments.append((name, scheme, kernel, build(base)))
     weights = M.materialize_params(base, seed=0, device=dev)
     served = {}
     for name, scheme, _, cfg in deployments:
@@ -2485,6 +3017,20 @@ def main() -> int:
     routed_line = phase_routed(torch, np, epi, fused_of(base), weights, dev,
                                card)
     phase_process_replica(torch, np, base, dev, card)
+    release(torch)
+    # 3e. the autotuner at full width on the card (ROADMAP item 11), its
+    #     assignment served, and the four examples
+    cands, baseline = phase_autotune_grid(torch, dev, card)
+    tuned_cfg, tuned_params, tuned = phase_autotune(
+        torch, epi, registry, dev, card, cands, baseline)
+    phase_serve_autotuned(torch, np, epi, tuned_cfg, tuned_params, tuned,
+                          dev, card)
+    phase_autotune_f32_vs_cpu(torch, tuned_cfg, tuned_params, tuned, dev,
+                              card)
+    del tuned_params
+    release(torch)
+    phase_examples(torch, epi, dev, card)
+    release(torch)
     # both kernels against their plain versions at every shape the
     # counted served runs launched them at
     phase_kernel_checks_served(torch, epi, dev, worst)
@@ -2559,7 +3105,7 @@ def main() -> int:
     # every new arch at f32, card against CPU (MoE: routing identical)
     phase_arch_f32_vs_cpu(torch, np, epi, registry, dev, card)
     # each arch train run's loss and gradient at f32, card against CPU
-    phase_train_arch_f32_vs_cpu(torch, epi, registry, dev, card)
+    phase_train_arch_f32_vs_cpu(torch, epi, ops, registry, dev, card)
 
     # 6. the kernels line: one entry per (kernel, scheme), its launches on
     #    its own deployment's run, its timings at the decode shape (the
@@ -2589,10 +3135,16 @@ def main() -> int:
             "call_ms": t["call_ms"],
             "max_abs_err_checks": worst[(kernel, scheme)],
             **own, "by_rows": by_rows})
-        if name in trained:
+        # qwen3's cr_spline pair trains in phase 3, the other schemes in
+        # 3c: the run of this scheme that launched this kernel
+        own_train = trained.get(name) or next(
+            (ln for ln in train_arch_lines.values() if ln["scheme"] == scheme
+             and any(run["launches"][kernel] for run in ln["runs"].values())),
+            None)
+        if own_train:
             kernels[-1]["train_launches"] = {
                 remat: run["launches"][kernel]
-                for remat, run in trained[name]["runs"].items()}
+                for remat, run in own_train["runs"].items()}
         if scheme == "cr_spline":
             # the dense and MoE archs' shapes, and the launches of this
             # kernel in each of their runs and the per-layer runs
@@ -2610,7 +3162,8 @@ def main() -> int:
             kernels[-1]["train_arch_launches"] = {
                 line["phase"]: {remat: run["launches"][kernel]
                                 for remat, run in line["runs"].items()}
-                for line in train_arch_lines.values()}
+                for line in train_arch_lines.values()
+                if line["scheme"] in ("cr_spline", "per_layer")}
     emit({"phase": "total", "wall_s": time.perf_counter() - t_start,
           "card": card})
     emit({"kernels": kernels})
