@@ -118,6 +118,25 @@ lines:
      replicas: a burst scales up, idle steps drain and retire, nothing
      lost), ``serve_process_replica`` (an engine in a spawned worker with
      its own CUDA context: the in-process replica's tokens, exit code 0).
+     Then ``serve_tp_*`` (ROADMAP item 12): TP_WORLD ranks spawned by
+     ``launch/mesh.py::spawn_ranks`` share the card over gloo (NCCL
+     refuses two ranks on one device) and serve TP_RUNS through
+     ``ServeEngine(mesh=)``: qwen3-0.6b at full depth in bf16 at TP 2
+     and 4 on the paged pool, at TP 2 on the slot cache, chunked and
+     kernelized, and at f32 at TP 2 and 4; at f32 and cut depths
+     qwen2.5-3b at TP 4 (kv heads whole), hymba-1.5b (heads whole, Mamba
+     sharded), musicgen-large (codebook planes) and mixtral-8x22b
+     (ragged) at TP 2. Every rank holds the same logits and tokens, each
+     rank's launches are exact and equal TP=1's, prefill logits are
+     within TP_F32_TOL (f32) / TP_BF16_TOL (bf16) of TP=1's, and the f32
+     runs' tokens equal TP=1's (bf16 ones agree up to near-ties: see
+     TP_BF16_TOL); each line prints the backend,
+     launches by shape, collectives a forward, peak memory a rank and the
+     rates (qwen3's paged lines: a TP decode chunk's collectives and host
+     syncs)
+     (processes sharing one card: information, not a speed claim). The
+     TP 2 runs alternate between two pairs of ranks serving at once. The
+     shard shapes join the served-shape checks and phase 4's timings.
      Then (3e) the autotuner (``repro_torch.core.autotune``):
      ``autotune_grid`` (every FULL_GRID candidate and the baseline scored
      on the card: tags, gates and max_err equal to the CPU's bit for
@@ -171,7 +190,8 @@ lines:
   5. f32 prefill logits of every deployment on the card (kernels) against
      the CPU (plain versions) on the same weights; then
      ``train_f32_vs_cpu``: one f32 train step (batch 1, seq 32, full
-     width) of each trained deployment on the card and on the CPU: loss,
+     width, the first ARCH_F32_LAYERS layers) of each trained deployment
+     on the card and on the CPU: loss,
      gnorm and the gradients of the FFN stacks and the act leaf (per knot:
      ``knot_grad``) within 1e-4 relative. The same for each ``*_fixed``
      deployment's logits at FIXED_LOGITS_TOL and ``cr_fixed``'s step at
@@ -324,11 +344,12 @@ ARCH_RUNS = (("olmo-1b", None), ("qwen2.5-3b", None), ("yi-34b", 8),
 # card against CPU at f32 (serve logits and train gradients), batch 1 x 32
 # tokens: the MoE archs at one layer (the CPU copy ~12-17 GB), falcon-mamba
 # at two (its 64 would be a 29 GB CPU copy), yi-34b at two and the others
-# at four (qwen3-0.6b at eight: its TRAIN_ARCH_RUNS line only, the
-# non-CR schemes and the per-layer runs; phase 5's cr_spline and cr_fixed
-# steps compare all 28 layers): the CPU's f32 forward and
-# backward of every layer took 266 s of the script's 1,070 s at the
-# served / trained depths (an H100 run), against a 1,200 s limit
+# at four (qwen3-0.6b at eight: its TRAIN_ARCH_RUNS lines, the non-CR
+# schemes and the per-layer runs, and phase 5's cr_spline and cr_fixed
+# steps, which compared all 28 layers in 21-25 s each until the TP phase
+# needed the time): the CPU's f32 forward and backward of every layer
+# took 266 s of the script's 1,070 s at the served / trained depths (an
+# H100 run), against a 1,200 s limit
 ARCH_F32_LAYERS = {"mixtral-8x22b": 1, "llama4-scout-17b-a16e": 1,
                    "falcon-mamba-7b": 2, "yi-34b": 2, "olmo-1b": 4,
                    "qwen2.5-3b": 4, "qwen2-vl-2b": 4, "hymba-1.5b": 4,
@@ -1085,12 +1106,13 @@ def elementwise_aims(timings) -> None:
           AIM_DECODE_SPREAD, "spread_met": spread <= AIM_DECODE_SPREAD})
 
 
-def serve(torch, cfg, params, prompts, dev, max_new=MAX_NEW, **ecfg):
+def serve(torch, cfg, params, prompts, dev, max_new=MAX_NEW, mesh=None,
+          **ecfg):
     from repro_torch.serve import EngineConfig, ServeEngine
     ecfg = EngineConfig(slots=SLOTS, max_prompt_len=MAX_PROMPT,
                         max_len=MAX_LEN, chunk=CHUNK, page_size=PAGE_SIZE,
                         **ecfg)
-    eng = ServeEngine(cfg, params, ecfg, device=dev)
+    eng = ServeEngine(cfg, params, ecfg, mesh=mesh, device=dev)
     for pr in prompts:
         eng.submit(pr, max_new=max_new)
     done = eng.run()
@@ -1101,9 +1123,9 @@ Served = collections.namedtuple("Served", "toks eng launches variants "
                                             "shapes")
 
 
-def drive(torch, epi, cfg, params, prompts, dev, **ecfg):
-    """One served run with the launch counts zeroed just before and read
-    just after. Each kernel must launch exactly launches_per_forward(cfg)
+def drive(torch, epi, cfg, params, prompts, dev, mesh=None, **ecfg):
+    """One served run (this rank's part of it with ``mesh``) with the
+    launch counts zeroed just before and read just after. Each kernel must launch exactly launches_per_forward(cfg)
     x forwards times (forwards: prefill batches + prefill chunks + decode
     steps, from the run's EngineStats), every glu_2d launch on its compute
     type's variant (tma_wgmma at bf16, simt_f32 at f32); every request
@@ -1111,7 +1133,8 @@ def drive(torch, epi, cfg, params, prompts, dev, **ecfg):
     shape goes into SERVED_SHAPES. Returns a Served."""
     zero_launches(epi)
     with ShapeLog(epi) as log:
-        done, eng = serve(torch, cfg, params, prompts, dev, **ecfg)
+        done, eng = serve(torch, cfg, params, prompts, dev, mesh=mesh,
+                          **ecfg)
     launches = dict(epi.LAUNCHES)
     variants = dict(epi.GLU_VARIANTS)
     st = eng.stats
@@ -1356,21 +1379,37 @@ def train_pipe(cfg, batch, seq, device):
         device=device)
 
 
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
 def host_syncs(torch, fn) -> int:
     """How many times ``fn`` made the host wait for the device, as CUDA's
-    sync debug mode reports them (one warning each)."""
+    sync debug mode reports them (one warning each): those raised as
+    Python warnings, and those a thread without Python (a collective's
+    worker) writes to the stderr file, which is caught here."""
+    import os
+    import tempfile
     import warnings
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
+    sys.stderr.flush()
+    saved = os.dup(2)
+    with tempfile.TemporaryFile(mode="w+") as err:
+        os.dup2(err.fileno(), 2)
         try:
-            fn()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    fn()
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
         finally:
-            torch.cuda.set_sync_debug_mode("default")
+            os.dup2(saved, 2)
+            os.close(saved)
+        err.seek(0)
+        threads = err.read().count(SYNC_WARNING)
     # the mode's own notice ("Synchronization debug mode is a prototype
     # ...") is not a sync
-    return sum("called a synchronizing CUDA operation" in str(w.message)
-               for w in caught)
+    return threads + sum(SYNC_WARNING in str(w.message) for w in caught)
 
 
 def phase_train(torch, epi, name, cfg, weights, dev, card, runs=TRAIN_RUNS,
@@ -2668,6 +2707,352 @@ def phase_process_replica(torch, np, base, dev, card, smoke=False):
     release(torch)
 
 
+# ROADMAP item 12: tensor-parallel serving on the one card. NCCL refuses
+# two ranks on one device, so TP_WORLD ranks share cuda:0 and talk
+# through gloo (asked for by name), which stages every CUDA tensor through
+# the host: the rates the serve_tp lines print are two or four processes
+# sharing one card, information and never a speed claim. Each run: (arch,
+# depth, deployment of arch_deployments, TP width, engine kwargs, compute
+# dtype or None for the config's bf16). qwen3-0.6b at full depth in bf16
+# (glu_2d's tma_wgmma and elementwise_2d at the shard widths) at TP 2 and
+# 4 on the paged pool, at TP 2 on the slot cache, chunked and kernelized;
+# at f32 at TP 2 and 4; then the layouts at f32 and cut depths:
+# qwen2.5-3b at TP 4 (KV = 2 stays whole while 16 heads shard),
+# hymba-1.5b at TP 2 (25 heads stay whole, d_inner shards),
+# musicgen-large at TP 2 (K = 4 codebook planes, vocab-parallel
+# embeddings and heads) and mixtral-8x22b at TP 2 (ragged, the router's
+# expert dim sharded).
+TP_WORLD = 4
+TP_BACKEND = "gloo"
+TP_RUNS = (
+    ("qwen3-0.6b", None, "fused", 2, {}, None),
+    ("qwen3-0.6b", None, "fused", 4, {}, None),
+    ("qwen3-0.6b", None, "fused", 2, {"cache": "slot"}, None),
+    ("qwen3-0.6b", None, "fused", 2, {"chunk_prefill": CHUNK_PREFILL}, None),
+    ("qwen3-0.6b", None, "kernelized", 2, {}, None),
+    ("qwen3-0.6b", None, "fused", 2, {}, "float32"),
+    ("qwen3-0.6b", None, "fused", 4, {}, "float32"),
+    ("qwen2.5-3b", 8, "fused", 4, {}, "float32"),
+    ("hymba-1.5b", 8, "fused", 2, {}, "float32"),
+    ("musicgen-large", 8, "kernelized", 2, {}, "float32"),
+    ("mixtral-8x22b", 1, "ragged", 2, {}, "float32"),
+)
+# prefill logits on tp_logit_tokens, TP against TP=1, relative to TP=1's
+# largest |logit|. At f32 the row-parallel products sum f32 partials in
+# another order than one GEMM: TP 2 read 1.42e-6 on qwen3-0.6b's 28
+# layers (NVIDIA H100 80GB HBM3, 700.00 W); the f32 runs must also give
+# TP=1's greedy tokens. At bf16 that order decides a few roundings to
+# bf16 a layer, and random weights carry the one-ulp steps through every
+# later layer: TP 2 / 4 read 0.81e-2 - 1.77e-2 over the runs (the port's
+# bf16 logits differ from the reference's by as much, ROADMAP "Not
+# faults"), so bf16 tokens agree with TP=1's only up to near-ties, and
+# the bf16 runs are held to TP_BF16_TOL and to equal tokens on every
+# rank and between TP caches (the same arithmetic).
+TP_F32_TOL = 1e-5
+TP_BF16_TOL = 5e-2
+TP_LOGIT_TOKENS = 32
+
+
+def tp_config(registry, run):
+    """(config, full layers) of a TP_RUNS entry: the arch at its served
+    depth (widths never cut), the deployment, the compute dtype."""
+    arch, depth, dep, _, _, dtype = run
+    full, base = arch_config(registry, arch, depth)
+    cfg = dict(arch_deployments(base))[dep]
+    if dtype:
+        cfg = dataclasses.replace(cfg, compute_dtype=dtype)
+    return cfg, full.n_layers
+
+
+def tp_name(run) -> str:
+    arch, _, dep, tp, kw, dtype = run
+    extra = "".join(f"_{v}" if k == "cache" else f"_{k}{v}"
+                    for k, v in kw.items())
+    return f"serve_tp_{arch}_{dep}{extra}{'_f32' if dtype else ''}_tp{tp}"
+
+
+def tp_logit_tokens(np, cfg):
+    """[1, TP_LOGIT_TOKENS] prompt tokens ([1, T, K] for K codebook
+    planes) from seed 11, for the TP runs' prefill logits."""
+    rng = np.random.RandomState(11)
+    planes = (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()
+    return rng.randint(0, cfg.vocab_size,
+                       (1, TP_LOGIT_TOKENS) + planes).astype(np.int32)
+
+
+def tp_schedule(runs, world):
+    """Which ranks serve each run: the TP 2 runs alternate between ranks
+    (0, 1) and (2, 3), the two pairs serving at once; then every wider
+    run on ranks 0 .. tp-1 in turn. Returns (TP 2 runs as (index,
+    ranks), wider runs as (index, ranks))."""
+    two = [i for i, run in enumerate(runs) if run[3] == 2]
+    pairs = [tuple(range(p, p + 2)) for p in range(0, world, 2)]
+    return ([(i, pairs[k % len(pairs)]) for k, i in enumerate(two)],
+            [(i, tuple(range(run[3]))) for i, run in enumerate(runs)
+             if run[3] != 2])
+
+
+def _tp_rank(rank, world, dev, runs):
+    """One rank of the serve_tp group (``tp_schedule``): this rank's TP 2
+    runs, a world barrier, then each wider run. For a run, each of its
+    ranks materializes the full weights from seed 0 on the card in turn,
+    keeps its shards (``shard_params``) and frees the rest, then drives
+    the run (``drive``: exact launches, every request complete, every
+    page back) with its launch counts zeroed, then counts the host syncs
+    of one more decode chunk. Returns {run index: result} of the runs
+    this rank served."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import registry
+    from repro_torch.kernels import epilogue as epi
+    from repro_torch.launch import mesh as LM
+    from repro_torch.launch import steps as TS
+    from repro_torch.models import model as M
+    from repro_torch.parallel import partition as part
+    from repro_torch.parallel import tp as TPC
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pairs, wide = tp_schedule(runs, world)
+    meshes = {ranks: LM.make_host_mesh(1, len(ranks), device="cuda",
+                                       ranks=ranks)
+              for ranks in sorted({r for _, r in pairs + wide})}
+    out = {}
+    for stage in (pairs, wide):
+        for i, ranks in stage:
+            if rank in ranks:
+                out[i] = _tp_serve(torch, np, dist, epi, registry, TS, M,
+                                   part, TPC, dev, meshes[ranks], runs[i])
+            if stage is wide:
+                dist.barrier()
+        dist.barrier()
+    return out
+
+
+def _tp_serve(torch, np, dist, epi, registry, TS, M, part, TPC, dev, mesh,
+              run):
+    """One TP run on this rank (``_tp_rank``)."""
+    n = part.mesh_shape(mesh)["model"]
+    group = mesh.get_group("model")
+    me = mesh.get_local_rank("model")
+    cfg, _ = tp_config(registry, run)
+    psh = TS.serve_shardings(cfg, SLOTS, MAX_LEN, mesh)[0]
+    local = None
+    for r in range(n):
+        if r == me:
+            w = M.materialize_params(cfg, seed=0, device=dev)
+            local = M.compute_params(M.shard_params(w, cfg, psh), cfg)
+            del w
+            release(torch)
+        dist.barrier(group=group)
+    g = TPC.group_of(mesh)
+    g.reset()
+    torch.cuda.reset_peak_memory_stats()
+    got = drive(torch, epi, cfg, local, arch_prompts(np, cfg), dev,
+                mesh=mesh, **run[4])
+    calls, nbytes = g.calls, g.bytes
+    eng, st = got.eng, got.eng.stats
+    res = {"tokens": got.toks, "launches": got.launches,
+           "variants": got.variants, "shapes": got.shapes,
+           "collectives": calls, "collective_bytes": nbytes,
+           "forwards": st.prefill_batches + st.prefill_chunks
+           + st.decode_steps, "prefill_batches": st.prefill_batches,
+           "prefill_chunks": st.prefill_chunks,
+           "decode_steps": st.decode_steps,
+           "paged": eng.paged, "chunked": eng.chunked,
+           "decode_tokens_per_s": st.decode_tokens_per_s,
+           "prefill_tokens_per_s": st.prefill_tokens_per_s,
+           "max_memory_allocated_gb":
+               torch.cuda.max_memory_allocated() / 1e9,
+           "local_weights_gb": tree_gb(eng.params),
+           "local_cache_gb": tree_gb(eng.cache)}
+    if run[0] == "qwen3-0.6b" and not run[4]:
+        # one more decode chunk of this engine: its host syncs and
+        # collectives (qwen3's paged runs: the layouts cost the same)
+        for pr in arch_prompts(np, cfg)[:SLOTS]:
+            eng.submit(pr, max_new=MAX_NEW)
+        eng.step()                  # admission + first decode chunk
+        chunk = eng._decode_at(CHUNK)
+        g.reset()
+        res["decode_chunk_host_syncs"] = host_syncs(torch, lambda: chunk(
+            eng.params, eng.cache, eng.state, 0, [0] * SLOTS,
+            [0] * SLOTS, [0.0] * SLOTS))
+        torch.cuda.synchronize()
+        res["collectives_per_decode_step"] = g.calls / CHUNK
+    toks = torch.as_tensor(tp_logit_tokens(np, cfg), device=dev)
+    with part.axis_rules(mesh, part.serve_rules()):
+        logits, _ = M.prefill_fn(local, {"tokens": toks}, cfg,
+                                 TS.make_engine(cfg))
+    res["logits"] = logits.float().cpu().numpy()
+    del eng, local, got
+    release(torch)
+    return res
+
+
+def tree_gb(tree) -> float:
+    return sum(t.numel() * t.element_size()
+               for t in _flat(tree).values()) / 1e9
+
+
+def tp_baselines(torch, np, epi, registry, dev, served):
+    """TP=1 of every TP_RUNS entry, keyed by tp_name with tp 1: phase 3's
+    tokens and launches where it served the same thing (qwen3-0.6b bf16
+    fused and kernelized, paged and slot), else a ``drive`` here from
+    the same seed; and every entry's TP=1 prefill logits on
+    tp_logit_tokens."""
+    from repro_torch.launch import steps as TS
+    from repro_torch.models import model as M
+    base = {}
+    for run in TP_RUNS:
+        key = tp_name(run[:3] + (1,) + run[4:])
+        if key in base:
+            continue
+        arch, depth, dep, _, kw, dtype = run
+        cfg, _ = tp_config(registry, run)
+        params = M.materialize_params(cfg, seed=0, device=dev)
+        if arch == "qwen3-0.6b" and depth is None and dtype is None \
+                and not kw.get("chunk_prefill"):
+            got = served[dep]          # phase 3: paged tokens == slot's
+            line = got["slot_line" if kw.get("cache") == "slot" else "line"]
+            base[key] = {"tokens": got["toks"], "launches": line["launches"]}
+        else:
+            got = drive(torch, epi, cfg, params, arch_prompts(np, cfg), dev,
+                        **kw)
+            base[key] = {"tokens": got.toks, "launches": got.launches}
+        toks = torch.as_tensor(tp_logit_tokens(np, cfg), device=dev)
+        logits, _ = M.prefill_fn(params, {"tokens": toks}, cfg,
+                                 TS.make_engine(cfg))
+        base[key]["logits"] = logits.float().cpu().numpy()
+        del params, got
+        release(torch)
+    return base
+
+
+def phase_serve_tp(torch, np, epi, registry, dev, card, served):
+    """Tensor-parallel serving (TP_RUNS) through ``ServeEngine(mesh=)``:
+    TP_WORLD spawned ranks (``launch/mesh.py::spawn_ranks``) share the
+    card over TP_BACKEND. Against TP=1 (``tp_baselines``; the chunked
+    run against TP=1 chunked, bf16 chunked tokens being another arithmetic
+    than one-shot): every rank's logits and tokens bit-identical; the
+    slot run's tokens equal the TP=2 paged run's; each rank's launches
+    exact (``drive``), the same on every rank, by shape and variant, and
+    equal to TP=1's; prefill logits within TP_F32_TOL / TP_BF16_TOL of
+    TP=1's largest |logit|; at f32 TP=1's tokens (bf16: the agreement is
+    printed). Each line
+    prints the backend, each kernel's launches by shape, collectives per
+    forward, peak memory per rank and both rates; qwen3's paged lines
+    also the collectives and host syncs of one more TP decode chunk
+    (gloo copies through the host: no gate; the zero-sync gate stays on
+    TP=1). Every launch shape joins
+    SERVED_SHAPES. Returns {line name: line} for phase 4's shape
+    timings."""
+    from repro_torch.launch import mesh as LM
+    base = tp_baselines(torch, np, epi, registry, dev, served)
+    release(torch)
+    t0 = time.perf_counter()
+    ranks = LM.spawn_ranks(_tp_rank, TP_WORLD, backend=TP_BACKEND,
+                           device=dev, args=(TP_RUNS,))
+    spawn_s = time.perf_counter() - t0
+    lines, fails = {}, []
+    for i, run in enumerate(TP_RUNS):
+        arch, depth, dep, tp, kw, dtype = run
+        cfg, full_layers = tp_config(registry, run)
+        got = [r[i] for r in ranks if i in r]
+        assert len(got) == tp, (run, len(got))
+        name = tp_name(run)
+        one = base[tp_name(run[:3] + (1,) + run[4:])]
+        r0 = got[0]
+        shapes = {k: n for k, n in r0["shapes"].items()}
+        line = {"phase": name, "card": card, "arch": cfg.name,
+                "layers": cfg.n_layers, "full_layers": full_layers,
+                "deployment": dep, "compute_dtype": cfg.compute_dtype,
+                "tp": tp, "backend": TP_BACKEND, "device": str(dev),
+                "engine_kw": kw, "paged": r0["paged"],
+                "chunked": r0["chunked"],
+                "forwards": r0["forwards"],
+                "prefill_batches": r0["prefill_batches"],
+                "prefill_chunks": r0["prefill_chunks"],
+                "decode_steps": r0["decode_steps"],
+                "launches": r0["launches"], "launches_tp1": one["launches"],
+                "launches_per_rank": [r["launches"] for r in got],
+                "glu_variants": r0["variants"],
+                "kernel_shapes": [[k, list(shape), dt, act, n]
+                                  for (k, shape, dt, act, _), n in
+                                  sorted(shapes.items(), key=repr)],
+                "collectives": r0["collectives"],
+                "collectives_per_forward": r0["collectives"]
+                / r0["forwards"],
+                "collective_mb": r0["collective_bytes"] / 1e6,
+                "collectives_per_decode_step":
+                    r0.get("collectives_per_decode_step"),
+                "decode_chunk_host_syncs": [r.get("decode_chunk_host_syncs")
+                                            for r in got],
+                "max_memory_allocated_gb_per_rank":
+                    [r["max_memory_allocated_gb"] for r in got],
+                "local_weights_gb": r0["local_weights_gb"],
+                "local_cache_gb": r0["local_cache_gb"],
+                "decode_tokens_per_s": r0["decode_tokens_per_s"],
+                "prefill_tokens_per_s": r0["prefill_tokens_per_s"],
+                "rates_note": f"{tp} ranks through {TP_BACKEND} "
+                              "(host-staged collectives) on one card that "
+                              + ("the other TP 2 pair shares at once"
+                                 if tp == 2 else "they share")
+                              + ": information, not a speed claim",
+                "tokens_identical_across_ranks": all(
+                    r["tokens"] == r0["tokens"] for r in got),
+                "tokens_identical_to_tp1": r0["tokens"] == one["tokens"],
+                "spawn_s": spawn_s}
+        if depth is not None:
+            line["reduced"] = {"n_layers": [depth, full_layers]}
+        if kw.get("cache") == "slot":
+            paged2 = lines[tp_name(run[:4] + ({},) + run[5:])]
+            line["tokens_identical_to_tp_paged"] = \
+                r0["tokens"] == paged2["_tokens"]
+        if kw.get("chunk_prefill"):
+            paged2 = lines[tp_name(run[:4] + ({},) + run[5:])]
+            line["token_agreement_vs_tp_one_shot"] = agreement(
+                r0["tokens"], paged2["_tokens"])
+        scale = float(np.abs(one["logits"]).max())
+        diffs = [float(np.abs(r["logits"] - one["logits"]).max())
+                 for r in got]
+        line.update(token_agreement_vs_tp1=agreement(r0["tokens"],
+                                                     one["tokens"]),
+                    logits_max_abs_diff=max(diffs), logits_max_abs_tp1=scale,
+                    logits_rel=max(diffs) / scale,
+                    logits_identical_across_ranks=all(
+                        np.array_equal(r["logits"], r0["logits"])
+                        for r in got))
+        f32 = dtype == "float32"
+        line["tolerance_rel"] = TP_F32_TOL if f32 else TP_BF16_TOL
+        emit(line)
+        line["_tokens"] = r0["tokens"]
+        lines[name] = line
+        fails += [f"{name}: {what}" for what, ok in (
+            ("tokens differ across ranks",
+             line["tokens_identical_across_ranks"]),
+            ("logits differ across ranks",
+             line["logits_identical_across_ranks"]),
+            ("f32 tokens != TP=1", not f32
+             or line["tokens_identical_to_tp1"]),
+            ("slot tokens != TP paged",
+             line.get("tokens_identical_to_tp_paged", True)),
+            ("launches != TP=1", all(r["launches"] == one["launches"]
+                                     for r in got)),
+            ("shapes differ across ranks", all(r["shapes"] == r0["shapes"]
+                                               for r in got)),
+            ("variants differ across ranks",
+             all(r["variants"] == r0["variants"] for r in got)),
+            ("no collective", r0["collectives"] > 0),
+            ("logits off TP=1's", line["logits_rel"]
+             <= line["tolerance_rel"])) if not ok]
+        for key, n in shapes.items():
+            SERVED_SHAPES[key] = SERVED_SHAPES.get(key, 0) + n
+    for line in lines.values():
+        del line["_tokens"]
+    assert not fails, fails
+    return lines
+
+
 def phase_autotune_grid(torch, dev, card):
     """Every FULL_GRID candidate and the baseline scored on the card and
     on the CPU (``candidate_grid`` / ``candidate_of``: NAND2 gates, and
@@ -2879,6 +3264,15 @@ def with_act(torch, params, cfg, device):
     return out
 
 
+def first_layers(params, n):
+    """``params`` with only the first ``n`` layers of its stacked blocks
+    (views)."""
+    def cut(t):
+        return {k: cut(v) for k, v in t.items()} if isinstance(t, dict) \
+            else t[:n]
+    return dict(params, blocks=cut(params["blocks"]))
+
+
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
@@ -3018,6 +3412,11 @@ def main() -> int:
                                card)
     phase_process_replica(torch, np, base, dev, card)
     release(torch)
+    # 3d'. tensor-parallel serving (ROADMAP item 12): TP_WORLD ranks share
+    #      the card over gloo; their launch shapes are timed in phase 4
+    arch_lines.update(phase_serve_tp(torch, np, epi, registry, dev, card,
+                                     served))
+    release(torch)
     # 3e. the autotuner at full width on the card (ROADMAP item 11), its
     #     assignment served, and the four examples
     cands, baseline = phase_autotune_grid(torch, dev, card)
@@ -3084,13 +3483,17 @@ def main() -> int:
               cfg.n_layers, "max_abs_diff": diff, "max_abs_logit": scale,
               "rel": rel, "tolerance_rel": FIXED_LOGITS_TOL})
         assert rel <= FIXED_LOGITS_TOL, (name, rel)
-    # one f32 train step: card (kernels) vs CPU (plain versions)
+    # one f32 train step: card (kernels) vs CPU (plain versions), at the
+    # first ARCH_F32_LAYERS layers
+    n = ARCH_F32_LAYERS[base.name]
+    cut, cut_cpu = first_layers(weights, n), first_layers(weights_cpu, n)
     for name, _, _, cfg in deployments:
         if name in trained:
-            phase_train_f32_vs_cpu(torch, M, TS, name, cfg, weights,
-                                   weights_cpu, dev, tol)
-    phase_train_f32_vs_cpu(torch, M, TS, fixed_train, fixed_train_cfg,
-                           weights, weights_cpu, dev, FIXED_F32_TOL)
+            phase_train_f32_vs_cpu(torch, M, TS, name, dataclasses.replace(
+                cfg, n_layers=n), cut, cut_cpu, dev, tol)
+    phase_train_f32_vs_cpu(torch, M, TS, fixed_train, dataclasses.replace(
+        fixed_train_cfg, n_layers=n), cut, cut_cpu, dev, FIXED_F32_TOL)
+    del cut, cut_cpu
     # the fused per-layer assignment: each layer's glu_2d launch reads its
     # own scheme's params
     cfg = per_layer["fused"][0]

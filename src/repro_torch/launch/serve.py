@@ -17,8 +17,18 @@ paged path). Every assigned ``--arch`` serves; a multi-codebook arch
 ``--replicas N`` (N > 1) or ``--autoscale MIN:MAX`` serves through the
 multi-replica ``Router`` (``serve_routed``: in-process engines sharing
 one copy of the weights, a bounded router queue under
-``--router-queue`` / ``--router-policy``). ``--model-parallel`` other
-than 1 is not ported yet and raises.
+``--router-queue`` / ``--router-policy``).
+
+``--model-parallel N`` (N > 1) serves tensor-parallel: ``main`` spawns N
+rank processes itself (``launch/mesh.py::spawn_ranks``), each builds the
+same weights and the same engine on a (1, N) mesh and keeps its shards;
+rank 0 prints. ``--dist-backend`` picks the process group's backend:
+``nccl`` by default on CUDA (a card per rank), ``gloo`` on the CPU; ranks
+that share one card need ``--dist-backend gloo``, and ``nccl`` there
+raises. Every TP run prints its backend.
+
+    python -m repro_torch.launch.serve --smoke --model-parallel 2 \
+        --dist-backend gloo [--device cpu]
 """
 from __future__ import annotations
 
@@ -30,7 +40,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs import registry
+from repro_torch.launch import mesh as mesh_mod
+from repro_torch.launch import steps as steps_mod
 from repro_torch.models import model as M
+from repro_torch.parallel import partition as part
 from repro_torch.serve import (AutoscaleConfig, EngineConfig,
                                InProcessReplica, Router, RouterConfig,
                                ServeEngine)
@@ -80,10 +93,13 @@ def serve_batch(cfg, params, prompts, gen_tokens: int, *,
                 chunk: int = 8, eos_id: int | None = None,
                 cache: str = "paged", page_size: int = 16,
                 prefix_cache: bool = True, chunk_prefill: int = 0,
-                token_budget: int | None = None, device="cuda"):
+                token_budget: int | None = None, mesh=None,
+                rules: dict | None = None, device="cuda"):
     """prompts: int [B, S], or [B, S, K] for K codebooks. Returns (tokens
     int32 [B, gen] or [B, gen, K] on the CPU, stats). Always a
-    continuous-batching ServeEngine on ``device``
+    continuous-batching ServeEngine on ``device`` (with ``mesh``, this
+    rank's part of a tensor-parallel engine: every rank of the mesh
+    makes the same call)
     (``cache`` / ``page_size`` / ``prefix_cache`` pick its cache contract,
     ``chunk_prefill`` / ``token_budget`` its token-budget schedule). An
     explicit ``capacity`` overrides the default S + gen_tokens cache
@@ -105,7 +121,8 @@ def serve_batch(cfg, params, prompts, gen_tokens: int, *,
                         prefix_cache=prefix_cache,
                         chunk_prefill=chunk_prefill,
                         token_budget=token_budget, seed=seed)
-    engine = ServeEngine(cfg, params, ecfg, device=device)
+    engine = ServeEngine(cfg, params, ecfg, mesh=mesh, rules=rules,
+                         device=device)
     for b in range(B):
         engine.submit(prompts[b], gen_tokens, temperature=temperature,
                       eos_id=eos_id)
@@ -127,13 +144,17 @@ def serve_routed(cfg, params, prompts, gen_tokens: int, *,
                  policy: str = "reject", autoscale=None,
                  temperature: float = 0.0, seed: int = 0,
                  slots: int | None = None, chunk: int = 8,
-                 eos_id: int | None = None, device="cuda", **engine_kw):
+                 eos_id: int | None = None, mesh=None,
+                 rules: dict | None = None, device="cuda", **engine_kw):
     """Serve ``prompts`` through the multi-replica Router: N in-process
     ``ServeEngine`` replicas on ``device`` behind load-aware dispatch, a
     bounded router queue, and optionally the stats-driven autoscaler
     (``autoscale=AutoscaleConfig(...)``). The weights are moved to the
     device and cast to the compute dtype once, here, so every replica
     (those the autoscaler adds too) holds the same tensors: one copy.
+    With ``mesh`` every replica is this rank's part of a tensor-parallel
+    engine, and the one copy is this rank's shards (every rank of the
+    mesh makes the same call).
 
     ``prompts`` is int [B, S] ([B, S, K] for K codebooks: they route
     exactly like scalar streams, replicas are engines), or a list of B
@@ -152,10 +173,15 @@ def serve_routed(cfg, params, prompts, gen_tokens: int, *,
                         max_prompt_len=S, max_len=S + gen_tokens,
                         chunk=max(1, min(chunk, gen_tokens - 1) or 1),
                         seed=seed, **engine_kw)
+    if mesh is not None:
+        psh, _, _ = steps_mod.serve_shardings(
+            cfg, ecfg.slots, ecfg.max_len, mesh, part.serve_rules(rules))
+        params = M.shard_params(params, cfg, psh)
     shared = M.compute_params(_to_device(params, torch.device(device)), cfg)
 
     def factory(rid):
-        return InProcessReplica(ServeEngine(cfg, shared, ecfg, device=device))
+        return InProcessReplica(ServeEngine(cfg, shared, ecfg, mesh=mesh,
+                                            rules=rules, device=device))
 
     router = Router(factory, RouterConfig(
         replicas=replicas, queue_limit=queue_limit, policy=policy,
@@ -195,9 +221,7 @@ def _parse_autoscale(spec: str | None):
 
 
 # flag -> (default, ROADMAP item) of reference flags not ported yet
-_UNPORTED_FLAGS = {
-    "model_parallel": (1, "Queue A item 12"),
-}
+_UNPORTED_FLAGS: dict = {}
 
 
 def main(argv=None):
@@ -258,14 +282,43 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="torch device to serve on (cuda, or cpu)")
     p.add_argument("--json", default=None, help="write stats JSON here")
-    # reference flags of parts not yet ported: accepted, raise if set
-    p.add_argument("--model-parallel", type=int, default=1)
+    p.add_argument("--model-parallel", type=int, default=1,
+                   help="> 1: tensor-parallel over this many spawned rank "
+                        "processes (rank 0 prints)")
+    p.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
+                   help="process-group backend of --model-parallel (default "
+                        "nccl on cuda, gloo on cpu; ranks sharing one card "
+                        "need gloo)")
     args = p.parse_args(argv)
 
     for name, (default, item) in _UNPORTED_FLAGS.items():
         if getattr(args, name) != default:
             raise SystemExit(f"--{name.replace('_', '-')} is not ported yet "
                              f"(ROADMAP.md, {item})")
+    if args.model_parallel < 1:
+        raise SystemExit("--model-parallel must be >= 1")
+    if args.model_parallel == 1:
+        return _serve(args)
+    backend = args.dist_backend or mesh_mod.default_backend(args.device)
+    try:
+        mesh_mod.check_backend(backend, args.device, args.model_parallel)
+    except ValueError as e:
+        raise SystemExit(f"--dist-backend {backend}: {e}")
+    return mesh_mod.spawn_ranks(_serve_rank, args.model_parallel,
+                                backend=backend, device=args.device,
+                                args=(args,))[0]
+
+
+def _serve_rank(rank, world, device, args):
+    """One rank of ``main --model-parallel N``: the same run on a (1, N)
+    mesh; rank 0 prints and writes ``--json``."""
+    mesh = mesh_mod.make_host_mesh(1, world, device=device.type)
+    return _serve(args, mesh=mesh, device=device, rank=rank)
+
+
+def _serve(args, mesh=None, device=None, rank=0):
+    device = device or args.device
+    say = print if rank == 0 else (lambda *a, **k: None)
     cfg = registry.get(args.arch, smoke=args.smoke)
     if args.activation:
         cfg = dataclasses.replace(
@@ -280,10 +333,13 @@ def main(argv=None):
     act_tag = cfg.activation.tag()
     if cfg.act_impl:
         act_tag += f" (act_impl={cfg.act_impl})"
-    print(f"[serve] arch={cfg.name} act={act_tag} "
-          f"codebooks={cfg.n_codebooks} device={args.device}")
+    tp_tag = "" if mesh is None else (
+        f" mesh={part.mesh_shape(mesh)} backend="
+        f"{torch.distributed.get_backend()}")
+    say(f"[serve] arch={cfg.name} act={act_tag} "
+        f"codebooks={cfg.n_codebooks} device={device}{tp_tag}")
 
-    params = M.materialize_params(cfg, seed=args.seed, device=args.device)
+    params = M.materialize_params(cfg, seed=args.seed, device=device)
     # serving precision: bf16 weights, as the reference's launcher casts
     params = _tree_cast(params, torch.bfloat16)
     rng = np.random.RandomState(args.seed)
@@ -302,27 +358,28 @@ def main(argv=None):
             queue_limit=args.router_queue, policy=args.router_policy,
             autoscale=_parse_autoscale(args.autoscale),
             temperature=args.temperature, seed=args.seed, slots=args.slots,
-            chunk=args.chunk, eos_id=args.eos_id, device=args.device,
+            chunk=args.chunk, eos_id=args.eos_id, mesh=mesh, device=device,
             **cache_kw)
         rs = router.stats
-        print(f"[serve] router: {rs.completed}/{rs.submitted} completed "
-              f"(shed {rs.shed}, rejected {rs.rejected}) over "
-              f"{len(router.replicas)} replicas "
-              f"(peak {rs.replica_peak}, +{rs.scale_ups}/-{rs.scale_downs} "
-              f"scale actions)")
+        say(f"[serve] router: {rs.completed}/{rs.submitted} completed "
+            f"(shed {rs.shed}, rejected {rs.rejected}) over "
+            f"{len(router.replicas)} replicas "
+            f"(peak {rs.replica_peak}, +{rs.scale_ups}/-{rs.scale_downs} "
+            f"scale actions)")
     else:
         tokens, stats = serve_batch(
             cfg, params, prompts, args.gen, temperature=args.temperature,
             seed=args.seed, slots=args.slots, chunk=args.chunk,
-            eos_id=args.eos_id, device=args.device, **cache_kw)
-    print(f"[serve] prefill {stats.prefill_tokens_per_s:,.0f} tok/s "
-          f"({stats.prefill_s*1e3:.0f} ms), decode "
-          f"{stats.decode_tokens_per_s:,.0f} tok/s "
-          f"({stats.decode_s*1e3:.0f} ms for {stats.decode_steps} steps, "
-          f"{args.batch} seqs) on {args.device}")
-    print("[serve] sample output tokens:", tokens[0, :16].tolist())
-    if args.json:
+            eos_id=args.eos_id, mesh=mesh, device=device, **cache_kw)
+    say(f"[serve] prefill {stats.prefill_tokens_per_s:,.0f} tok/s "
+        f"({stats.prefill_s*1e3:.0f} ms), decode "
+        f"{stats.decode_tokens_per_s:,.0f} tok/s "
+        f"({stats.decode_s*1e3:.0f} ms for {stats.decode_steps} steps, "
+        f"{args.batch} seqs) on {device}")
+    say("[serve] sample output tokens:", tokens[0, :16].tolist())
+    if args.json and rank == 0:
         doc = dataclasses.asdict(stats)
+        doc["tokens"] = tokens.tolist()
         if router is not None:
             doc["router"] = dataclasses.asdict(router.stats)
         with open(args.json, "w") as f:

@@ -5,7 +5,10 @@
   prefill_step:       forward, returns (last logits, filled cache);
   prefill_chunk_step: one chunk of one paged slot's prompt (chunked
                       admission);
-  serve_step:         one-token decode against the cache.
+  serve_step:         one-token decode against the cache;
+
+and the serve engine's shardings on a tensor-parallel mesh
+(``serve_shardings``).
 
 The train step is functional (new params and state, the inputs left as
 they were) and enqueues its work without waiting for the device: its
@@ -24,6 +27,7 @@ from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw, compress
 from repro_torch.optim.adamw import tree_leaves, tree_map
+from repro_torch.parallel import partition as part
 
 
 @dataclasses.dataclass(frozen=True)
@@ -254,3 +258,39 @@ def make_serve_step(cfg: ModelConfig):
         return M.decode_fn(params, batch, cache, cfg, engine)
 
     return serve_step
+
+
+# ---------------------------------------------------------------------------
+# sharding resolution for the serve engine's tensors
+# ---------------------------------------------------------------------------
+
+def axes_shardings(axes_tree, shapes_tree, mesh, rules):
+    """``partition.Sharding`` tree from a logical-axes tree and a matching
+    tree of shapes (anything with ``.shape``), resolved strictly."""
+    return part.tree_shardings(axes_tree, shapes_tree, mesh=mesh,
+                               rules=rules)
+
+
+def serve_shardings(cfg: ModelConfig, slots: int, seq_len: int, mesh,
+                    rules: dict | None = None, *,
+                    page_size: int | None = None,
+                    n_pages: int | None = None):
+    """(params, cache, replicated) shardings of the serve engine: the
+    parameters by their logical axes, the cache by ``cache_axes
+    (per_slot=True)`` or, with ``page_size`` / ``n_pages``, by the paged
+    contract's ``paged_cache_axes`` (the pool's page dim host-addressed
+    like slots, kv heads sharded as the slot cache's). Everything else
+    (token blocks, slot state, page tables) is replicated: host-scheduled
+    per-row values, the same on every rank."""
+    rules = rules or part.serve_rules()
+    pshapes, paxes = M.abstract_params(cfg)
+    psharding = axes_shardings(paxes, pshapes, mesh, rules)
+    if page_size is not None:
+        cspec = M.paged_cache_spec(cfg, slots, n_pages, page_size, seq_len)
+        caxes = M.paged_cache_axes(cfg)
+    else:
+        cspec = M.cache_spec(cfg, slots, seq_len, per_slot=True)
+        caxes = M.cache_axes(cfg, per_slot=True)
+    csharding = axes_shardings(caxes, cspec, mesh, rules)
+    replicated = part.make_sharding((), (), mesh=mesh, rules=rules)
+    return psharding, csharding, replicated

@@ -15,7 +15,7 @@ draws.
 The flags and defaults are the reference's, and ``--device`` (default
 cuda). The port trains on one device: ``--data-parallel`` (0 = every
 device: the one) and ``--model-parallel`` other than 1 raise (ROADMAP.md,
-Queue A item 12). Every assigned ``--arch`` trains; the pipeline gives
+Queue A item 12b). Every assigned ``--arch`` trains; the pipeline gives
 qwen2-vl its M-RoPE positions and patch embeddings and musicgen its
 [B, S, K] codebook planes. ``--act-layers`` takes one approximant tag per
 layer (``act_layers_of``).
@@ -95,7 +95,7 @@ def main(argv=None):
         raise NotImplementedError(
             "--data-parallel / --model-parallel: the port trains on one "
             "device; sharded training is not ported yet (ROADMAP.md, Queue A "
-            "item 12)")
+            "item 12b)")
     cfg = registry.get(args.arch, smoke=args.smoke)
     if args.activation:
         cfg = dataclasses.replace(

@@ -10,6 +10,15 @@ flash-style online softmax over KV chunks inside a loop over Q chunks
 bounded temporaries. GQA head h is served by kv-head h // G. Mamba's
 selective scan is a loop over the sequence with an f32 state carry (the
 reference's ``lax.scan``).
+
+Tensor parallelism: a block takes a rank's shards of its weights
+(``model.shard_params``) and computes on them; a weight's local shape
+against the config's full dim tells whether that dim is sharded. Where a
+sharded dim is contracted (``wo`` over heads, ``w_down`` over ``mlp``,
+Mamba's ``x_proj`` / ``out_proj`` over ``dinner``) the product is
+row-parallel (``parallel/tp.py``: f32 partials summed over the group);
+an expert-sharded router's logits are gathered. With whole weights
+(TP=1) every path is the unsharded one and no collective runs.
 """
 from __future__ import annotations
 
@@ -22,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.activations import ActivationEngine
+from repro_torch.parallel import tp
 
 from .config import ModelConfig
 
@@ -138,6 +148,79 @@ def init_block(gen, cfg: ModelConfig, device):
         p["ffn"] = (init_moe(gen, cfg, device) if cfg.n_experts > 0
                     else init_mlp(gen, cfg, device))
     return p
+
+
+# ---------------------------------------------------------------------------
+# logical axes of every parameter (the reference's boxes), for sharding
+# ---------------------------------------------------------------------------
+
+def norm_axes(cfg: ModelConfig):
+    return {"scale": ("embed",)} if cfg.norm == "rmsnorm" else {}
+
+
+def attention_axes(cfg: ModelConfig):
+    p = {"wq": ("embed", "heads", "head_dim"),
+         "wk": ("embed", "kv", "head_dim"),
+         "wv": ("embed", "kv", "head_dim"),
+         "wo": ("heads", "head_dim", "embed")}
+    if cfg.qkv_bias:
+        p.update(bq=("heads", "head_dim"), bk=("kv", "head_dim"),
+                 bv=("kv", "head_dim"))
+    if cfg.qk_norm:
+        p.update(q_norm=("head_dim",), k_norm=("head_dim",))
+    return p
+
+
+def mlp_axes(cfg: ModelConfig):
+    p = {"w_up": ("embed", "mlp"), "w_down": ("mlp", "embed")}
+    if cfg.glu:
+        p["w_gate"] = ("embed", "mlp")
+    return p
+
+
+def moe_axes(cfg: ModelConfig):
+    p = {"router": ("embed", "expert"),
+         "w_gate": ("expert", "embed", "mlp"),
+         "w_up": ("expert", "embed", "mlp"),
+         "w_down": ("expert", "mlp", "embed")}
+    if cfg.shared_expert:
+        p["shared"] = mlp_axes(cfg)
+    return p
+
+
+def mamba_axes(cfg: ModelConfig):
+    return {"in_proj": ("embed", "dinner"), "conv_w": ("conv", "dinner"),
+            "conv_b": ("dinner",), "x_proj": ("dinner", "dt"),
+            "dt_proj_w": ("dt", "dinner"), "dt_proj_b": ("dinner",),
+            "A_log": ("dinner", "state"), "D": ("dinner",),
+            "out_proj": ("dinner", "embed")}
+
+
+def block_axes(cfg: ModelConfig):
+    """The axes tree of ``init_block``'s parameters (one layer)."""
+    p: dict[str, Any] = {"ln1": norm_axes(cfg)}
+    if cfg.use_mamba:
+        p["mamba"] = mamba_axes(cfg)
+    elif cfg.parallel_mamba:
+        p["attn"] = attention_axes(cfg)
+        p["mamba"] = mamba_axes(cfg)
+        p["ln_attn_out"] = norm_axes(cfg)
+        p["ln_mamba_out"] = norm_axes(cfg)
+    else:
+        p["attn"] = attention_axes(cfg)
+    if cfg.has_ffn:
+        p["ln2"] = norm_axes(cfg)
+        p["ffn"] = moe_axes(cfg) if cfg.n_experts > 0 else mlp_axes(cfg)
+    return p
+
+
+def _down(h, w, full: int, matmul=torch.matmul):
+    """``matmul(h, w)`` contracting a dim of full size ``full``: as it is
+    when ``w`` holds all of it, row-parallel when ``w`` holds a rank's
+    block."""
+    if w.shape[-2] == full:
+        return matmul(h, w)
+    return tp.row_parallel(h, w, matmul)
 
 
 # ---------------------------------------------------------------------------
@@ -339,7 +422,30 @@ def attention_out(params, ctx, cfg: ModelConfig):
     cdt = dtype_of(cfg)
     wo = params["wo"].to(cdt)                               # [H, hd, d]
     B, S = ctx.shape[:2]
-    return ctx.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
+    return _down(ctx.reshape(B, S, -1), wo.reshape(-1, wo.shape[-1]),
+                 cfg.n_heads * cfg.head_dim_)
+
+
+def kv_group(p, cfg: ModelConfig):
+    """The kv heads a rank's own q heads read, as a slice of the whole kv
+    heads, when heads shard over the TP group and kv heads do not (KV
+    does not divide by the group); None when every kv head held is read
+    (TP=1, or kv sharded with the heads). Local head j is global head
+    h0 + j, served by kv head (h0 + j) // G; the slice's heads must serve
+    the local heads in equal runs."""
+    h_loc, kv_loc = p["wq"].shape[1], p["wk"].shape[1]
+    if h_loc == cfg.n_heads or kv_loc != cfg.n_kv_heads:
+        return None
+    G = cfg.n_heads // cfg.n_kv_heads
+    h0 = tp.current().rank * h_loc
+    kv0, kv1 = h0 // G, (h0 + h_loc - 1) // G + 1
+    g_loc = h_loc // (kv1 - kv0)
+    if any((h0 + j) // G - kv0 != j // g_loc for j in range(h_loc)):
+        raise ValueError(
+            f"{cfg.name}: the {h_loc} heads of a rank do not read their kv "
+            f"heads in equal runs (H={cfg.n_heads}, KV={cfg.n_kv_heads}); "
+            "this layout needs a per-head kv gather")
+    return slice(kv0, kv1)
 
 
 # ---------------------------------------------------------------------------
@@ -379,7 +485,7 @@ def apply_mlp(params, x, cfg: ModelConfig, engine: ActivationEngine):
             h = engine(cfg.mlp_act, gate) * up
         else:
             h = engine(cfg.mlp_act, up)
-    return h @ params["w_down"].to(cdt)
+    return _down(h, params["w_down"].to(cdt), cfg.d_ff)
 
 
 # ---------------------------------------------------------------------------
@@ -399,6 +505,8 @@ def _route(router, x, k: int, e: int):
     renormalized, and the GShard load-balancing aux over all tokens.
     x: [..., d]. Returns (top_w [..., k], top_i [..., k], aux)."""
     logits = x.to(torch.float32) @ router.to(torch.float32)
+    if logits.shape[-1] != e:                   # expert-sharded router
+        logits = tp.gather_last(logits, e)
     probs = torch.softmax(logits, dim=-1)
     top_w, top_i = _top_k(probs, k)
     top_w = top_w / top_w.sum(dim=-1, keepdim=True)
@@ -421,7 +529,7 @@ def _expert_ffn(params, xe, cfg: ModelConfig, engine, matmul):
         h = engine(cfg.mlp_act, gate) * up
     else:
         h = engine(cfg.mlp_act, up)
-    return matmul(h, params["w_down"].to(cdt))
+    return _down(h, params["w_down"].to(cdt), cfg.d_ff, matmul)
 
 
 def apply_moe(params, x, cfg: ModelConfig, engine: ActivationEngine):
@@ -541,7 +649,8 @@ def _mamba_inner(params, xz, conv_state, ssm_state, cfg: ModelConfig,
     with the f32 carry h [B, di, N]: each step forms its own
     dA = exp(dt * A) and dt * x * B, so nothing of size [B, S, di, N]
     exists at once."""
-    di, N, dtr, ck = cfg.d_inner_, cfg.ssm_state, cfg.dt_rank_, cfg.conv_kernel
+    N, dtr, ck = cfg.ssm_state, cfg.dt_rank_, cfg.conv_kernel
+    di = params["conv_w"].shape[1]        # d_inner, or a rank's block of it
     S = xz.shape[1]
     f32 = torch.float32
     xin, z = xz[..., :di], xz[..., di:]
@@ -552,8 +661,8 @@ def _mamba_inner(params, xz, conv_state, ssm_state, cfg: ModelConfig,
     new_conv_state = xpad[:, S:] if ck > 1 else conv_state
     xc = engine.silu(xc)
 
-    # input-dependent SSM parameters
-    proj = xc @ params["x_proj"].to(xc.dtype)
+    # input-dependent SSM parameters (x_proj contracts d_inner)
+    proj = _down(xc, params["x_proj"].to(xc.dtype), cfg.d_inner_)
     dt_in, Bc, Cc = proj[..., :dtr], proj[..., dtr:dtr + N], proj[..., dtr + N:]
     dt = dt_in @ params["dt_proj_w"].to(xc.dtype)
     dt = engine.softplus(dt.to(f32) + params["dt_proj_b"])   # [B, S, di]
@@ -578,7 +687,7 @@ def apply_mamba(params, x, cfg: ModelConfig, engine, conv_state=None,
     Returns (out [B, S, d], conv_state, ssm_state)."""
     cdt = dtype_of(cfg)
     B = x.shape[0]
-    di, ck, N = cfg.d_inner_, cfg.conv_kernel, cfg.ssm_state
+    di, ck, N = params["conv_w"].shape[1], cfg.conv_kernel, cfg.ssm_state
     if conv_state is None:
         conv_state = torch.zeros((B, ck - 1, di), dtype=cdt, device=x.device)
     if ssm_state is None:
@@ -587,7 +696,8 @@ def apply_mamba(params, x, cfg: ModelConfig, engine, conv_state=None,
     xz = x @ params["in_proj"].to(cdt)
     y, conv_state, ssm_state = _mamba_inner(params, xz, conv_state,
                                             ssm_state, cfg, engine)
-    return y @ params["out_proj"].to(cdt), conv_state, ssm_state
+    return (_down(y, params["out_proj"].to(cdt), cfg.d_inner_), conv_state,
+            ssm_state)
 
 
 # ---------------------------------------------------------------------------
@@ -609,6 +719,13 @@ class BlockIO:
 
 def _attn_branch(p, xn, io: BlockIO, cfg: ModelConfig, engine):
     new_cache = {}
+    # heads sharded, kv heads whole: the cache keeps every kv head, each
+    # rank's attention reads those of its own q heads
+    sel = kv_group(p, cfg)
+
+    def mine(kv):
+        return kv if sel is None else kv[:, :, sel]
+
     if io.mode == "decode":
         q, k_new, v_new = _qkv(p, xn, io.positions, cfg)
         kc, vc = io.cache["k"], io.cache["v"]
@@ -624,8 +741,8 @@ def _attn_branch(p, xn, io: BlockIO, cfg: ModelConfig, engine):
             vc[page, off] = v_new[:, 0].to(vc.dtype)
             B, n = tbl.shape
             ring = (B, n * kc.shape[1]) + tuple(kc.shape[2:])  # [B, W, KV, hd]
-            ctx = decode_attention(q, kc[tbl].reshape(ring),
-                                   vc[tbl].reshape(ring), io.q_pos,
+            ctx = decode_attention(q, mine(kc[tbl].reshape(ring)),
+                                   mine(vc[tbl].reshape(ring)), io.q_pos,
                                    io.k_pos, cfg, engine)
         else:
             # slot contract: k/v [B, W, KV, hd] are views into the
@@ -636,8 +753,8 @@ def _attn_branch(p, xn, io: BlockIO, cfg: ModelConfig, engine):
             slot = io.cache["slot"]                             # [B]
             kc[rows, slot] = k_new[:, 0].to(kc.dtype)
             vc[rows, slot] = v_new[:, 0].to(vc.dtype)
-            ctx = decode_attention(q, kc, vc, io.q_pos, io.k_pos, cfg,
-                                   engine)
+            ctx = decode_attention(q, mine(kc), mine(vc), io.q_pos,
+                                   io.k_pos, cfg, engine)
         new_cache = {"k": kc, "v": vc}
     else:
         q, k, v = _qkv(p, xn, io.positions, cfg)
@@ -652,10 +769,11 @@ def _attn_branch(p, xn, io: BlockIO, cfg: ModelConfig, engine):
                 pre = pre.to(own.dtype)[None].expand((B,) + tuple(pre.shape))
                 return torch.cat([pre, own], dim=1)
 
-            ctx = flash_attention(q, full(kp, k), full(vp, v), io.q_pos,
-                                  io.k_pos, cfg, engine)
+            ctx = flash_attention(q, mine(full(kp, k)), mine(full(vp, v)),
+                                  io.q_pos, io.k_pos, cfg, engine)
         else:
-            ctx = flash_attention(q, k, v, io.q_pos, io.k_pos, cfg, engine)
+            ctx = flash_attention(q, mine(k), mine(v), io.q_pos, io.k_pos,
+                                  cfg, engine)
         if io.mode == "prefill":
             new_cache = {"k": k, "v": v}
     return attention_out(p, ctx, cfg), new_cache

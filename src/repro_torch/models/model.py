@@ -27,6 +27,13 @@ hybrid block's ``conv`` / ``ssm`` stay per slot beside the pool.
 
 Decode, chunked prefill and the engine's inserts write the cache in
 place.
+
+Tensor parallelism: ``abstract_params`` gives the parameters' shapes (on
+the meta device) and logical axes, ``cache_spec`` / ``paged_cache_spec``
+and their ``*_axes`` the caches'; ``launch/steps.py::serve_shardings``
+resolves them on a mesh and ``shard_params`` cuts a rank's blocks. The
+embedding is then vocab-parallel (each rank looks up its rows, the group
+sums) and the head's logits are gathered whole on every rank.
 """
 from __future__ import annotations
 
@@ -38,10 +45,12 @@ import torch
 
 from repro_torch.core.activations import (ActivationEngine, engine_of_layer,
                                           init_act_params)
+from repro_torch.optim.adamw import tree_map
+from repro_torch.parallel import tp
 
 from .config import ModelConfig
-from .layers import (BlockIO, apply_block, apply_norm, dtype_of, init_block,
-                     init_norm)
+from .layers import (BlockIO, apply_block, apply_norm, block_axes, dtype_of,
+                     init_block, init_norm, norm_axes)
 
 # leaves the reference casts to the compute dtype at every use
 # (layers.py `.astype(cdt)`): attention / FFN matrices (the MoE expert
@@ -126,6 +135,62 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cuda"):
     return out
 
 
+def param_axes(cfg: ModelConfig):
+    """The logical axes tree of ``init_lm``'s parameters (the reference's
+    boxes): blocks carry a leading "layer" axis, the act leaves none."""
+    K = cfg.n_codebooks
+    embed = ("codebook", "vocab", "embed") if K > 1 else ("vocab", "embed")
+    axes: dict[str, Any] = {
+        "embed": embed,
+        "ln_f": norm_axes(cfg),
+        "lm_head": ("codebook", "embed", "vocab") if K > 1 else
+        ("embed", "vocab"),
+        "blocks": tree_map(lambda a: ("layer",) + a, block_axes(cfg)),
+    }
+    act = init_act_params(cfg.layer_activation_configs())
+    if act:
+        axes["act"] = {tag: (None,) * np.ndim(arr) for tag, arr in
+                       act.items()}
+    return axes
+
+
+def abstract_params(cfg: ModelConfig, seed: int = 0):
+    """(shapes_tree, axes_tree) without allocating anything: the shapes
+    are f32 tensors on the meta device (``seed`` draws nothing there)."""
+    return init_lm(None, cfg, torch.device("meta")), param_axes(cfg)
+
+
+def shard_params(params, cfg: ModelConfig, shardings):
+    """A full parameter tree (e.g. from ``params_from_numpy`` or
+    ``materialize_params``) -> this rank's blocks of it, by
+    ``shardings`` (``launch/steps.py::serve_shardings``'s first tree).
+    Mamba's ``in_proj`` [d, 2 * di] holds the ``x | z`` halves side by
+    side; each half is cut on its own, so a rank holds the same channels
+    of both. Sharded leaves are copied; whole ones are kept as they are,
+    and so is a leaf that already has its block's shape (a tree this
+    function returned), so sharding twice changes nothing."""
+
+    def cut(t, full, sh, key):
+        t = torch.as_tensor(t)
+        if tuple(t.shape) != tuple(full.shape):
+            if tuple(t.shape) == sh.local_shape(full.shape):
+                return t
+            raise ValueError(f"{key}: shape {tuple(t.shape)} is neither "
+                             f"{cfg.name}'s {tuple(full.shape)} nor a "
+                             "rank's block of it")
+        if key == "in_proj" and any(sh.spec):
+            x, z = t.chunk(2, dim=-1)
+            return torch.cat([sh.shard(x), sh.shard(z)], dim=-1)
+        return sh.shard(t).contiguous()
+
+    def walk(t, full, sh, key=None):
+        if isinstance(t, dict):
+            return {k: walk(v, full[k], sh[k], k) for k, v in t.items()}
+        return cut(t, full, sh, key)
+
+    return walk(params, abstract_params(cfg)[0], shardings)
+
+
 def _first_leaf(tree):
     """The first tensor of a nested dict (None when it holds none: a
     non-parametric norm's ``{}``)."""
@@ -208,7 +273,17 @@ def embed_tokens(params, tokens, cfg: ModelConfig, patch_embeds=None):
     cdt = dtype_of(cfg)
     emb = params["embed"].to(cdt)
     tokens = tokens.long()
-    if cfg.n_codebooks > 1:
+    K = cfg.n_codebooks
+    if emb.shape[-2] != cfg.padded_vocab:
+        # vocab-parallel: each plane's rows of this rank's id range, the
+        # group's exact f32 sum, then the planes added as below
+        tables = [emb[k] for k in range(K)] if K > 1 else [emb]
+        ids = [tokens[..., k] for k in range(K)] if K > 1 else [tokens]
+        rows = torch.stack([tp.vocab_rows(_EmbedRows.apply, t, i)
+                            for t, i in zip(tables, ids)])
+        planes = list(tp.current().all_reduce(rows).to(cdt))
+        x = sum(planes) if K > 1 else planes[0]
+    elif K > 1:
         x = sum(_EmbedRows.apply(emb[k], tokens[..., k])
                 for k in range(cfg.n_codebooks))
     else:
@@ -224,8 +299,12 @@ def lm_logits(params, h, cfg: ModelConfig):
     head = params["lm_head"].to(torch.float32)
     hf = h.to(torch.float32)
     if cfg.n_codebooks > 1:
-        return torch.einsum("bsd,kdv->bskv", hf, head)
-    return hf @ head
+        logits = torch.einsum("bsd,kdv->bskv", hf, head)
+    else:
+        logits = hf @ head
+    if head.shape[-1] != cfg.padded_vocab:     # vocab-parallel head
+        logits = tp.gather_last(logits, cfg.padded_vocab)
+    return logits
 
 
 # ---------------------------------------------------------------------------
@@ -571,37 +650,80 @@ def cache_capacity(cfg: ModelConfig, seq_len: int) -> int:
     return seq_len
 
 
-def _ssm_layers(cfg: ModelConfig, rows: int, device) -> dict:
-    """Zero Mamba state of ``rows`` slots (none for attention-only
-    stacks): conv [L, rows, ck-1, di] in the compute dtype, ssm
-    [L, rows, di, N] in f32."""
+def _meta(shape, dtype):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _ssm_spec(cfg: ModelConfig, rows: int, cdt) -> dict:
+    """Mamba state of ``rows`` slots (none for attention-only stacks):
+    conv [L, rows, ck-1, di] in the compute dtype, ssm [L, rows, di, N]
+    in f32."""
     if not (cfg.use_mamba or cfg.parallel_mamba):
         return {}
     L, di = cfg.n_layers, cfg.d_inner_
-    return {"conv": torch.zeros((L, rows, cfg.conv_kernel - 1, di),
-                                dtype=dtype_of(cfg), device=device),
-            "ssm": torch.zeros((L, rows, di, cfg.ssm_state),
-                               dtype=torch.float32, device=device)}
+    return {"conv": _meta((L, rows, cfg.conv_kernel - 1, di), cdt),
+            "ssm": _meta((L, rows, di, cfg.ssm_state), torch.float32)}
+
+
+def cache_spec(cfg: ModelConfig, batch: int, seq_len: int, dtype=None,
+               per_slot: bool = False):
+    """The slot cache's shapes and dtypes as tensors on the meta device.
+    ``per_slot=True`` gives the continuous-batching layout: every row has
+    its own position (``cur`` [B], ``k_pos`` [B, W])."""
+    cdt = dtype or dtype_of(cfg)
+    L, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim_
+    W = cache_capacity(cfg, seq_len)
+    layers = {}
+    if _has_kv(cfg):
+        layers["k"] = _meta((L, batch, W, KV, hd), cdt)
+        layers["v"] = _meta((L, batch, W, KV, hd), cdt)
+    layers.update(_ssm_spec(cfg, batch, cdt))
+    lead = (batch,) if per_slot else ()
+    spec = {"layers": layers, "cur": _meta(lead, torch.int32)}
+    if _has_kv(cfg):
+        spec["k_pos"] = _meta(lead + (W,), torch.int32)
+    return spec
+
+
+def cache_axes(cfg: ModelConfig, per_slot: bool = False):
+    """Logical axes tree matching ``cache_spec``."""
+    layers: dict[str, Any] = {}
+    if _has_kv(cfg):
+        layers["k"] = ("layer", "batch", "seq", "act_kv", None)
+        layers["v"] = ("layer", "batch", "seq", "act_kv", None)
+    if cfg.use_mamba or cfg.parallel_mamba:
+        layers["conv"] = ("layer", "batch", None, "act_dinner")
+        layers["ssm"] = ("layer", "batch", "act_dinner", None)
+    axes = {"layers": layers, "cur": ("batch",) if per_slot else ()}
+    if _has_kv(cfg):
+        axes["k_pos"] = ("batch", None) if per_slot else (None,)
+    return axes
+
+
+def _materialize(spec, device, shardings=None):
+    """Zero tensors of ``spec``'s dtypes on ``device`` (each leaf this
+    rank's block of it under ``shardings``), every ``k_pos`` -1
+    (masked)."""
+
+    def one(t, sh=None):
+        shape = tuple(t.shape) if sh is None else sh.local_shape(t.shape)
+        return torch.zeros(shape, dtype=t.dtype, device=device)
+
+    cache = tree_map(one, spec, *([shardings] if shardings else []))
+    if "k_pos" in cache:
+        cache["k_pos"].fill_(-1)
+    return cache
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
-               per_slot: bool = False, device="cuda"):
+               per_slot: bool = False, device="cuda", shardings=None):
     """Zero-filled cache (serving from scratch). Per-slot caches start
     fully invalid: cur = 0, every k_pos = -1 (masked). A pure-SSM stack's
-    cache is its Mamba state and ``cur`` alone."""
-    L, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim_
-    W = cache_capacity(cfg, seq_len)
-    layers = _ssm_layers(cfg, batch, device)
-    lead = (batch,) if per_slot else ()
-    cache = {"layers": layers,
-             "cur": torch.zeros(lead, dtype=torch.int32, device=device)}
-    if _has_kv(cfg):
-        for name in ("k", "v"):
-            layers[name] = torch.zeros((L, batch, W, KV, hd),
-                                       dtype=dtype_of(cfg), device=device)
-        cache["k_pos"] = torch.full(lead + (W,), -1, dtype=torch.int32,
-                                    device=device)
-    return cache
+    cache is its Mamba state and ``cur`` alone. With ``shardings`` (a
+    tree of ``partition.Sharding`` over ``cache_axes``) each leaf is this
+    rank's block."""
+    return _materialize(cache_spec(cfg, batch, seq_len, per_slot=per_slot),
+                        device, shardings)
 
 
 def pages_per_slot(cfg: ModelConfig, seq_len: int, page_size: int) -> int:
@@ -612,30 +734,50 @@ def pages_per_slot(cfg: ModelConfig, seq_len: int, page_size: int) -> int:
     return -(-cache_capacity(cfg, seq_len) // page_size)
 
 
-def init_paged_cache(cfg: ModelConfig, slots: int, n_pages: int,
-                     page_size: int, seq_len: int, device="cuda"):
-    """Zero page pool k/v [L, n_pages, page_size, KV, hd]; every page
-    table entry [slots, pages_per_slot] points at the trash page
-    (physical page 0), every k_pos [slots, pages_per_slot * page_size] is
-    -1 (masked) and every ``cur`` is 0. A hybrid stack keeps its Mamba
-    state per slot beside the pool; a pure-SSM stack has nothing to page
+def paged_cache_spec(cfg: ModelConfig, slots: int, n_pages: int,
+                     page_size: int, seq_len: int, dtype=None):
+    """The paged cache's shapes and dtypes as tensors on the meta device:
+    one shared k/v page pool [L, n_pages, page_size, KV, hd] plus per-slot
+    page tables [slots, pages_per_slot]; a hybrid stack's Mamba state
+    stays per slot beside the pool. A pure-SSM stack has nothing to page
     and raises."""
     if not _has_kv(cfg):
         raise ValueError(f"{cfg.name}: paged cache requires a KV ring "
                          "(pure-SSM stacks have nothing to page)")
+    cdt = dtype or dtype_of(cfg)
     L, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim_
     n_slot = pages_per_slot(cfg, seq_len, page_size)
-    cdt = dtype_of(cfg)
-    layers = _ssm_layers(cfg, slots, device)
-    for name in ("k", "v"):
-        layers[name] = torch.zeros((L, n_pages, page_size, KV, hd),
-                                   dtype=cdt, device=device)
+    layers = {"k": _meta((L, n_pages, page_size, KV, hd), cdt),
+              "v": _meta((L, n_pages, page_size, KV, hd), cdt)}
+    layers.update(_ssm_spec(cfg, slots, cdt))
     return {"layers": layers,
-            "cur": torch.zeros((slots,), dtype=torch.int32, device=device),
-            "k_pos": torch.full((slots, n_slot * page_size), -1,
-                                dtype=torch.int32, device=device),
-            "page_tbl": torch.zeros((slots, n_slot), dtype=torch.int32,
-                                    device=device)}
+            "cur": _meta((slots,), torch.int32),
+            "k_pos": _meta((slots, n_slot * page_size), torch.int32),
+            "page_tbl": _meta((slots, n_slot), torch.int32)}
+
+
+def paged_cache_axes(cfg: ModelConfig):
+    """Logical axes tree matching ``paged_cache_spec``: the pool dim is
+    "pages" (host-addressed like slots), heads shard as the slot cache's."""
+    layers: dict[str, Any] = {
+        "k": ("layer", "pages", "seq", "act_kv", None),
+        "v": ("layer", "pages", "seq", "act_kv", None),
+    }
+    if cfg.use_mamba or cfg.parallel_mamba:
+        layers["conv"] = ("layer", "batch", None, "act_dinner")
+        layers["ssm"] = ("layer", "batch", "act_dinner", None)
+    return {"layers": layers, "cur": ("batch",), "k_pos": ("batch", None),
+            "page_tbl": ("batch", None)}
+
+
+def init_paged_cache(cfg: ModelConfig, slots: int, n_pages: int,
+                     page_size: int, seq_len: int, device="cuda",
+                     shardings=None):
+    """Zero page pool; every page table entry points at the trash page
+    (physical page 0), every k_pos is -1 (masked) and every ``cur`` is 0.
+    ``shardings`` as in ``init_cache``."""
+    return _materialize(paged_cache_spec(cfg, slots, n_pages, page_size,
+                                         seq_len), device, shardings)
 
 
 # ---------------------------------------------------------------------------

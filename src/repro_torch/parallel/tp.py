@@ -1,0 +1,102 @@
+"""The collectives of tensor-parallel serving, called by the blocks on
+local shards (Megatron-style; the reference leaves them to XLA).
+
+Each rank holds its shards of the weights (``models/model.py::
+shard_params``). A block calls into here only where a sharded dim is
+contracted or must be whole again:
+
+  * a row-parallel product (``wo`` over sharded heads, ``w_down`` over a
+    sharded ``mlp``, Mamba's ``x_proj`` and ``out_proj`` over a sharded
+    ``dinner``): each rank's partial product in f32, summed over the
+    group in f32, then cast to the compute dtype. TP=1 rounds the whole
+    product to the compute dtype once; so does this, after summing f32
+    partials, so the two differ only by the order of f32 additions.
+  * a vocab-parallel embedding lookup: ids outside the rank's rows look
+    up zeros, and the sum over the group (f32) is exact;
+  * a dim that must be whole (vocab-sharded logits, the router's
+    expert-sharded logits): each rank writes its block into zeros and the
+    group sums them, exactly, so every rank holds the same bits.
+
+Every collective is one ``all_reduce`` (sum) over the mesh's ``model``
+axis: gloo takes it on CPU and CUDA tensors alike, and no other
+collective is needed. The group is read from the active
+``partition.axis_rules`` context; without a mesh there a sharded weight
+raises rather than compute a partial answer.
+"""
+from __future__ import annotations
+
+import functools
+
+import torch
+import torch.distributed as dist
+
+from . import partition as part
+
+
+class TPGroup:
+    """One rank's tensor-parallel group: the process group over the
+    mesh's ``model`` axis, this rank's index on it and the group's size.
+    ``calls`` / ``bytes`` count the collectives it ran (what a decode step
+    costs); ``reset()`` zeroes them."""
+
+    def __init__(self, mesh):
+        self.group = mesh.get_group("model")
+        self.rank = mesh.get_local_rank("model")
+        self.size = part.mesh_shape(mesh)["model"]
+        self.calls = 0
+        self.bytes = 0
+
+    def reset(self) -> None:
+        self.calls = self.bytes = 0
+
+    def all_reduce(self, x):
+        """Sum ``x`` over the group, in place; returns it."""
+        dist.all_reduce(x, group=self.group)
+        self.calls += 1
+        self.bytes += x.numel() * x.element_size()
+        return x
+
+
+@functools.lru_cache(maxsize=None)
+def group_of(mesh) -> TPGroup:
+    return TPGroup(mesh)
+
+
+def current() -> TPGroup:
+    """The active mesh's TP group; raises without one (a sharded weight
+    outside the mesh context would give a partial answer)."""
+    mesh = part.current_mesh()
+    if mesh is None:
+        raise RuntimeError("sharded weights need their mesh: run under "
+                           "partition.axis_rules(mesh, rules)")
+    return group_of(mesh)
+
+
+def row_parallel(x, w, matmul=torch.matmul):
+    """``matmul(x, w)`` over a contracted dim that each rank holds a
+    block of: the f32 partial products summed over the group, cast to
+    ``x``'s dtype."""
+    out = matmul(x.to(torch.float32), w.to(torch.float32))
+    return current().all_reduce(out).to(x.dtype)
+
+
+def gather_last(local, full: int):
+    """Each rank's block of the last dim -> the whole dim (``full``), the
+    same bits on every rank."""
+    g = current()
+    n = local.shape[-1]
+    out = local.new_zeros(tuple(local.shape[:-1]) + (full,))
+    out[..., g.rank * n:(g.rank + 1) * n] = local
+    return g.all_reduce(out)
+
+
+def vocab_rows(lookup, table, ids):
+    """``lookup(table, ids)`` on a vocab-sharded ``table`` [V / n, ...]:
+    this rank's rows of its id range, zeros elsewhere, in f32 (the sum
+    over the group, left to the caller, is exact)."""
+    g = current()
+    v0 = g.rank * table.shape[0]
+    local = ids - v0
+    own = (local >= 0) & (local < table.shape[0])
+    rows = lookup(table, torch.where(own, local, 0)).to(torch.float32)
+    return rows * own[..., None]

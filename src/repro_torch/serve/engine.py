@@ -65,6 +65,17 @@ one-shot, chunked and drain-trimmed schedules draw the same tokens at
 any temperature. The draws cannot match the reference's ``jax.random``
 streams.
 
+Tensor parallelism (``ServeEngine(..., mesh=)``, a (1, N) mesh from
+``launch/mesh.py::make_host_mesh``): every rank of the mesh builds the
+same engine and takes the same calls in the same order. Each rank holds
+its shards of the weights and of the cache (``launch/steps.py::
+serve_shardings`` under ``partition.serve_rules``: kv heads over
+``model`` where KV divides, else whole; Mamba state over ``model``),
+and every step runs under the mesh's ``axis_rules`` context, where the
+blocks call their collectives. Logits are whole and bit-identical on
+every rank, so sampling, the scheduler, the page table and the slots
+(host state) stay the same on every rank without any exchange.
+
 Timing is honest on the card: every span in ``EngineStats`` ends at a
 host sync on the work it times (the token pull, or an explicit
 ``torch.cuda.synchronize`` after the insert), never at enqueue — except
@@ -83,6 +94,7 @@ import torch
 from repro_torch.launch import steps as steps_mod
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import partition as part
 
 from .paging import PagePool, SlotPages
 from .scheduler import (Completion, Request, SlotRun, TokenBudgetScheduler,
@@ -512,15 +524,27 @@ class ServeEngine:
 
     ``device`` defaults to "cuda" and raises when no GPU is present; it
     never falls back to the CPU. Parameters are moved there and the
-    compute-dtype leaves cast once (``model.compute_params``)."""
+    compute-dtype leaves cast once (``model.compute_params``).
+
+    With ``mesh`` (a (1, N) DeviceMesh this rank is on) and optionally
+    ``rules`` (``serve_rules(rules)`` is used) the engine is this rank's
+    part of a tensor-parallel group: ``params`` is the full tree, of
+    which it keeps its shards. Every rank must make the same calls."""
 
     def __init__(self, cfg: ModelConfig, params, ecfg: EngineConfig = None,
-                 *, device="cuda"):
+                 *, mesh=None, rules: dict | None = None, device="cuda"):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ServeEngine(device='cuda'): no CUDA device "
                                "is available; pass device='cpu' to serve "
                                "on the CPU")
+        self.mesh = mesh
+        self.rules = part.serve_rules(rules) if mesh is not None else None
+        if mesh is not None and part.mesh_shape(mesh).get("data", 1) != 1:
+            raise ValueError(
+                f"ServeEngine(mesh=) is tensor-parallel only: mesh "
+                f"{part.mesh_shape(mesh)} has data > 1 (scale out over "
+                "data with replicas)")
         self.cfg = cfg
         self.ecfg = ecfg or EngineConfig()
         # K > 1 codebooks: every token is a [K] plane vector
@@ -546,7 +570,6 @@ class ServeEngine:
                         and not stateful)
         B = self.ecfg.slots
         dev = self.device
-        self.params = M.compute_params(_to_device(params, dev), cfg)
         ps = self.ecfg.page_size
         if self.paged:
             self._n_per_slot = M.pages_per_slot(cfg, self.ecfg.max_len, ps)
@@ -561,18 +584,29 @@ class ServeEngine:
                     "queue head could never be admitted")
             self._n_pages = n_pages
             self._pool = PagePool(n_pages, ps)
+        psh = csh = None
+        if mesh is not None:
+            psh, csh, _ = steps_mod.serve_shardings(
+                cfg, B, self.ecfg.max_len, mesh, self.rules,
+                **(dict(page_size=ps, n_pages=self._n_pages) if self.paged
+                   else {}))
+            params = M.shard_params(params, cfg, psh)
+        self.params = M.compute_params(_to_device(params, dev), cfg)
+        if self.paged:
             # host copy of the device page table, authoritative; rows
             # start at trash. Uploaded once before a chunk when changed
             self._tbl = np.zeros((B, self._n_per_slot), np.int32)
             self._tbl_dirty = False
             self._slot_pages: dict[int, SlotPages] = {}
-            self.cache = M.init_paged_cache(cfg, B, n_pages, ps,
-                                            self.ecfg.max_len, device=dev)
+            self.cache = M.init_paged_cache(cfg, B, self._n_pages, ps,
+                                            self.ecfg.max_len, device=dev,
+                                            shardings=csh)
             prefill_capacity = self._w_pad
             self._insert = make_paged_insert(cfg, ps)
         else:
             self.cache = M.init_cache(cfg, B, self.ecfg.max_len,
-                                      per_slot=True, device=dev)
+                                      per_slot=True, device=dev,
+                                      shardings=csh)
             prefill_capacity = self.capacity
             self._insert = make_slot_insert(cfg)
         self.state = {
@@ -583,17 +617,19 @@ class ServeEngine:
             "budget": torch.zeros((B,), dtype=torch.int32, device=dev),
             "eos": torch.full((B,), -1, dtype=torch.int32, device=dev),
         }
-        self._prefill = make_prefill_sample(cfg, prefill_capacity)
+        self._prefill = self._under_rules(
+            make_prefill_sample(cfg, prefill_capacity))
         if self.prefix_enabled:
-            self._prefix_prefill = make_prefix_prefill_sample(
-                cfg, ps, self._w_pad)
+            self._prefix_prefill = self._under_rules(
+                make_prefix_prefill_sample(cfg, ps, self._w_pad))
         if self.chunked:
             # a chunk wider than the padded ring would collide with its
             # own scatter (two chunk tokens sharing a ring slot)
             self._chunk_tokens = min(self.ecfg.chunk_prefill, self._w_pad)
             self._token_budget = (self.ecfg.token_budget
                                   or B * self.ecfg.chunk + self._chunk_tokens)
-            self._chunk_prefill = make_chunk_prefill(cfg, ps)
+            self._chunk_prefill = self._under_rules(
+                make_chunk_prefill(cfg, ps))
         self._decode_fns: dict = {}    # decode steps -> chunk function
         self._decode_at(self.ecfg.chunk)
         self.sched = TokenBudgetScheduler(B)
@@ -605,9 +641,22 @@ class ServeEngine:
         """The decode chunk running ``n_steps`` steps, built on demand."""
         fn = self._decode_fns.get(n_steps)
         if fn is None:
-            fn = self._decode_fns[n_steps] = make_decode_chunk(
-                self.cfg, n_steps, paged=self.paged)
+            fn = self._decode_fns[n_steps] = self._under_rules(
+                make_decode_chunk(self.cfg, n_steps, paged=self.paged))
         return fn
+
+    def _under_rules(self, fn):
+        """``fn`` run under this engine's (mesh, rules) context, where the
+        blocks find their TP group; ``fn`` itself without a mesh."""
+        if self.mesh is None:
+            return fn
+        mesh, rules = self.mesh, self.rules
+
+        def wrapped(*args, **kwargs):
+            with part.axis_rules(mesh, rules):
+                return fn(*args, **kwargs)
+
+        return wrapped
 
     # -- request intake ----------------------------------------------------
 

@@ -22,11 +22,23 @@ behind the SAME protocol: the worker imports torch fresh, opens its own
 CUDA context on the card (or serves on the CPU), and builds its model
 from a ``ReplicaSpec`` (params are never pickled). RPC is synchronous
 (one tagged request/reply per call), as in the reference.
+
+``ReplicaSpec(model_parallel=N)`` (N > 1) makes the replica a
+tensor-parallel group of N spawned rank processes on a (1, N) mesh
+(``ServeEngine(mesh=)``): rank 0 holds the pipe, receives each RPC and
+broadcasts it to the other ranks, every rank applies it to its own
+engine, and rank 0 answers. The group stays inside the replica: the
+router sees one replica. ``dist_backend`` is the group's backend
+(default ``nccl`` on CUDA, ``gloo`` on the CPU; ranks sharing one card
+need ``gloo``).
 """
 from __future__ import annotations
 
 import dataclasses
 import multiprocessing as mp
+import os
+import shutil
+import tempfile
 from typing import Protocol
 
 import numpy as np
@@ -135,8 +147,10 @@ class InProcessReplica:
 class ReplicaSpec:
     """Everything a worker process needs to build its engine itself.
     Params are MATERIALIZED in the worker (never pickled across the
-    pipe), from ``seed`` on ``device``. ``model_parallel > 1`` (a TP mesh
-    per replica in the reference) is ROADMAP Queue A item 12 and raises."""
+    pipe), from ``seed`` on ``device``. ``model_parallel > 1`` serves
+    through a tensor-parallel group of that many ranks inside the replica
+    (``dist_backend``: None gives ``nccl`` on CUDA, ``gloo`` on the
+    CPU)."""
     arch: str = "qwen3-0.6b"
     smoke: bool = True
     seed: int = 0
@@ -144,57 +158,92 @@ class ReplicaSpec:
     model_parallel: int = 1
     engine: dict = dataclasses.field(default_factory=dict)  # EngineConfig kwargs
     device: str = "cuda"
+    dist_backend: str | None = None
+
+    @property
+    def backend(self) -> str:
+        from repro_torch.launch import mesh as mesh_mod
+        return self.dist_backend or mesh_mod.default_backend(self.device)
 
 
-def _build_engine(spec: ReplicaSpec) -> ServeEngine:
+def _build_engine(spec: ReplicaSpec, rank: int = 0,
+                  init_method: str | None = None) -> ServeEngine:
     import torch
 
     from repro_torch.configs import registry
+    from repro_torch.launch import mesh as mesh_mod
     from repro_torch.models import model as M
 
+    device, mesh = spec.device, None
+    if spec.model_parallel > 1:
+        device = mesh_mod.init_distributed(
+            rank, spec.model_parallel, backend=spec.backend,
+            device=spec.device, init_method=init_method)
+        mesh = mesh_mod.make_host_mesh(1, spec.model_parallel,
+                                       device=device.type)
     cfg = registry.get(spec.arch, smoke=spec.smoke)
-    params = M.materialize_params(cfg, seed=spec.seed, device=spec.device)
+    params = M.materialize_params(cfg, seed=spec.seed, device=device)
     if spec.bf16:
         def cast(t):
             if isinstance(t, dict):
                 return {k: cast(v) for k, v in t.items()}
             return t.to(torch.bfloat16) if t.is_floating_point() else t
         params = cast(params)
-    return ServeEngine(cfg, params, EngineConfig(**spec.engine),
-                       device=spec.device)
+    return ServeEngine(cfg, params, EngineConfig(**spec.engine), mesh=mesh,
+                       device=device)
 
 
-def _worker_main(conn, spec: ReplicaSpec) -> None:
+def _apply(engine: ServeEngine, op: str, payload):
+    """One RPC on ``engine``: (reply tag, value)."""
+    if op == "submit":
+        return "submit", engine.submit(
+            payload["tokens"], payload["max_new"],
+            temperature=payload["temperature"], eos_id=payload["eos_id"],
+            uid=payload["uid"], arrival_s=payload["arrival_s"])
+    if op == "step":
+        return "step", engine.step()
+    if op == "poll":
+        done, engine.completions = engine.completions, []
+        return "poll", [dataclasses.asdict(c) for c in done]
+    if op == "load":
+        return "load", dataclasses.asdict(_load_of(engine))
+    if op == "stats":
+        return "stats", dataclasses.asdict(engine.snapshot())
+    if op == "close":
+        return "close", None
+    return "error", f"unknown op {op!r}"          # defensive
+
+
+def _worker_main(conn, spec: ReplicaSpec, rank: int = 0,
+                 init_method: str | None = None) -> None:
     """Synchronous RPC loop around one engine (spawned process). A failed
-    build is reported to the parent as ("error", message)."""
+    build is reported to the parent as ("error", message). In a TP group
+    (``spec.model_parallel > 1``) rank 0 holds ``conn`` and broadcasts
+    each request to the other ranks (``conn`` None), which apply it to
+    their engines in the same order and do not answer."""
+    tp = spec.model_parallel > 1
     try:
-        engine = _build_engine(spec)
+        engine = _build_engine(spec, rank, init_method)
     except Exception as e:                      # the parent raises it
+        if conn is None:
+            raise
         conn.send(("error", f"engine build failed: {e!r}"))
         return
-    conn.send(("ready", None))
+    if conn is not None:
+        conn.send(("ready", None))
+    import torch.distributed as dist
     while True:
-        op, payload = conn.recv()
-        if op == "submit":
-            uid = engine.submit(payload["tokens"], payload["max_new"],
-                                temperature=payload["temperature"],
-                                eos_id=payload["eos_id"], uid=payload["uid"],
-                                arrival_s=payload["arrival_s"])
-            conn.send(("submit", uid))
-        elif op == "step":
-            conn.send(("step", engine.step()))
-        elif op == "poll":
-            done, engine.completions = engine.completions, []
-            conn.send(("poll", [dataclasses.asdict(c) for c in done]))
-        elif op == "load":
-            conn.send(("load", dataclasses.asdict(_load_of(engine))))
-        elif op == "stats":
-            conn.send(("stats", dataclasses.asdict(engine.snapshot())))
-        elif op == "close":
-            conn.send(("close", None))
-            return
-        else:                                   # defensive: unknown op
-            conn.send(("error", f"unknown op {op!r}"))
+        msg = [conn.recv() if conn is not None else None]
+        if tp:
+            dist.broadcast_object_list(msg, src=0)
+        op, payload = msg[0]
+        reply = _apply(engine, op, payload)
+        if conn is not None:
+            conn.send(reply)
+        if op == "close":
+            break
+    if tp:
+        dist.destroy_process_group()
 
 
 class ProcessReplica:
@@ -205,27 +254,39 @@ class ProcessReplica:
     parent's build instead of compiling its own.
 
     ``pending`` is mirrored host-side (submits minus polled completions)
-    so the router's idle checks cost no RPC."""
+    so the router's idle checks cost no RPC. With ``model_parallel = N >
+    1`` the replica spawns N rank processes (a file store under a
+    temporary directory joins them); rank 0 is the one spoken to."""
 
     def __init__(self, spec: ReplicaSpec):
-        if spec.model_parallel != 1:
-            raise NotImplementedError(
-                "ReplicaSpec(model_parallel > 1) is not ported yet "
-                "(ROADMAP.md, Queue A item 12)")
+        n = spec.model_parallel
+        if n < 1:
+            raise ValueError(f"model_parallel must be >= 1, got {n}")
+        self._store = None
+        init_method = None
+        if n > 1:
+            from repro_torch.launch import mesh as mesh_mod
+            mesh_mod.check_backend(spec.backend, spec.device, n)
+            self._store = tempfile.mkdtemp(prefix="replica_tp_")
+            init_method = "file://" + os.path.join(self._store, "store")
         if str(spec.device).startswith("cuda"):
             from repro_torch.kernels import _build
             _build.build()
         ctx = mp.get_context("spawn")
         self._conn, child = ctx.Pipe()
-        self._proc = ctx.Process(target=_worker_main, args=(child, spec),
-                                 daemon=True)
-        self._proc.start()
+        self._procs = [ctx.Process(
+            target=_worker_main,
+            args=(child if r == 0 else None, spec, r, init_method),
+            daemon=True) for r in range(n)]
+        self._proc = self._procs[0]
+        for proc in self._procs:
+            proc.start()
         child.close()
         self._in_flight = 0
         self._closed = False
         tag, val = self._conn.recv()            # blocks until model built
         if tag != "ready":
-            self._proc.join(timeout=10)
+            self._stop()
             raise RuntimeError(f"replica worker: {val}")
 
     def _rpc(self, op: str, payload=None):
@@ -265,8 +326,21 @@ class ProcessReplica:
 
     @property
     def exitcode(self):
-        """The worker's exit code once it has ended (None while alive)."""
-        return self._proc.exitcode
+        """The workers' exit code once all have ended (None while one is
+        alive): the first nonzero one, else 0."""
+        codes = [p.exitcode for p in self._procs]
+        if any(c is None for c in codes):
+            return None
+        return next((c for c in codes if c), 0)
+
+    def _stop(self) -> None:
+        for proc in self._procs:
+            proc.join(timeout=10)
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(timeout=10)
+        if self._store is not None:
+            shutil.rmtree(self._store, ignore_errors=True)
 
     def close(self) -> None:
         if self._closed:
@@ -277,7 +351,4 @@ class ProcessReplica:
         except (BrokenPipeError, EOFError, OSError):
             pass
         self._conn.close()
-        self._proc.join(timeout=10)
-        if self._proc.is_alive():
-            self._proc.terminate()
-            self._proc.join(timeout=10)
+        self._stop()

@@ -33,6 +33,17 @@ TARGETS = [(s, g, act) for s, g in GEOMETRIES
                                                             "softplus")]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op torch thread for this module's small models: the suite
+    runs several workers on the host's cores, and a torch pool of one
+    thread a core in each slows small-model tests many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _id(case):
     return "-".join(str(v) for v in (case[0], *case[1].values(), *case[2:]))
 

@@ -37,6 +37,17 @@ DENSE = ("olmo-1b", "qwen2.5-3b", "yi-34b")
 TOL = {"float32": 1e-4, "bfloat16": 0.1}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op torch thread for this module's small models: the suite
+    runs several workers on the host's cores, and a torch pool of one
+    thread a core in each slows small-model tests many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def deployment(arch, dep, dtype="float32", **over):
     """(reference config, port config) of one deployment: ``plain``,
     ``fused`` (glu_2d on every FFN) or ``kernel`` (elementwise_2d on every

@@ -18,6 +18,17 @@ from repro_torch.data import DataConfig, SyntheticPipeline, eval_batches  # noqa
 from repro_torch.data import pipeline as TPL  # noqa: E402
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op torch thread for this module's small models: the suite
+    runs several workers on the host's cores, and a torch pool of one
+    thread a core in each slows small-model tests many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfg(**over):
     cfg = registry.get("qwen3-0.6b", smoke=True)
     return dataclasses.replace(cfg, **over) if over else cfg

@@ -25,6 +25,17 @@ from repro_torch.kernels import ref as tref  # noqa: E402
 EPILOGUES = ("tanh", "sigmoid", "silu", "gelu_tanh", "softplus")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op torch thread for this module's small models: the suite
+    runs several workers on the host's cores, and a torch pool of one
+    thread a core in each slows small-model tests many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def rand(shape, scale=6.0, seed=0):
     return np.random.RandomState(seed).uniform(-scale, scale, shape).astype(
         np.float32)

@@ -36,6 +36,17 @@ METHODS = [("cr", 32, 3), ("pwl", 32, 3), ("poly", 8, 3),
            ("rational", 32, 5)]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op torch thread for this module's small models: the suite
+    runs several workers on the host's cores, and a torch pool of one
+    thread a core in each slows small-model tests many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def same(a, b):
     assert dataclasses.astuple(a) == dataclasses.astuple(b), (a, b)
 

@@ -43,6 +43,17 @@ FUNCS = ("tanh", "sigmoid", "silu", "gelu_tanh", "softplus")
 REL_GX, REL_GP = 1e-6, 5e-6
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op torch thread for this module's small models: the suite
+    runs several workers on the host's cores, and a torch pool of one
+    thread a core in each slows small-model tests many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def specs(scheme, frac_bits=13, **over):
     geom = {**FIXED_GEOMS[scheme], **over}
     kw = dict(depth=geom["depth"], degree=geom["degree"], int_bits=2,

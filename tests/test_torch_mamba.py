@@ -55,6 +55,17 @@ TOL = 1e-5            # f32 outputs, states and logits (absolute)
 GRAD_TOL = 1e-4       # loss and gradients (relative to the largest entry)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op torch thread for this module's small models: the suite
+    runs several workers on the host's cores, and a torch pool of one
+    thread a core in each slows small-model tests many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def deployment(arch, dep, **over):
     jc = JR.get(arch, smoke=True, compute_dtype="float32", **over)
     tc = TR.get(arch, smoke=True, compute_dtype="float32", **over)

@@ -35,6 +35,17 @@ from repro_torch.models import model as TM  # noqa: E402
 TOL = {"float32": 1e-4, "bfloat16": 0.1}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op torch thread for this module's small models: the suite
+    runs several workers on the host's cores, and a torch pool of one
+    thread a core in each slows small-model tests many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def deployments(arch, dtype, dep, scheme=None):
     """(reference config, port config) of one deployment: ``plain`` (the
     unfused engine), ``kernel`` (every FFN activation one elementwise_2d

@@ -41,6 +41,17 @@ MOE = ("mixtral-8x22b", "llama4-scout-17b-a16e")
 IMPLS = ("gshard", "ragged")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op torch thread for this module's small models: the suite
+    runs several workers on the host's cores, and a torch pool of one
+    thread a core in each slows small-model tests many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfgs(arch, **over):
     over = dict(dict(compute_dtype="float32"), **over)
     return JR.get(arch, smoke=True, **over), TR.get(arch, smoke=True, **over)

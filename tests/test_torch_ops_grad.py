@@ -28,6 +28,17 @@ EPILOGUES = ("tanh", "sigmoid", "silu", "gelu_tanh", "softplus")
 REL = 2e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op torch thread for this module's small models: the suite
+    runs several workers on the host's cores, and a torch pool of one
+    thread a core in each slows small-model tests many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _selection(scheme, act):
     """The same scheme selection for both packages' ops: the CR route by
     table, the others by method."""

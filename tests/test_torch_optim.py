@@ -22,6 +22,17 @@ from repro_torch.optim import compress as TC  # noqa: E402
 RTOL = 1e-6
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op torch thread for this module's small models: the suite
+    runs several workers on the host's cores, and a torch pool of one
+    thread a core in each slows small-model tests many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def random_tree(seed, scale=1.0):
     rng = np.random.RandomState(seed)
     return {"embed": (rng.normal(size=(64, 16)) * scale).astype(np.float32),

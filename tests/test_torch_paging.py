@@ -36,6 +36,17 @@ TOL = 1e-4          # f32 logits, as tests/test_torch_model.py
 
 # --- page pool ---------------------------------------------------------------
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op torch thread for this module's small models: the suite
+    runs several workers on the host's cores, and a torch pool of one
+    thread a core in each slows small-model tests many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _pool_state(p):
     return (list(p.free), dict(p.ref), list(p.cached.items()),
             dict(p.registry), dict(p.key_of), p.reserved, p.pages_peak,

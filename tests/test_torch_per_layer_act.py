@@ -42,6 +42,17 @@ from repro_torch.serve import EngineConfig, ServeEngine  # noqa: E402
 MIXED = ("cr-d32", "pwl-d16", "poly-d8-g3", "rational-d32-g5")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op torch thread for this module's small models: the suite
+    runs several workers on the host's cores, and a torch pool of one
+    thread a core in each slows small-model tests many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 class TestPerLayerAssignment:
     def test_uniform_pin_collapses_to_plain_engine(self):
         cfg = TR.get("qwen3-0.6b", smoke=True)

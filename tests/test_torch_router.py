@@ -33,6 +33,17 @@ from repro_torch.optim.adamw import tree_leaves  # noqa: E402
 
 # ---------------------------------------------------------------- the fake
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op torch thread for this module's small models: the suite
+    runs several workers on the host's cores, and a torch pool of one
+    thread a core in each slows small-model tests many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def fake_class(pkg):
     """The reference suite's FakeReplica (tests/test_serve_router.py) on
     ``pkg``'s types: completes each request after ``latency`` step()
@@ -533,8 +544,15 @@ def test_process_replica_matches_in_process(smoke):
     finally:
         remote.close()
     assert remote.exitcode == 0
-    with pytest.raises(NotImplementedError, match="item 12"):
-        T.ProcessReplica(dataclasses.replace(spec, model_parallel=2))
+    # a TP replica (tests/test_torch_serve_tp.py serves through one)
+    # takes its backend by name: gloo by default on the CPU, and nccl,
+    # which needs a card per rank, is refused before anything spawns
+    tp_spec = dataclasses.replace(spec, model_parallel=2)
+    assert tp_spec.backend == "gloo"
+    with pytest.raises(ValueError, match="nccl backend needs CUDA"):
+        T.ProcessReplica(dataclasses.replace(tp_spec, dist_backend="nccl"))
+    with pytest.raises(ValueError, match="model_parallel must be >= 1"):
+        T.ProcessReplica(dataclasses.replace(spec, model_parallel=0))
 
 
 def test_routed_multicodebook_matches_single_engine():

@@ -40,6 +40,17 @@ LENS = (9, 17, 30, 12, 5)        # buckets 16 and 32
 GEN = 10
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op torch thread for this module's small models: the suite
+    runs several workers on the host's cores, and a torch pool of one
+    thread a core in each slows small-model tests many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def deployment(dep, scheme=None):
     jc = JR.get("qwen3-0.6b", smoke=True, compute_dtype="float32")
     tc = TR.get("qwen3-0.6b", smoke=True, compute_dtype="float32")
@@ -263,11 +274,14 @@ def test_launcher_main_on_cpu(tmp_path, capsys):
                               "--act-impl", scheme] + extra)
             assert st.decode_steps == 2
         assert f"act_impl={scheme}" in capsys.readouterr().out
-    # the router flags are ported (tests/test_torch_router.py); only
-    # tensor parallelism is not
-    assert set(tserve._UNPORTED_FLAGS) == {"model_parallel"}
-    with pytest.raises(SystemExit):
-        tserve.main(["--smoke", "--device", "cpu", "--model-parallel", "2"])
+    # every reference flag is ported: the router's
+    # (tests/test_torch_router.py) and --model-parallel
+    # (tests/test_torch_serve_tp.py). NCCL needs a CUDA device per rank,
+    # so asking for it on the CPU is a clear error, not a silent gloo
+    assert set(tserve._UNPORTED_FLAGS) == set()
+    with pytest.raises(SystemExit, match="nccl backend needs CUDA"):
+        tserve.main(["--smoke", "--device", "cpu", "--model-parallel", "2",
+                     "--dist-backend", "nccl"])
 
 
 @pytest.mark.parametrize("flags", [

@@ -34,6 +34,17 @@ MAX_PROMPT = 32
 LENS = (9, 17, 30, 12)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op torch thread for this module's small models: the suite
+    runs several workers on the host's cores, and a torch pool of one
+    thread a core in each slows small-model tests many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def deployment(dep="plain", scheme=None, **over):
     jc = JR.get("qwen3-0.6b", smoke=True, compute_dtype="float32", **over)
     tc = TR.get("qwen3-0.6b", smoke=True, compute_dtype="float32", **over)

@@ -16,6 +16,17 @@ from repro_torch.core import catmull_rom as TCR  # noqa: E402
 from repro_torch.core import fixed_point as TFP  # noqa: E402
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op torch thread for this module's small models: the suite
+    runs several workers on the host's cores, and a torch pool of one
+    thread a core in each slows small-model tests many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _grid(n=4001, scale=9.0, seed=0):
     rng = np.random.RandomState(seed)
     x = np.concatenate([np.linspace(-scale, scale, n),

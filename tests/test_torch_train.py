@@ -51,6 +51,17 @@ LR_PEAK, WARMUP = 1e-2, 2
 REL_SCALAR, REL_GRAD, REL_MOMENT, PARAM_OVER_LR = 1e-5, 2e-5, 2e-4, 0.05
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op torch thread for this module's small models: the suite
+    runs several workers on the host's cores, and a torch pool of one
+    thread a core in each slows small-model tests many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def deployment(dep):
     jc = JR.get("qwen3-0.6b", smoke=True, compute_dtype="float32")
     tc = TR.get("qwen3-0.6b", smoke=True, compute_dtype="float32")

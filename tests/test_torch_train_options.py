@@ -21,6 +21,17 @@ from test_torch_train import (PARAM_OVER_LR, REL_MOMENT, assert_leaves,  # noqa:
 REL_QSTEP = 2 / 127
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op torch thread for this module's small models: the suite
+    runs several workers on the host's cores, and a torch pool of one
+    thread a core in each slows small-model tests many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_remat_dots_matches_reference():
     """remat="dots" keeps the matmul outputs and reruns the rest in the
     backward (the reference's checkpoint_dots policy)."""
