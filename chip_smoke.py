@@ -137,6 +137,22 @@ lines:
      (processes sharing one card: information, not a speed claim). The
      TP 2 runs alternate between two pairs of ranks serving at once. The
      shard shapes join the served-shape checks and phase 4's timings.
+     Then ``train_sharded_*`` (ROADMAP item 12b): the same four ranks
+     train TRAIN_SHARDED_RUNS through ``make_train_step(mesh=)`` and a
+     sharded ``TrainDriver`` (FSDP of the embed dim over ``data``, TP
+     over ``model``, each rank storing its blocks of the params and of
+     AdamW's state): qwen3-0.6b at all 28 layers in bf16 at (data,
+     model) = (2, 2), fused and kernelized, 3 steps at a global 8 x 128
+     (finite, unskipped, loss and gnorm the same bits on every rank, each
+     rank's launches exactly ``launches_per_forward`` x forwards, the
+     other kernel none, bf16 glu_2d on ``tma_wgmma``; step ms,
+     collectives and MB a step per axis, peak GB a rank and the host
+     syncs of the last step printed); then at f32 qwen3-0.6b (8 of 28
+     layers) at (2, 2), (4, 1) and (1, 4) and hymba-1.5b (8 of 32) at
+     (2, 2), each held against the one-process step on the card (rank 0
+     runs it first; step 1 from the same weights and batch): loss and
+     gnorm, every gathered gradient leaf (the act leaf per knot) and
+     every leaf's update, within TRAIN_SHARDED_* limits.
      Then (3e) the autotuner (``repro_torch.core.autotune``):
      ``autotune_grid`` (every FULL_GRID candidate and the baseline scored
      on the card: tags, gates and max_err equal to the CPU's bit for
@@ -169,10 +185,11 @@ lines:
      kernel is held to (it computes another function: the port never
      calls it). The ``elementwise_aims`` line sets ``ms`` against
      ``copy_ms`` and the schemes against each other (information, not a
-     gate). Then one decode chunk of each deployment on each cache under
-     the profiler: device busy time, idle share and the top kernels per
-     decode step; and one decode chunk (paged: with its write mask) that
-     must make no host sync (CUDA's sync debug mode raises on any); and
+     gate). Then one decode chunk (TRACE_CHUNK steps) of each deployment
+     on each cache under the profiler: device busy time, idle share and
+     the top kernels per decode step; and one decode chunk (paged: with
+     its write mask) that must make no host sync (CUDA's sync debug mode
+     raises on any); and
      one train step of each trained deployment under the profiler
      (``trace_train_*``); the same for the ``*_fixed`` deployments
      (``trace_fixed_*``, ``trace_train_cr_fixed``), then the per-layer
@@ -273,6 +290,11 @@ GLU_RAGGED = ((2, 1000, 3000), (65, 1000, 3000))
 GLU_WMMA_CASE = (3, 1024, 3001)
 
 SLOTS, MAX_PROMPT, MAX_LEN, CHUNK = 2, 128, 160, 8
+# decode steps a trace's engine takes a chunk (its profiled chunk and its
+# sync check): the per-step numbers are means over the chunk's steps,
+# which are alike (2 and 8 steps read the same busy ms and kernels a
+# step on an H100); 8 steps (CHUNK) cost the traces 160 s more
+TRACE_CHUNK = 2
 GLU_PREFILL_MAX = 2 * MAX_PROMPT    # the largest ragged prefill two slots form
 # training (the launcher's defaults): batch 8 x seq 128 = 1024 rows a
 # kernel launch; 5 steps without remat, then 2 under remat="block"
@@ -344,16 +366,17 @@ ARCH_RUNS = (("olmo-1b", None), ("qwen2.5-3b", None), ("yi-34b", 8),
 # card against CPU at f32 (serve logits and train gradients), batch 1 x 32
 # tokens: the MoE archs at one layer (the CPU copy ~12-17 GB), falcon-mamba
 # at two (its 64 would be a 29 GB CPU copy), yi-34b at two and the others
-# at four (qwen3-0.6b at eight: its TRAIN_ARCH_RUNS lines, the non-CR
-# schemes and the per-layer runs, and phase 5's cr_spline and cr_fixed
-# steps, which compared all 28 layers in 21-25 s each until the TP phase
-# needed the time): the CPU's f32 forward and backward of every layer
-# took 266 s of the script's 1,070 s at the served / trained depths (an
-# H100 run), against a 1,200 s limit
+# at four, qwen3-0.6b too (its TRAIN_ARCH_RUNS lines, the non-CR schemes
+# and the per-layer runs, and phase 5's cr_spline and cr_fixed steps,
+# which compared all 28 layers in 21-25 s each until the TP phase needed
+# the time, then 8 until the sharded training phase did: 14-19 s each on
+# a slow host): the CPU's f32 forward and backward of every layer took
+# 266 s of the script's 1,070 s at the served / trained depths (an H100
+# run), against a 1,200 s limit
 ARCH_F32_LAYERS = {"mixtral-8x22b": 1, "llama4-scout-17b-a16e": 1,
                    "falcon-mamba-7b": 2, "yi-34b": 2, "olmo-1b": 4,
                    "qwen2.5-3b": 4, "qwen2-vl-2b": 4, "hymba-1.5b": 4,
-                   "musicgen-large": 4, "qwen3-0.6b": 8}
+                   "musicgen-large": 4, "qwen3-0.6b": 4}
 ARCH_F32_TOKENS = 32
 
 
@@ -1302,13 +1325,13 @@ def phase_chunked(torch, epi, name, cfg, params32, prompts, dev, card,
     emit(out)
 
 
-def decode_chunk_sync_check(torch, cfg, eng):
-    """One decode chunk of ``eng`` (requests admitted; with its write mask
-    when paged) under CUDA's sync debug mode "error". A decode chunk
-    enqueues all its steps without one host sync: any sync inside (a copy
-    from host memory, .item(), ...) raises here."""
+def decode_chunk_sync_check(torch, cfg, eng, steps=CHUNK):
+    """One decode chunk of ``steps`` steps of ``eng`` (requests admitted;
+    with its write mask when paged) under CUDA's sync debug mode "error".
+    A decode chunk enqueues all its steps without one host sync: any sync
+    inside (a copy from host memory, .item(), ...) raises here."""
     from repro_torch.serve.engine import make_decode_chunk
-    chunk = make_decode_chunk(cfg, CHUNK, paged=eng.paged)
+    chunk = make_decode_chunk(cfg, steps, paged=eng.paged)
     torch.cuda.set_sync_debug_mode("error")
     try:
         chunk(eng.params, eng.cache, eng.state, 0, [0] * SLOTS,
@@ -1319,8 +1342,9 @@ def decode_chunk_sync_check(torch, cfg, eng):
 
 
 def phase_trace(torch, name, cfg, params, prompts, dev, serve_line, cache):
-    """Where a decode step's time goes: one decode chunk of the same
-    engine under the profiler (device activity only). Device busy time
+    """Where a decode step's time goes: one decode chunk (TRACE_CHUNK
+    steps) of the same engine under the profiler (device activity only).
+    Device busy time
     per step against the unprofiled wall time per step of the main run
     gives the device's idle share; the repro kernels' share is the FFN
     kernel's part; ``top_kernels`` names the TOP_KERNELS device kernels
@@ -1331,7 +1355,7 @@ def phase_trace(torch, name, cfg, params, prompts, dev, serve_line, cache):
     from repro_torch.serve import EngineConfig, ServeEngine
     eng = ServeEngine(cfg, params, EngineConfig(
         slots=SLOTS, max_prompt_len=MAX_PROMPT, max_len=MAX_LEN,
-        chunk=CHUNK, page_size=PAGE_SIZE, cache=cache), device=dev)
+        chunk=TRACE_CHUNK, page_size=PAGE_SIZE, cache=cache), device=dev)
     for pr in prompts[:SLOTS]:
         eng.submit(pr, max_new=MAX_NEW)
     eng.step()                          # admission + first decode chunk
@@ -1339,7 +1363,7 @@ def phase_trace(torch, name, cfg, params, prompts, dev, serve_line, cache):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         eng.step()                      # one decode chunk, ends at a sync
     steps = eng.stats.decode_steps - steps0
-    decode_chunk_sync_check(torch, cfg, eng)
+    decode_chunk_sync_check(torch, cfg, eng, TRACE_CHUNK)
     evs = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     wall_step = serve_line["decode_s"] / serve_line["decode_steps"]
@@ -2716,7 +2740,8 @@ def phase_process_replica(torch, np, base, dev, card, smoke=False):
 # dtype or None for the config's bf16). qwen3-0.6b at full depth in bf16
 # (glu_2d's tma_wgmma and elementwise_2d at the shard widths) at TP 2 and
 # 4 on the paged pool, at TP 2 on the slot cache, chunked and kernelized;
-# at f32 at TP 2 and 4; then the layouts at f32 and cut depths:
+# at f32 (8 of 28 layers) at TP 2 and 4; then the layouts at f32
+# and cut depths:
 # qwen2.5-3b at TP 4 (KV = 2 stays whole while 16 heads shard),
 # hymba-1.5b at TP 2 (25 heads stay whole, d_inner shards),
 # musicgen-large at TP 2 (K = 4 codebook planes, vocab-parallel
@@ -2727,15 +2752,15 @@ TP_BACKEND = "gloo"
 TP_RUNS = (
     ("qwen3-0.6b", None, "fused", 2, {}, None),
     ("qwen3-0.6b", None, "fused", 4, {}, None),
-    ("qwen3-0.6b", None, "fused", 2, {"cache": "slot"}, None),
     ("qwen3-0.6b", None, "fused", 2, {"chunk_prefill": CHUNK_PREFILL}, None),
-    ("qwen3-0.6b", None, "kernelized", 2, {}, None),
-    ("qwen3-0.6b", None, "fused", 2, {}, "float32"),
-    ("qwen3-0.6b", None, "fused", 4, {}, "float32"),
-    ("qwen2.5-3b", 8, "fused", 4, {}, "float32"),
+    ("qwen3-0.6b", None, "fused", 2, {"cache": "slot"}, None),
     ("hymba-1.5b", 8, "fused", 2, {}, "float32"),
-    ("musicgen-large", 8, "kernelized", 2, {}, "float32"),
+    ("qwen3-0.6b", None, "kernelized", 2, {}, None),
     ("mixtral-8x22b", 1, "ragged", 2, {}, "float32"),
+    ("qwen3-0.6b", 8, "fused", 2, {}, "float32"),
+    ("qwen3-0.6b", 8, "fused", 4, {}, "float32"),
+    ("qwen2.5-3b", 8, "fused", 4, {}, "float32"),
+    ("musicgen-large", 8, "kernelized", 2, {}, "float32"),
 )
 # prefill logits on tp_logit_tokens, TP against TP=1, relative to TP=1's
 # largest |logit|. At f32 the row-parallel products sum f32 partials in
@@ -2751,6 +2776,41 @@ TP_RUNS = (
 TP_F32_TOL = 1e-5
 TP_BF16_TOL = 5e-2
 TP_LOGIT_TOKENS = 32
+# sharded training (ROADMAP item 12b): the serve_tp ranks train after
+# serving, on (data, model) meshes over all TP_WORLD ranks. Entries:
+# (arch, layers or None for all, deployment, (data, model), dtype or None
+# for the arch's bf16). The bf16 runs take TRAIN_SHARDED_STEPS steps at a
+# global TRAIN_BATCH x TRAIN_SEQ; the f32 runs one step (step 1: at step
+# 0 the warmup lr is 0) at TRAIN_SHARDED_F32_BATCH x TRAIN_F32_SEQ (every
+# data rank a row), each against the one-process step on the card from
+# the same weights and batch. mixtral stays on the CPU test (tests/test_torch_train_sharded.py):
+# a rank gathers its f32 experts whole, over a quarter of the card.
+TRAIN_SHARDED_RUNS = (
+    ("qwen3-0.6b", None, "fused", (2, 2), None),
+    ("qwen3-0.6b", None, "kernelized", (2, 2), None),
+    ("qwen3-0.6b", 8, "fused", (2, 2), "float32"),
+    ("qwen3-0.6b", 8, "fused", (4, 1), "float32"),
+    ("qwen3-0.6b", 8, "fused", (1, 4), "float32"),
+    ("hymba-1.5b", 8, "fused", (2, 2), "float32"),
+)
+TRAIN_SHARDED_STEPS = 3
+TRAIN_SHARDED_F32_BATCH = 4
+# f32 sharded against one process, both on the card: the loss and gnorm
+# relative (the row-parallel and data sums add f32 partials in another
+# order); each gradient leaf relative to its largest |g| (as
+# train_f32_vs_cpu's 1e-4); each leaf's update, the L2 norm of the
+# difference of the params after the step over the norm of the
+# one-process update. Not the params element by element: Adam's first
+# update is lr * g / (|g| + eps), so an element whose gradient is near
+# eps (~1e-5 of its leaf's largest, where the f32 sums' rounding is of
+# the order of eps) moves by up to lr either way: 0.04-0.21 x the peak
+# lr read in a step of qwen3 and hymba (printed as param_abs_over_lr),
+# where the gradients agreed within 8e-6; the updates read <= 1.2e-3
+# (NVIDIA H100 80GB HBM3, 700 W). A lost, doubled or misplaced update
+# reads ~1 or more.
+TRAIN_SHARDED_SCALAR_TOL = 1e-5
+TRAIN_SHARDED_GRAD_TOL = 1e-4
+TRAIN_SHARDED_UPDATE_TOL = 1e-2
 
 
 def tp_config(registry, run):
@@ -2826,6 +2886,7 @@ def _tp_rank(rank, world, dev, runs):
             if stage is wide:
                 dist.barrier()
         dist.barrier()
+    out["train"] = _train_sharded_rank(rank, world, dev)
     return out
 
 
@@ -2889,6 +2950,319 @@ def _tp_serve(torch, np, dist, epi, registry, TS, M, part, TPC, dev, mesh,
     return res
 
 
+def _train_sharded_rank(rank, world, dev, runs=TRAIN_SHARDED_RUNS):
+    """This rank's part of every sharded train run (``runs``), on (data,
+    model) meshes over the whole world: {run index: result}. A spawn_ranks
+    function of its own too (dev runs of the phase alone)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as LM
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    meshes = {shape: LM.make_host_mesh(*shape,
+                                       device=torch.device(dev).type)
+              for shape in sorted({run[3] for run in runs})}
+    out = {}
+    for i, run in enumerate(runs):
+        out[i] = _train_sharded(torch, dist, rank, dev, meshes[run[3]], run)
+        dist.barrier()
+    return out
+
+
+def train_sharded_config(registry, run):
+    """(config, full layers) of a TRAIN_SHARDED_RUNS entry."""
+    arch, depth, dep, _, dtype = run
+    return tp_config(registry, (arch, depth, dep, None, None, dtype))
+
+
+def _leaf_rel(torch, got, want, scale=None) -> dict:
+    """{leaf: max|got - want| over max|want| (or over ``scale``)}; an act
+    leaf per knot (``knot_grad``), its per-entry value under
+    ``<leaf>:entries``."""
+    g, w = _flat(got), _flat(want)
+    assert set(g) == set(w), set(g) ^ set(w)
+    rel = lambda a, b: float((a.double() - b.double()).abs().max()
+                             / (scale or max(float(b.abs().max()), 1e-30)))
+    out = {}
+    for k in w:
+        if k.startswith("act/"):
+            out[k + ":entries"] = rel(g[k], w[k])
+            out[k] = rel(knot_grad(torch, g[k].cpu()),
+                         knot_grad(torch, w[k].cpu()))
+        else:
+            out[k] = rel(g[k], w[k])
+    return out
+
+
+def _worst(by_leaf: dict) -> tuple:
+    """(worst value, its leaf) of ``_leaf_rel``-like numbers, per-entry
+    act values left out."""
+    return max((v, k) for k, v in by_leaf.items() if ":" not in k)
+
+
+def _grads_at_start(torch, TS, M, cfg, hyper, params, batch, fsdp=None):
+    """``loss_fn`` differentiated once. Sharded (``fsdp``): this rank's
+    rows, the gradients' data mean, every leaf gathered whole on the card
+    (every rank joins; the mesh's first rank keeps them, the others get
+    None)."""
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    from repro_torch.parallel import dp as DP
+    p = tree_map(lambda t: t.detach().requires_grad_(), params)
+    if fsdp is not None and fsdp.group is not None:
+        batch = DP.local_rows(batch, fsdp.group.rank, fsdp.dp)
+    loss, _ = M.loss_fn(p, batch, cfg, TS.make_engine(cfg),
+                        remat=hyper.remat, z_loss=hyper.z_loss, fsdp=fsdp)
+    leaves = tree_leaves(p)
+    got = dict(zip(map(id, leaves), torch.autograd.grad(loss, leaves)))
+    grads = tree_map(lambda t: got[id(t)], p)
+    if fsdp is None:
+        return grads
+    lead = all(fsdp.mesh.get_local_rank(a) == 0
+               for a in fsdp.mesh.mesh_dim_names)
+    whole = fsdp.whole(fsdp.reduce_grads(grads), lead)
+    return tree_map(lambda g: g.to(loss.device), whole) if lead else None
+
+
+def _train_one_process(torch, TS, M, cfg, hyper, batch, dev):
+    """The one-process f32 baseline of a sharded run, on the card: the
+    gradients at the start, then step 1 on ``batch`` (its loss and gnorm,
+    the params before and after)."""
+    from repro_torch.optim import adamw
+    params = M.materialize_params(cfg, seed=0, device=dev)
+    out = {"grads": _grads_at_start(torch, TS, M, cfg, hyper, params,
+                                    batch), "params0": params}
+    out["params"], _, m = TS.make_train_step(cfg, hyper)(
+        params, adamw.init_state(params), batch, 1)
+    out["losses"], out["gnorms"] = [float(m["loss"])], [float(m["gnorm"])]
+    return out
+
+
+def _train_sharded(torch, dist, rank, dev, mesh, run):
+    """One TRAIN_SHARDED_RUNS entry on this rank: for an f32 run rank 0
+    first runs the one-process baseline; then each rank draws the
+    weights from seed 0 on the card in turn, keeps its blocks
+    (``ShardedState.shardings``) and frees the rest; f32: the gathered
+    gradients at the start; then a sharded ``TrainDriver`` runs the steps
+    with the launch and collective counts zeroed (bf16: the last under
+    CUDA's sync debug mode); f32: the gathered params after the step.
+    Returns this rank's numbers (rank 0's with the comparisons)."""
+    import tempfile
+    t_run = time.perf_counter()
+    from repro_torch.configs import registry
+    from repro_torch.ft import FTConfig, TrainDriver
+    from repro_torch.kernels import epilogue as epi
+    from repro_torch.launch import steps as TS
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import tree_map
+    from repro_torch.parallel import dp as DP
+    from repro_torch.parallel import partition as part
+    from repro_torch.parallel import tp as TPC
+    cfg, _ = train_sharded_config(registry, run)
+    f32 = run[4] == "float32"
+    hyper = TS.TrainHyper(remat="none", opt=train_opt())
+    rows, seq, steps, first = ((TRAIN_SHARDED_F32_BATCH, TRAIN_F32_SEQ, 1, 1)
+                               if f32 else
+                               (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SHARDED_STEPS,
+                                0))
+    pipe = train_pipe(cfg, rows, seq, dev)
+    lead = rank == 0
+    base = None
+    if f32 and lead:
+        base = _train_one_process(torch, TS, M, cfg, hyper, pipe(first), dev)
+        release(torch)
+    dist.barrier()
+    state = TS.ShardedState(cfg, mesh, hyper=hyper)
+    local = None
+    for r in range(dist.get_world_size()):
+        if r == rank:
+            w = M.materialize_params(cfg, seed=0, device=dev)
+            local = M.shard_params(w, cfg, state.shardings)
+            del w
+            release(torch)
+        dist.barrier()
+    res = {"local_params_gb": tree_gb(local)}
+    if f32:
+        with part.axis_rules(mesh):
+            grads = _grads_at_start(torch, TS, M, cfg, hyper, local,
+                                    pipe(first), state.fsdp)
+        if lead:
+            res["grad_rel"] = _leaf_rel(torch, grads, base["grads"])
+        del grads
+    shape = part.mesh_shape(mesh)
+    groups = {axis: g for axis, g in (
+        ("model", TPC.group_of(mesh) if shape["model"] > 1 else None),
+        ("data", DP.group_of(mesh) if shape["data"] > 1 else None)) if g}
+    step_fn = TS.make_train_step(cfg, hyper, mesh=mesh)
+    opt = adamw.init_state(local)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for g in groups.values():
+        g.reset()
+    zero_launches(epi)
+    with tempfile.TemporaryDirectory() as ckpt, ShapeLog(epi) as log:
+        drv = TrainDriver(step_fn, pipe, local, opt, FTConfig(
+            ckpt_dir=ckpt, ckpt_every=10 ** 9, log_every=0),
+            start_step=first, log=lambda *_: None, sharded=state)
+        del local, opt
+        if f32:
+            drv.run(steps)
+        else:
+            # the last step under CUDA's sync debug mode: its host syncs
+            drv.run(steps - 1)
+            torch.cuda.synchronize()
+            res["host_syncs_per_step"] = host_syncs(torch,
+                                                    lambda: drv.run(1))
+    torch.cuda.synchronize()
+    recs = drv.history
+    res.update(
+        launches=dict(epi.LAUNCHES), variants=dict(epi.GLU_VARIANTS),
+        shapes=log.shapes, losses=[r.loss for r in recs],
+        gnorms=[r.gnorm for r in recs],
+        skipped=sum(r.skipped for r in recs),
+        step_wall_ms=[r.wall_s * 1e3 for r in recs],
+        collectives_per_step={a: g.calls / steps for a, g in groups.items()},
+        collective_mb_per_step={a: g.bytes / 1e6 / steps
+                                for a, g in groups.items()},
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if f32:
+        whole = state.fsdp.whole(drv.params, lead)
+        if lead:
+            whole = tree_map(lambda t: t.to(dev), whole)
+            # in units of the peak lr, per element (information)
+            res["params_rel"] = _leaf_rel(torch, whole, base["params"],
+                                          hyper.opt.lr_peak)
+            got, want = _flat(whole), _flat(base["params"])
+            res["update_rel"] = {
+                k: float((got[k].double() - want[k].double()).norm()
+                         / (want[k].double() - p0.double()).norm())
+                for k, p0 in _flat(base["params0"]).items()}
+        del whole
+        if lead:
+            res["base_losses"] = base["losses"]
+            res["base_gnorms"] = base["gnorms"]
+    del drv, state
+    release(torch)
+    res["run_s"] = time.perf_counter() - t_run
+    return res
+
+
+def train_sharded_name(run) -> str:
+    arch, _, dep, (d, m), dtype = run
+    return (f"train_sharded_{arch}_{dep}{'_f32' if dtype else ''}"
+            f"_dp{d}_tp{m}")
+
+
+def phase_train_sharded(torch, registry, card, ranks):
+    """The ``train_sharded_*`` lines from the ranks' results
+    (``_train_sharded``) and their gates: every loss finite and no step
+    skipped; loss and gnorm the same bits on every rank; each rank's
+    launches exactly ``launches_per_forward`` x steps (one forward a step:
+    no remat), every glu_2d launch on its type's variant (bf16
+    ``tma_wgmma``); f32: loss and gnorm within TRAIN_SHARDED_SCALAR_TOL
+    of the one-process step's, every gradient leaf within
+    TRAIN_SHARDED_GRAD_TOL, every leaf's update within
+    TRAIN_SHARDED_UPDATE_TOL (see there). Host syncs are printed,
+    not gated (gloo waits once a collective). Each line carries
+    ``kernel_shapes`` and ``launches`` (rank 0's) as serve lines do, so
+    phase 4 times its launch shapes; they join SERVED_SHAPES. Returns
+    {line name: line}."""
+    lines, fails = {}, []
+    lr_peak = train_opt().lr_peak
+    for i, run in enumerate(TRAIN_SHARDED_RUNS):
+        arch, depth, dep, (d, m), dtype = run
+        cfg, full_layers = train_sharded_config(registry, run)
+        got = [r["train"][i] for r in ranks]
+        r0 = got[0]
+        f32 = dtype == "float32"
+        steps = 1 if f32 else TRAIN_SHARDED_STEPS
+        rows, seq = ((TRAIN_SHARDED_F32_BATCH, TRAIN_F32_SEQ) if f32
+                     else (TRAIN_BATCH, TRAIN_SEQ))
+        per_fwd = launches_per_forward(cfg)
+        want = {k: n * steps for k, n in per_fwd.items()}
+        variant = "simt_f32" if f32 else "tma_wgmma"
+        walls = r0["step_wall_ms"]
+        # the first step warms up; a bf16 run's last ran in sync debug mode
+        steady = walls[0] if f32 else statistics.median(walls[1:-1])
+        name = train_sharded_name(run)
+        line = {"phase": name, "card": card, "arch": cfg.name,
+                "layers": cfg.n_layers, "full_layers": full_layers,
+                "deployment": dep, "compute_dtype": cfg.compute_dtype,
+                "mesh": {"data": d, "model": m}, "backend": TP_BACKEND,
+                "batch": rows, "seq": seq, "steps": steps,
+                "first_step": 1 if f32 else 0, "remat": "none",
+                "launches_per_forward": per_fwd, "launches": r0["launches"],
+                "launches_per_rank": [r["launches"] for r in got],
+                "glu_variants": r0["variants"],
+                "kernel_shapes": [[k, list(shape), dt, act, n]
+                                  for (k, shape, dt, act, _), n in
+                                  sorted(r0["shapes"].items(), key=repr)],
+                "losses": r0["losses"], "gnorms": r0["gnorms"],
+                "skipped": r0["skipped"], "step_wall_ms": walls,
+                "step_wall_ms_median": steady,
+                "train_tokens_per_s": rows * seq / steady * 1e3,
+                "collectives_per_step": r0["collectives_per_step"],
+                "collective_mb_per_step": r0["collective_mb_per_step"],
+                "max_memory_allocated_gb_per_rank":
+                    [r["max_memory_allocated_gb"] for r in got],
+                "local_params_gb": r0["local_params_gb"],
+                "host_syncs_per_step": [r.get("host_syncs_per_step")
+                                        for r in got],
+                "run_s": [r["run_s"] for r in got],
+                "same_loss_gnorm_bits_on_every_rank": all(
+                    (r["losses"], r["gnorms"]) == (r0["losses"],
+                                                   r0["gnorms"])
+                    for r in got),
+                "rates_note": f"{d * m} ranks through {TP_BACKEND} "
+                              "(host-staged collectives) on one card "
+                              "they share: information, not a speed "
+                              "claim"}
+        if depth is not None:
+            line["reduced"] = {"n_layers": [depth, full_layers]}
+        if f32:
+            rel = lambda a, b: abs(a - b) / abs(b)
+            line.update(
+                one_process_losses=r0["base_losses"],
+                one_process_gnorms=r0["base_gnorms"],
+                loss_rel=max(map(rel, r0["losses"], r0["base_losses"])),
+                gnorm_rel=max(map(rel, r0["gnorms"], r0["base_gnorms"])),
+                grad_rel=_worst(r0["grad_rel"]),
+                update_rel=_worst(r0["update_rel"]),
+                param_abs_over_lr=_worst(r0["params_rel"]),
+                by_leaf={k: r0[k] for k in ("grad_rel", "update_rel",
+                                            "params_rel")},
+                tolerances={"scalar_rel": TRAIN_SHARDED_SCALAR_TOL,
+                            "grad_rel": TRAIN_SHARDED_GRAD_TOL,
+                            "update_rel": TRAIN_SHARDED_UPDATE_TOL})
+        emit(line)
+        lines[name] = line
+        checks = [
+            ("a loss not finite or a step skipped",
+             all(math.isfinite(x) for x in r0["losses"])
+             and r0["skipped"] == 0),
+            ("loss / gnorm bits differ across ranks",
+             line["same_loss_gnorm_bits_on_every_rank"]),
+            ("launches not launches_per_forward x steps on every rank",
+             all(r["launches"] == want for r in got)),
+            (f"glu_2d off {variant}", all(
+                r["variants"][variant] == r["launches"]["glu_2d"]
+                for r in got))]
+        if f32:
+            checks += [
+                ("loss / gnorm off the one-process step's", max(
+                    line["loss_rel"], line["gnorm_rel"])
+                 <= TRAIN_SHARDED_SCALAR_TOL),
+                ("a gradient leaf off the one-process step's",
+                 line["grad_rel"][0] <= TRAIN_SHARDED_GRAD_TOL),
+                ("an update off the one-process step's",
+                 line["update_rel"][0] <= TRAIN_SHARDED_UPDATE_TOL)]
+        fails += [f"{name}: {what}" for what, ok in checks if not ok]
+        for key, n in r0["shapes"].items():
+            SERVED_SHAPES[key] = SERVED_SHAPES.get(key, 0) + n
+    assert not fails, fails
+    return lines
+
+
 def tree_gb(tree) -> float:
     return sum(t.numel() * t.element_size()
                for t in _flat(tree).values()) / 1e9
@@ -2944,8 +3318,8 @@ def phase_serve_tp(torch, np, epi, registry, dev, card, served):
     also the collectives and host syncs of one more TP decode chunk
     (gloo copies through the host: no gate; the zero-sync gate stays on
     TP=1). Every launch shape joins
-    SERVED_SHAPES. Returns {line name: line} for phase 4's shape
-    timings."""
+    SERVED_SHAPES. Then the same ranks train (``phase_train_sharded``).
+    Returns {line name: line} of both for phase 4's shape timings."""
     from repro_torch.launch import mesh as LM
     base = tp_baselines(torch, np, epi, registry, dev, served)
     release(torch)
@@ -3050,6 +3424,7 @@ def phase_serve_tp(torch, np, epi, registry, dev, card, served):
     for line in lines.values():
         del line["_tokens"]
     assert not fails, fails
+    lines.update(phase_train_sharded(torch, registry, card, ranks))
     return lines
 
 

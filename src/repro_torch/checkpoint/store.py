@@ -162,20 +162,25 @@ class CheckpointStore:
         meta = json.loads((d / "meta.json").read_text())
         return flat, meta
 
-    def restore(self, step: int, template):
+    def restore(self, step: int, template, cut=None):
         """Rebuild a `template`-shaped tree of tensors, each leaf in its
         template leaf's dtype and on its device (the stored arrays are
-        device-agnostic)."""
+        device-agnostic). With ``cut`` the template gives the whole
+        shapes (meta tensors will do) and ``cut`` maps the tree of stored
+        arrays to the tree to return (a rank's blocks of a sharded
+        state: ``launch/steps.py::ShardedState.local``)."""
         flat, meta = self.load_flat(step)
         arrays = dict(_items(unflatten_like(template, flat)))
+        if cut is not None:
+            return cut(_rebuild(template, lambda key, _: arrays[key])), meta
         return _rebuild(template,
                         lambda key, tmpl: _put(arrays[key], tmpl)), meta
 
-    def restore_latest(self, template):
+    def restore_latest(self, template, cut=None):
         step = self.latest_step()
         if step is None:
             return None
-        tree, meta = self.restore(step, template)
+        tree, meta = self.restore(step, template, cut)
         return step, tree, meta
 
     # -- gc --------------------------------------------------------------

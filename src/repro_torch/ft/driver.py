@@ -21,6 +21,14 @@ Behaviours, testable on one host:
     `on_straggler` (on a real pod: report the slow host to the job
     controller / trigger hot-spare swap; here: recorded + logged).
 
+A sharded run (``sharded=``, a ``launch/steps.py::ShardedState``) runs
+one driver a rank over the same step stream. It saves the one-device
+layout: every leaf gathered whole, the first rank writes the npz and
+the others wait at a barrier, so the file is the one a single device and
+the reference write; a restore cuts each rank's blocks out of it. The
+step's metrics are global and the same on every rank, so every rank
+makes the same skip and rollback decisions.
+
 The driver is synchronous: one logical step stream, checkpointing on
 the step boundary. It passes the step index to the step as a host int,
 and reads each step's loss, gradient norm and skip flag on the host:
@@ -82,7 +90,7 @@ class TrainDriver:
                  ft: FTConfig, *, start_step: int = 0,
                  metadata: dict | None = None,
                  on_straggler: Callable[[StepRecord], None] | None = None,
-                 log: Callable[[str], None] = print):
+                 log: Callable[[str], None] = print, sharded=None):
         self.step_fn = step_fn
         self.pipeline = pipeline
         self.params = params
@@ -93,6 +101,7 @@ class TrainDriver:
         self.metadata = metadata or {}
         self.on_straggler = on_straggler
         self.log = log
+        self.sharded = sharded
         self.history: list[StepRecord] = []
         self._consecutive_skips = 0
         self._rollbacks = 0
@@ -105,7 +114,22 @@ class TrainDriver:
     def save(self):
         meta = dict(self.metadata, step=self.step,
                     pipeline=self.pipeline.state(self.step))
-        self.store.save(self.step, self._state_tree(), metadata=meta)
+        tree = self._state_tree()
+        if self.sharded is None:
+            self.store.save(self.step, tree, metadata=meta)
+            return
+        tree = self.sharded.whole(tree)        # every rank gathers
+        if tree is not None:
+            self.store.save(self.step, tree, metadata=meta)
+        self.sharded.barrier()
+
+    @staticmethod
+    def _restore_latest(store, tree, sharded):
+        if sharded is None:
+            return store.restore_latest(tree)
+        return store.restore_latest(sharded.template(tree),
+                                    cut=lambda full: sharded.local(full,
+                                                                   tree))
 
     @classmethod
     def resume(cls, step_fn, pipeline, params_template, opt_template,
@@ -113,10 +137,10 @@ class TrainDriver:
         """Build a driver from the latest committed checkpoint; falls back
         to the provided templates at step 0 if none exists. Templates may
         be freshly-initialized tensors (their values are overwritten; their
-        dtypes and devices are kept)."""
+        dtypes and devices are kept); sharded, each rank's blocks."""
         store = CheckpointStore(ft.ckpt_dir, keep_last=ft.keep_last)
         tmpl = {"params": params_template, "opt_state": opt_template}
-        got = store.restore_latest(tmpl)
+        got = cls._restore_latest(store, tmpl, kw.get("sharded"))
         if got is None:
             return cls(step_fn, pipeline, params_template, opt_template, ft,
                        start_step=0, **kw)
@@ -128,7 +152,8 @@ class TrainDriver:
 
     # -- rollback ---------------------------------------------------------
     def _rollback(self) -> bool:
-        got = self.store.restore_latest(self._state_tree())
+        got = self._restore_latest(self.store, self._state_tree(),
+                                   self.sharded)
         if got is None:
             self.log("[ft] rollback requested but no checkpoint exists")
             return False

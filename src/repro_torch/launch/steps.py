@@ -7,13 +7,19 @@
                       admission);
   serve_step:         one-token decode against the cache;
 
-and the serve engine's shardings on a tensor-parallel mesh
-(``serve_shardings``).
+the serve engine's shardings on a tensor-parallel mesh
+(``serve_shardings``), a train state's on a (data, model) mesh
+(``train_shardings``) and a dry-run cell's step and per-rank inputs
+(``build_cell``).
 
 The train step is functional (new params and state, the inputs left as
 they were) and enqueues its work without waiting for the device: its
 metrics are 0-d tensors on the device, and reading them on the host is
-the caller's sync.
+the caller's sync. On a mesh (``make_train_step(mesh=)``) it is the
+sharded step: each rank holds its blocks of the state
+(``train_shardings``), takes its rows of the global batch, gathers the
+FSDP leaves at use and reduces the gradients (``parallel/dp.py``), and
+every rank gets the global metrics, bit for bit the same.
 """
 from __future__ import annotations
 
@@ -27,7 +33,10 @@ from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw, compress
 from repro_torch.optim.adamw import tree_leaves, tree_map
+from repro_torch.parallel import dp
 from repro_torch.parallel import partition as part
+
+from . import shapes as shp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,18 +115,33 @@ def _make_engine(cfg: ModelConfig) -> ActivationEngine | LayerEngines:
     return engine
 
 
-def make_train_step(cfg: ModelConfig, hyper: TrainHyper = TrainHyper()):
+def make_train_step(cfg: ModelConfig, hyper: TrainHyper = TrainHyper(),
+                    mesh=None, rules: dict | None = None,
+                    local_batch: bool = False):
     """``train_step(params, opt_state, batch, step) -> (params, opt_state,
     metrics)``: ``batch`` is {"tokens", "labels"} [B, S] on the params'
     device, ``step`` a host int (or a 0-d tensor) that sets the learning
     rate, and the metrics (0-d tensors) are loss, nll, aux, gnorm, lr and,
-    under ``skip_nonfinite``, skipped."""
+    under ``skip_nonfinite``, skipped.
+
+    With ``mesh`` (a (data, model) DeviceMesh) the step is the sharded
+    one, run under ``partition.axis_rules(mesh, rules)``: ``params`` and
+    ``opt_state`` are this rank's blocks (``train_shardings``), ``batch``
+    the global batch, of which the rank takes its rows
+    (``dp.local_rows``; ``local_batch=True``: ``batch`` is those rows
+    already), and the metrics are global and the same on every rank."""
     engine = _make_engine(cfg)
+    rules = rules or part.DEFAULT_RULES
+    fsdp = None
+    if mesh is not None:
+        fsdp = dp.FSDP(mesh, train_shardings(cfg, mesh, rules)[0])
+    norm = adamw.global_norm if fsdp is None else fsdp.global_norm
+    reduce_max = None if fsdp is None else fsdp.reduce_max
 
     def grads_of(params, batch):
         p = tree_map(lambda t: t.detach().requires_grad_(), params)
         loss, metrics = M.loss_fn(p, batch, cfg, engine, remat=hyper.remat,
-                                  z_loss=hyper.z_loss)
+                                  z_loss=hyper.z_loss, fsdp=fsdp)
         leaves = tree_leaves(p)
         got = torch.autograd.grad(loss, leaves, allow_unused=True,
                                   materialize_grads=True)
@@ -148,10 +172,10 @@ def make_train_step(cfg: ModelConfig, hyper: TrainHyper = TrainHyper()):
 
     def donated_update(params, opt_state, grads, loss, step):
         """The update below, in place on ``params`` and ``opt_state``."""
-        gnorm = adamw.clip_by_global_norm_(grads, hyper.opt.clip_norm)
+        gnorm = adamw.clip_by_global_norm_(grads, hyper.opt.clip_norm, norm)
         if hyper.grad_compression:
-            grads, new_err = compress.compress_grads(grads,
-                                                     opt_state["error"])
+            grads, new_err = compress.compress_grads(
+                grads, opt_state["error"], reduce_max)
         lr = adamw.cosine_schedule(hyper.opt, step, loss.device)
         ok = (torch.isfinite(loss) & torch.isfinite(gnorm)
               if hyper.skip_nonfinite else None)
@@ -164,11 +188,22 @@ def make_train_step(cfg: ModelConfig, hyper: TrainHyper = TrainHyper()):
         return gnorm, lr, ok
 
     def train_step(params, opt_state, batch, step):
+        if fsdp is None:
+            return local_step(params, opt_state, batch, step)
+        if fsdp.group is not None and not local_batch:
+            batch = dp.local_rows(batch, fsdp.group.rank, fsdp.dp,
+                                  hyper.microbatches)
+        with part.axis_rules(mesh, rules):
+            return local_step(params, opt_state, batch, step)
+
+    def local_step(params, opt_state, batch, step):
         if hyper.microbatches > 1:
             (loss, metrics), grads = accumulate(params, batch)
         else:
             (loss, metrics), grads = grads_of(params, batch)
         with torch.no_grad():
+            if fsdp is not None:
+                grads = fsdp.reduce_grads(grads)
             if not hyper.train_act and "act" in grads:
                 # frozen approximant params: zero their grads BEFORE the
                 # global-norm clip (gnorm then matches a model without them)
@@ -182,10 +217,11 @@ def make_train_step(cfg: ModelConfig, hyper: TrainHyper = TrainHyper()):
                 return params, opt_state, dict(metrics, loss=loss,
                                                gnorm=gnorm, lr=lr)
             grads, gnorm = adamw.clip_by_global_norm(grads,
-                                                     hyper.opt.clip_norm)
+                                                     hyper.opt.clip_norm,
+                                                     norm)
             if hyper.grad_compression:
-                grads, new_err = compress.compress_grads(grads,
-                                                         opt_state["error"])
+                grads, new_err = compress.compress_grads(
+                    grads, opt_state["error"], reduce_max)
             lr = adamw.cosine_schedule(hyper.opt, step, loss.device)
             inner = {k: opt_state[k] for k in ("m", "v", "count")}
             new_params, new_inner = adamw.adamw_update(grads, inner, params,
@@ -294,3 +330,168 @@ def serve_shardings(cfg: ModelConfig, slots: int, seq_len: int, mesh,
     csharding = axes_shardings(caxes, cspec, mesh, rules)
     replicated = part.make_sharding((), (), mesh=mesh, rules=rules)
     return psharding, csharding, replicated
+
+
+def train_shardings(cfg: ModelConfig, mesh, rules: dict | None = None,
+                    hyper: TrainHyper = TrainHyper()):
+    """(params, opt_state) shardings of a train state on a (data, model)
+    mesh, the counterpart of ``serve_shardings``: the params by their
+    logical axes under ``rules`` (default ``DEFAULT_RULES``: "embed" and,
+    where ``data`` divides it, "expert" FSDP over ``data``; "mlp",
+    "heads", "kv", "vocab", "dinner" over ``model``), the state by
+    ``opt_state_axes`` (``m`` and ``v`` as the params, ``count``
+    replicated), with the error buffers as the params under
+    ``grad_compression``."""
+    rules = rules or part.DEFAULT_RULES
+    pshapes, paxes = M.abstract_params(cfg)
+    psharding = axes_shardings(paxes, pshapes, mesh, rules)
+    oaxes = opt_state_axes(paxes)
+    if hyper.grad_compression:
+        oaxes["error"] = paxes
+    return psharding, axes_shardings(oaxes, _opt_state_spec(pshapes, hyper),
+                                     mesh, rules)
+
+
+def _opt_state_spec(pshapes, hyper: TrainHyper):
+    """The optimizer state's shapes (meta tensors) beside the params'."""
+    spec = {"m": pshapes, "v": pshapes,
+            "count": torch.empty((), dtype=torch.int32, device="meta")}
+    if hyper.grad_compression:
+        spec["error"] = pshapes
+    return spec
+
+
+def _local_meta(specs, shardings):
+    """Meta tensors of each rank's block of ``specs`` (meta tensors) under
+    ``shardings``."""
+    return tree_map(lambda t, sh: torch.empty(sh.local_shape(t.shape),
+                                              dtype=t.dtype, device="meta"),
+                    specs, shardings)
+
+
+def build_cell(cfg: ModelConfig, shape: shp.ShapeCell, mesh, *,
+               rules: dict | None = None, hyper: TrainHyper = TrainHyper(),
+               serve_dtype: str = "bfloat16"):
+    """``(fn, args)`` for one dry-run cell (the counterpart of the
+    reference's, which returns a jitted step and ShapeDtypeStructs).
+
+    ``args`` is one rank's inputs as meta tensors, nothing allocated:
+    its blocks of the params (in ``serve_dtype`` for prefill and decode),
+    of the optimizer state, of the batch (``shapes.input_specs`` /
+    ``batch_axes``) and of the cache, under the cell's shardings
+    (``rules``, default ``DEFAULT_RULES``). ``mesh`` may be a stand-in
+    with ``.shape``. ``fn`` is the cell's step on those inputs; it is
+    built at its first call, which needs a real mesh (a DeviceMesh over
+    an initialised process group): the train step (``make_train_step``
+    on the rank's rows), or the prefill / decode step with the FSDP
+    leaves gathered whole over ``data`` first."""
+    rules = rules or part.DEFAULT_RULES
+    pshapes, paxes = M.abstract_params(cfg)
+    psharding = axes_shardings(paxes, pshapes, mesh, rules)
+    specs = shp.input_specs(cfg, shape)
+    bsharding = axes_shardings(shp.batch_axes(cfg, shape), specs["batch"],
+                               mesh, rules)
+    batch = _local_meta(specs["batch"], bsharding)
+
+    if shape.kind == "train":
+        _, osharding = train_shardings(cfg, mesh, rules, hyper)
+        args = (_local_meta(pshapes, psharding),
+                _local_meta(_opt_state_spec(pshapes, hyper), osharding), batch,
+                torch.empty((), dtype=torch.int32, device="meta"))
+        return _built_on_call(lambda: make_train_step(
+            cfg, hyper, mesh=mesh, rules=rules, local_batch=True)), args
+
+    sdt = getattr(torch, serve_dtype)
+    params = tree_map(lambda t: t.to(sdt) if t.is_floating_point() else t,
+                      _local_meta(pshapes, psharding))
+    if shape.kind == "prefill":
+        return _built_on_call(lambda: _gathered(
+            make_prefill_step(cfg, capacity=M.cache_capacity(
+                cfg, shape.seq_len)), cfg, mesh, rules)), (params, batch)
+    csharding = axes_shardings(M.cache_axes(cfg), specs["cache"], mesh,
+                               rules)
+    return (_built_on_call(lambda: _gathered(make_serve_step(cfg), cfg,
+                                             mesh, rules)),
+            (params, batch, _local_meta(specs["cache"], csharding)))
+
+
+def _built_on_call(build):
+    """A function that builds its step (``build()``) at its first call."""
+    def fn(*args):
+        if fn.step is None:
+            fn.step = build()
+        return fn.step(*args)
+    fn.step = None
+    return fn
+
+
+def _gathered(step, cfg: ModelConfig, mesh, rules):
+    """``step(params, *rest)`` on a rank's (data, model) blocks of the
+    params: run under ``axis_rules(mesh, rules)`` with the FSDP leaves
+    gathered whole over ``data`` first."""
+    fsdp = dp.FSDP(mesh, train_shardings(cfg, mesh, rules)[0])
+
+    def run(params, *rest):
+        with part.axis_rules(mesh, rules), torch.no_grad():
+            return step(fsdp.gather_params(params), *rest)
+
+    return run
+
+
+class ShardedState:
+    """A sharded train state's checkpoints (``ft/driver.py``'s
+    ``sharded=``): the one-device layout on disk, the file a single
+    device and the reference write. ``whole`` gathers every leaf whole
+    (every rank joins; the mesh's first rank keeps the tree), ``local``
+    cuts this rank's blocks out of a restored whole tree
+    (``model.shard_params``)."""
+
+    def __init__(self, cfg: ModelConfig, mesh, rules: dict | None = None,
+                 hyper: TrainHyper = TrainHyper()):
+        self.cfg = cfg
+        self.mesh = mesh
+        self.shardings = train_shardings(cfg, mesh, rules, hyper)[0]
+        self.fsdp = dp.FSDP(mesh, self.shardings)
+        self.writer = all(mesh.get_local_rank(a) == 0
+                          for a in mesh.mesh_dim_names)
+
+    def barrier(self) -> None:
+        """Every rank of the mesh has arrived: a barrier along each axis
+        in turn (the mesh may be part of the world)."""
+        import torch.distributed as dist
+        for a in self.mesh.mesh_dim_names:
+            dist.barrier(group=self.mesh.get_group(a))
+
+    def whole(self, tree):
+        """{"params", "opt_state"} of this rank's blocks -> the whole tree
+        on the host (the writer; None on the other ranks)."""
+        keep = self.writer
+        opt = tree["opt_state"]
+        out = {"params": self.fsdp.whole(tree["params"], keep),
+               "opt_state": {k: (v.cpu() if k == "count" else
+                                 self.fsdp.whole(v, keep))
+                             for k, v in opt.items()}}
+        return out if keep else None
+
+    def template(self, tree):
+        """The whole tree's shapes (meta tensors) of a state laid out like
+        ``tree``."""
+        full, _ = M.abstract_params(self.cfg)
+        return {"params": full,
+                "opt_state": {k: (torch.empty((), device="meta")
+                                  if k == "count" else full)
+                              for k in tree["opt_state"]}}
+
+    def local(self, full, like):
+        """A restored whole tree (numpy leaves) -> this rank's blocks, each
+        in ``like``'s leaf's dtype and on its device."""
+        def cut(t):
+            return M.shard_params(t, self.cfg, self.shardings)
+
+        blocks = {"params": cut(full["params"]),
+                  "opt_state": {k: (torch.as_tensor(v) if k == "count"
+                                    else cut(v))
+                                for k, v in full["opt_state"].items()}}
+        return tree_map(lambda t, ref: t.to(device=ref.device,
+                                            dtype=ref.dtype),
+                        blocks, like)

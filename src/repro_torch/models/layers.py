@@ -17,8 +17,13 @@ against the config's full dim tells whether that dim is sharded. Where a
 sharded dim is contracted (``wo`` over heads, ``w_down`` over ``mlp``,
 Mamba's ``x_proj`` / ``out_proj`` over ``dinner``) the product is
 row-parallel (``parallel/tp.py``: f32 partials summed over the group);
-an expert-sharded router's logits are gathered. With whole weights
-(TP=1) every path is the unsharded one and no collective runs.
+an expert-sharded router's logits are gathered. Where a replicated
+activation enters a column-parallel product (``wq`` / ``wk`` / ``wv``,
+``w_gate`` / ``w_up`` and so ``glu_2d``'s ``x``, Mamba's ``in_proj`` and
+the ``x_proj`` output its channels read, an expert-sharded router, the
+vocab-parallel head) it passes ``tp.enter``, whose backward sums the
+ranks' partial gradients (training). With whole weights (TP=1) every
+path is the unsharded one and no collective runs.
 """
 from __future__ import annotations
 
@@ -31,7 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.activations import ActivationEngine
-from repro_torch.parallel import tp
+from repro_torch.parallel import dp, tp
 
 from .config import ModelConfig
 
@@ -214,6 +219,16 @@ def block_axes(cfg: ModelConfig):
     return p
 
 
+def _on_shards(engine):
+    """``engine`` for computation on the rank's shards: its bound
+    approximant params (``params["act"]``) pass ``tp.enter``, since their
+    gradient there is the rank's part of the whole one."""
+    if getattr(engine, "act_params", None) is None:
+        return engine
+    return ActivationEngine(engine.cfg, act_params=tp.enter(
+        engine.act_params))
+
+
 def _down(h, w, full: int, matmul=torch.matmul):
     """``matmul(h, w)`` contracting a dim of full size ``full``: as it is
     when ``w`` holds all of it, row-parallel when ``w`` holds a rank's
@@ -309,8 +324,24 @@ def _proj(x, w, cdt):
     return out.reshape(x.shape[:-1] + tuple(w.shape[1:]))
 
 
+def _enter_heads(params, x, cfg: ModelConfig):
+    """(params, x) as the rank's attention reads them. With its heads
+    sharded, ``x`` enters column-parallel products, and the leaves it
+    holds whole serve only its own heads (``q_norm`` / ``k_norm``, and
+    the kv projections where the kv heads stay whole, ``kv_group``): all
+    pass ``tp.enter``, so their gradients are the group's sums."""
+    if params["wq"].shape[1] == cfg.n_heads:
+        return params, x
+    whole = {"q_norm", "k_norm"}
+    if params["wk"].shape[1] == cfg.n_kv_heads:
+        whole |= {"wk", "wv", "bk", "bv"}
+    return ({k: tp.enter(v) if k in whole else v
+             for k, v in params.items()}, tp.enter(x))
+
+
 def _qkv(params, x, positions, cfg: ModelConfig):
     cdt = dtype_of(cfg)
+    params, x = _enter_heads(params, x, cfg)
     q = _proj(x, params["wq"], cdt)
     k = _proj(x, params["wk"], cdt)
     v = _proj(x, params["wv"], cdt)
@@ -462,6 +493,8 @@ def mlp_fusable(cfg: ModelConfig, engine: ActivationEngine) -> bool:
 
 def apply_mlp(params, x, cfg: ModelConfig, engine: ActivationEngine):
     cdt = dtype_of(cfg)
+    if params["w_up"].shape[-1] != cfg.d_ff:       # column-parallel
+        x, engine = tp.enter(x), _on_shards(engine)
     if mlp_fusable(cfg, engine):
         # one kernel: gate/up matmuls + approximant epilogue on the f32
         # accumulator — the gate projection never round-trips to memory
@@ -502,18 +535,23 @@ def _top_k(probs, k: int):
 
 def _route(router, x, k: int, e: int):
     """f32 router: softmax over the experts, top-k, the k weights
-    renormalized, and the GShard load-balancing aux over all tokens.
+    renormalized, and the GShard load-balancing aux over all tokens: its
+    per-expert means taken over the data ranks' tokens too before their
+    product (``dp.mean``), so every rank holds the global aux.
     x: [..., d]. Returns (top_w [..., k], top_i [..., k], aux)."""
+    sharded = router.shape[-1] != e             # expert-sharded router
+    if sharded:
+        x = tp.enter(x)
     logits = x.to(torch.float32) @ router.to(torch.float32)
-    if logits.shape[-1] != e:                   # expert-sharded router
+    if sharded:
         logits = tp.gather_last(logits, e)
     probs = torch.softmax(logits, dim=-1)
     top_w, top_i = _top_k(probs, k)
     top_w = top_w / top_w.sum(dim=-1, keepdim=True)
     lead = tuple(range(probs.dim() - 1))
-    me = probs.mean(dim=lead)
-    ce_frac = torch.nn.functional.one_hot(top_i, e).to(torch.float32) \
-        .sum(dim=-2).mean(dim=lead)
+    me = dp.mean(probs.mean(dim=lead))
+    ce_frac = dp.mean(torch.nn.functional.one_hot(top_i, e)
+                      .to(torch.float32).sum(dim=-2).mean(dim=lead))
     return top_w, top_i, e * torch.sum(me * ce_frac)
 
 
@@ -523,6 +561,8 @@ def _expert_ffn(params, xe, cfg: ModelConfig, engine, matmul):
     activation goes through the engine (the reference routes it there,
     not through the fused GLU kernel)."""
     cdt = dtype_of(cfg)
+    if params["w_up"].shape[-1] != cfg.d_ff:       # column-parallel
+        xe, engine = tp.enter(xe), _on_shards(engine)
     up = matmul(xe, params["w_up"].to(cdt))
     if cfg.glu:
         gate = matmul(xe, params["w_gate"].to(cdt))
@@ -663,6 +703,8 @@ def _mamba_inner(params, xz, conv_state, ssm_state, cfg: ModelConfig,
 
     # input-dependent SSM parameters (x_proj contracts d_inner)
     proj = _down(xc, params["x_proj"].to(xc.dtype), cfg.d_inner_)
+    if di != cfg.d_inner_:      # read by this rank's channels alone
+        proj = tp.enter(proj)
     dt_in, Bc, Cc = proj[..., :dtr], proj[..., dtr:dtr + N], proj[..., dtr + N:]
     dt = dt_in @ params["dt_proj_w"].to(xc.dtype)
     dt = engine.softplus(dt.to(f32) + params["dt_proj_b"])   # [B, S, di]
@@ -693,6 +735,8 @@ def apply_mamba(params, x, cfg: ModelConfig, engine, conv_state=None,
     if ssm_state is None:
         ssm_state = torch.zeros((B, di, N), dtype=torch.float32,
                                 device=x.device)
+    if di != cfg.d_inner_:                         # column-parallel
+        x, engine = tp.enter(x), _on_shards(engine)
     xz = x @ params["in_proj"].to(cdt)
     y, conv_state, ssm_state = _mamba_inner(params, xz, conv_state,
                                             ssm_state, cfg, engine)
@@ -719,6 +763,8 @@ class BlockIO:
 
 def _attn_branch(p, xn, io: BlockIO, cfg: ModelConfig, engine):
     new_cache = {}
+    if cfg.logit_softcap and p["wq"].shape[1] != cfg.n_heads:
+        engine = _on_shards(engine)       # the softcap of the rank's heads
     # heads sharded, kv heads whole: the cache keeps every kv head, each
     # rank's attention reads those of its own q heads
     sel = kv_group(p, cfg)

@@ -33,7 +33,11 @@ the meta device) and logical axes, ``cache_spec`` / ``paged_cache_spec``
 and their ``*_axes`` the caches'; ``launch/steps.py::serve_shardings``
 resolves them on a mesh and ``shard_params`` cuts a rank's blocks. The
 embedding is then vocab-parallel (each rank looks up its rows, the group
-sums) and the head's logits are gathered whole on every rank.
+sums) and the head's logits are gathered whole on every rank. Sharded
+training (``launch/steps.py::make_train_step(mesh=)``) cuts the params
+over ``data`` too (``train_shardings``): ``loss_fn(fsdp=)`` gathers them
+whole over ``data`` at use (``parallel/dp.py``), a layer at a time, and
+returns the global loss.
 """
 from __future__ import annotations
 
@@ -46,7 +50,7 @@ import torch
 from repro_torch.core.activations import (ActivationEngine, engine_of_layer,
                                           init_act_params)
 from repro_torch.optim.adamw import tree_map
-from repro_torch.parallel import tp
+from repro_torch.parallel import dp, tp
 
 from .config import ModelConfig
 from .layers import (BlockIO, apply_block, apply_norm, block_axes, dtype_of,
@@ -154,16 +158,28 @@ def param_axes(cfg: ModelConfig):
     return axes
 
 
+@functools.lru_cache(maxsize=64)
+def _param_shapes(cfg: ModelConfig):
+    """(shape, dtype) of every parameter leaf of ``cfg`` (one init on the
+    meta device a config: its random draws take a while even there)."""
+    return tree_map(lambda t: (tuple(t.shape), t.dtype),
+                    init_lm(None, cfg, torch.device("meta")))
+
+
 def abstract_params(cfg: ModelConfig, seed: int = 0):
     """(shapes_tree, axes_tree) without allocating anything: the shapes
     are f32 tensors on the meta device (``seed`` draws nothing there)."""
-    return init_lm(None, cfg, torch.device("meta")), param_axes(cfg)
+    return (tree_map(lambda sd: torch.empty(sd[0], dtype=sd[1],
+                                            device="meta"),
+                     _param_shapes(cfg)), param_axes(cfg))
 
 
 def shard_params(params, cfg: ModelConfig, shardings):
     """A full parameter tree (e.g. from ``params_from_numpy`` or
-    ``materialize_params``) -> this rank's blocks of it, by
-    ``shardings`` (``launch/steps.py::serve_shardings``'s first tree).
+    ``materialize_params``, or AdamW's ``m`` / ``v`` of it) -> this
+    rank's blocks of it, by ``shardings`` (``launch/steps.py::
+    serve_shardings``' first tree, or ``train_shardings``', which also
+    cut dims over ``data``).
     Mamba's ``in_proj`` [d, 2 * di] holds the ``x | z`` halves side by
     side; each half is cut on its own, so a rank holds the same channels
     of both. Sharded leaves are copied; whole ones are kept as they are,
@@ -281,7 +297,7 @@ def embed_tokens(params, tokens, cfg: ModelConfig, patch_embeds=None):
         ids = [tokens[..., k] for k in range(K)] if K > 1 else [tokens]
         rows = torch.stack([tp.vocab_rows(_EmbedRows.apply, t, i)
                             for t, i in zip(tables, ids)])
-        planes = list(tp.current().all_reduce(rows).to(cdt))
+        planes = list(tp.vocab_sum(rows).to(cdt))
         x = sum(planes) if K > 1 else planes[0]
     elif K > 1:
         x = sum(_EmbedRows.apply(emb[k], tokens[..., k])
@@ -298,11 +314,13 @@ def lm_logits(params, h, cfg: ModelConfig):
     [B, S, K, V]."""
     head = params["lm_head"].to(torch.float32)
     hf = h.to(torch.float32)
+    if head.shape[-1] != cfg.padded_vocab:     # column-parallel over vocab
+        hf = tp.enter(hf)
     if cfg.n_codebooks > 1:
         logits = torch.einsum("bsd,kdv->bskv", hf, head)
     else:
         logits = hf @ head
-    if head.shape[-1] != cfg.padded_vocab:     # vocab-parallel head
+    if head.shape[-1] != cfg.padded_vocab:
         logits = tp.gather_last(logits, cfg.padded_vocab)
     return logits
 
@@ -361,10 +379,12 @@ def _remat_block(block_fn, remat: str):
 
 
 def run_stack_train(params, x, cfg: ModelConfig, engine, remat: str = "block",
-                    batch=None):
+                    batch=None, fsdp=None):
     """Full-sequence stack under a remat policy (``_remat_block``). Returns
     (x, the MoE aux loss summed over layers and divided by n_layers: a 0-d
-    f32 zero for dense blocks). ``batch`` may carry ``mrope_positions``."""
+    f32 zero for dense blocks). ``batch`` may carry ``mrope_positions``.
+    With ``fsdp`` (``parallel/dp.py::FSDP``) each layer's parameters are
+    gathered whole over ``data`` inside its remat region."""
     S = x.shape[1]
     ar = torch.arange(S, dtype=torch.int32, device=x.device)
     io = BlockIO(mode="train",
@@ -372,6 +392,8 @@ def run_stack_train(params, x, cfg: ModelConfig, engine, remat: str = "block",
                  q_pos=ar, k_pos=ar)
 
     def block_fn(x, layer_params, eng):
+        if fsdp is not None:
+            layer_params = fsdp.gather_layer(layer_params)
         y, _, aux = apply_block(layer_params, x, io, cfg, eng)
         return y, aux
 
@@ -785,19 +807,25 @@ def init_paged_cache(cfg: ModelConfig, slots: int, n_pages: int,
 # ---------------------------------------------------------------------------
 
 def loss_fn(params, batch, cfg: ModelConfig, engine: ActivationEngine,
-            remat: str = "block", z_loss: float = 1e-4):
+            remat: str = "block", z_loss: float = 1e-4, fsdp=None):
     """Next-token loss of one batch ({"tokens", "labels"} [B, S]):
     nll + aux + z_loss * mean(lse^2), with the f32 head. Returns (total,
-    {"nll", "aux"}), 0-d f32 tensors."""
+    {"nll", "aux"}), 0-d f32 tensors. On a mesh with a data axis
+    ``batch`` is the rank's rows and the loss the global one: the means
+    are data means (``dp.mean``), the aux global (``layers._route``);
+    ``fsdp`` gathers the FSDP leaves at use."""
+    if fsdp is not None:
+        params = fsdp.gather_top(params)
     engine = _bind_engine(engine, params)
     x = embed_tokens(params, batch["tokens"], cfg, batch.get("patch_embeds"))
-    x, aux = run_stack_train(params, x, cfg, engine, remat, batch=batch)
+    x, aux = run_stack_train(params, x, cfg, engine, remat, batch=batch,
+                             fsdp=fsdp)
     x = apply_norm(params["ln_f"], x, cfg)
     logits = lm_logits(params, x, cfg)                     # f32
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, batch["labels"].long()[..., None])[..., 0]
-    nll = (lse - ll).mean()
-    total = nll + aux + z_loss * (lse ** 2).mean()
+    nll = dp.mean((lse - ll).mean())
+    total = nll + aux + z_loss * dp.mean((lse ** 2).mean())
     return total, {"nll": nll, "aux": aux}
 
 

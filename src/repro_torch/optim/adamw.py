@@ -97,15 +97,18 @@ def _clip_scale(gnorm, max_norm: float):
                        / torch.clamp(gnorm, min=1e-12), max=1.0)
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    gnorm = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float, norm=global_norm):
+    """(grads scaled to a global norm of at most ``max_norm``, the norm).
+    ``norm`` takes the norm of the tree (a sharded step's counts each
+    element once over its mesh: ``parallel/dp.py::FSDP.global_norm``)."""
+    gnorm = norm(grads)
     scale = _clip_scale(gnorm, max_norm)
     return tree_map(lambda g: g * scale, grads), gnorm
 
 
-def clip_by_global_norm_(grads, max_norm: float):
+def clip_by_global_norm_(grads, max_norm: float, norm=global_norm):
     """``clip_by_global_norm`` in place on ``grads``; returns gnorm."""
-    gnorm = global_norm(grads)
+    gnorm = norm(grads)
     scale = _clip_scale(gnorm, max_norm)
     for g in tree_leaves(grads):
         g.mul_(scale)

@@ -1,2 +1,3 @@
-"""Tensor parallelism: the logical-axis rule table (partition.py) and
-the collectives the blocks call on local shards (tp.py)."""
+"""Parallelism: the logical-axis rule table (partition.py), the
+collectives the blocks call on local shards (tp.py) and the data axis of
+sharded training (dp.py)."""

@@ -1,0 +1,288 @@
+"""The data axis of sharded training: FSDP of the leaves that resolve to
+``data``, the data mean of the gradients and the sums a sharded step
+needs over both axes (port-only: the reference leaves all of it to XLA).
+
+A train state on a (data, model) mesh is cut by ``launch/steps.py::
+train_shardings`` (``DEFAULT_RULES``): a leaf dim that resolves to
+``data`` ("embed", and "expert" where ``data`` divides it) is FSDP. The
+rank stores its block of the master param and of AdamW's ``m`` and
+``v``; the step gathers the leaf over ``data`` where a layer uses it
+(``FSDP.gather_layer``, inside the layer's remat region, so ``remat=
+"block"`` gathers it again in the backward), into the layout the
+tensor-parallel blocks read, and the gather's backward reduce-scatters
+the gradient back. Leaves replicated over ``data`` have their gradients
+summed by one ``all_reduce`` of a flat buffer (``FSDP.reduce_grads``);
+then every gradient is scaled by 1 / dp: the data mean.
+
+Every rank computes the global loss (``mean``: an ``all_reduce`` mean
+whose backward is the identity, so rank i differentiates only its own
+rows' term and the data mean of the gradients is the global gradient).
+The MoE aux loss is no mean of per-row terms: ``models/layers.py::
+_route`` takes the data mean of its per-expert statistics before their
+product, so every rank holds the global aux.
+
+Collectives are the ``torch.distributed`` ones the group's backend
+takes (gloo and nccl take ``all_gather_into_tensor`` and
+``reduce_scatter_tensor``); every rank issues the same ones in the same
+order, since gloo pairs them by order.
+"""
+from __future__ import annotations
+
+import functools
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.optim.adamw import tree_leaves, tree_map
+
+from . import partition as part
+from . import tp
+
+
+def _bytes(x) -> int:
+    return x.numel() * x.element_size()
+
+
+def all_gather(x, dim: int, group, size: int):
+    """Each rank's block of dim ``dim`` -> the whole dim, blocks in the
+    group's rank order. Returns (whole, bytes received)."""
+    out = x.new_empty(size * x.numel())        # flat: every backend's form
+    dist.all_gather_into_tensor(out, x.contiguous().view(-1), group=group)
+    out = out.view((size,) + tuple(x.shape))
+    return out.movedim(0, dim).flatten(dim, dim + 1), _bytes(out)
+
+
+class DPGroup:
+    """One rank's data-parallel group: the process group over the mesh's
+    ``data`` axis, this rank's index on it and the group's size.
+    ``calls`` / ``bytes`` count the collectives it ran."""
+
+    def __init__(self, mesh):
+        self.group = mesh.get_group("data")
+        self.rank = mesh.get_local_rank("data")
+        self.size = part.mesh_shape(mesh)["data"]
+        self.calls = 0
+        self.bytes = 0
+
+    def reset(self) -> None:
+        self.calls = self.bytes = 0
+
+    def all_reduce(self, x, op=dist.ReduceOp.SUM):
+        """Reduce ``x`` over the group, in place; returns it."""
+        dist.all_reduce(x, op=op, group=self.group)
+        self.calls += 1
+        self.bytes += _bytes(x)
+        return x
+
+    def all_gather(self, x, dim: int):
+        out, n = all_gather(x, dim, self.group, self.size)
+        self.calls += 1
+        self.bytes += n
+        return out
+
+    def reduce_scatter(self, x, dim: int):
+        """The group's sum of ``x``, of which this rank keeps its block of
+        dim ``dim``."""
+        n = x.shape[dim] // self.size
+        parts = x.unflatten(dim, (self.size, n)).movedim(dim, 0).contiguous()
+        out = x.new_empty(parts[0].numel())
+        dist.reduce_scatter_tensor(out, parts.view(-1), group=self.group)
+        self.calls += 1
+        self.bytes += _bytes(parts)
+        return out.view(parts.shape[1:])
+
+
+@functools.lru_cache(maxsize=None)
+def group_of(mesh) -> DPGroup:
+    return DPGroup(mesh)
+
+
+def current() -> DPGroup | None:
+    """The active mesh's data group; None without a mesh or where its
+    ``data`` axis has one rank (nothing to reduce)."""
+    mesh = part.current_mesh()
+    if mesh is None or part.mesh_shape(mesh).get("data", 1) == 1:
+        return None
+    return group_of(mesh)
+
+
+class _Gather(torch.autograd.Function):
+    """Forward: the whole leaf from the ranks' blocks of dim ``dim``.
+    Backward: the gradient's sum over the group, the rank's block kept."""
+
+    @staticmethod
+    def forward(ctx, x, dim, g):
+        ctx.dim, ctx.g = dim, g
+        return g.all_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, gy):
+        return ctx.g.reduce_scatter(gy, ctx.dim), None, None
+
+
+class _Mean(torch.autograd.Function):
+    """Forward: the group's mean. Backward: the identity (every rank
+    computes the same loss from it; the gradients' data mean follows)."""
+
+    @staticmethod
+    def forward(ctx, x, g):
+        return g.all_reduce(x.clone()) / g.size
+
+    @staticmethod
+    def backward(ctx, gy):
+        return gy, None
+
+
+def mean(x):
+    """The data mean of ``x`` (each rank's value of its own rows), the
+    identity without a data axis."""
+    g = current()
+    return x if g is None else _Mean.apply(x, g)
+
+
+def local_rows(batch: dict, rank: int, size: int, microbatches: int = 1):
+    """Rank ``rank``'s rows of a global batch (leading dim B): of each of
+    the ``microbatches`` consecutive row blocks, the rank's share, so the
+    rank's microbatch m holds its rows of the global microbatch m (the
+    reference's split, MoE aux and gshard groups included)."""
+    out = {}
+    for k, v in batch.items():
+        B = v.shape[0]
+        if B % (size * microbatches):
+            raise ValueError(f"batch of {B} rows does not split into "
+                             f"{size} data ranks x {microbatches} "
+                             "microbatches")
+        blocks = v.unflatten(0, (microbatches, size, B // (size
+                                                           * microbatches)))
+        out[k] = blocks[:, rank].flatten(0, 1)
+    return out
+
+
+def _dim_of(spec: tuple, axis: str) -> int | None:
+    """The dim that ``spec`` splits over ``axis`` alone (None if none)."""
+    for i, p in enumerate(spec):
+        if p == axis:
+            return i
+        if isinstance(p, tuple) and axis in p:
+            raise NotImplementedError(
+                f"dim {i} split over {p}: a train leaf shards over one "
+                "mesh axis a dim")
+    return None
+
+
+class FSDP:
+    """A train state's layout on a (data, model) mesh and the step's work
+    on it: ``shardings`` is the params' tree of ``partition.Sharding``
+    (``launch/steps.py::train_shardings``); ``m``, ``v`` and the error
+    buffers share it."""
+
+    def __init__(self, mesh, shardings):
+        self.mesh = mesh
+        sizes = part.mesh_shape(mesh)
+        self.dp, self.tp = sizes.get("data", 1), sizes.get("model", 1)
+        self.shardings = shardings
+        self.group = group_of(mesh) if self.dp > 1 else None
+        self.tp_group = tp.group_of(mesh) if self.tp > 1 else None
+        self.dims = tree_map(
+            lambda sh: _dim_of(sh.spec, "data") if self.dp > 1 else None,
+            shardings)
+        coords = {a: mesh.get_local_rank(a) for a in sizes}
+
+        def owner(sh):
+            # the rank that counts a leaf's block: index 0 on every axis
+            # the leaf is replicated over
+            held = {a for p in sh.spec if p is not None
+                    for a in part._flat(p)}
+            return all(coords[a] == 0 for a in sizes if a not in held)
+
+        self.owner = tree_map(owner, shardings)
+
+    # -- forward ----------------------------------------------------------
+    def _gather(self, tree, dims, shift: int = 0):
+        def one(t, d):
+            return t if d is None else _Gather.apply(t, d - shift,
+                                                     self.group)
+        return tree_map(one, tree, dims)
+
+    def gather_top(self, params):
+        """``params`` with every leaf outside ``blocks`` whole over
+        ``data`` (the layer stack is gathered a layer at a time)."""
+        return {k: v if k == "blocks" else self._gather(v, self.dims[k])
+                for k, v in params.items()}
+
+    def gather_layer(self, layer):
+        """One layer's parameters (``model._layers``' views: the stacked
+        leaves without their layer dim) whole over ``data``."""
+        return self._gather(layer, self.dims["blocks"], shift=1)
+
+    def gather_params(self, params):
+        """The whole tree over ``data`` (every layer at once)."""
+        return self._gather(params, self.dims)
+
+    # -- after the backward ------------------------------------------------
+    def reduce_grads(self, grads):
+        """The data mean of the gradients: the leaves replicated over
+        ``data`` summed by one ``all_reduce`` of a flat f32 buffer (the
+        FSDP leaves were reduce-scattered by the gather's backward), then
+        every leaf times 1 / dp."""
+        if self.group is None:
+            return grads
+        rep = [g for g, d in zip(tree_leaves(grads), tree_leaves(self.dims))
+               if d is None]
+        if rep:
+            flat = self.group.all_reduce(torch.cat(
+                [g.reshape(-1).to(torch.float32) for g in rep]))
+            for g, s in zip(rep, flat.split([g.numel() for g in rep])):
+                g.copy_(s.view_as(g))
+        inv = 1.0 / self.dp
+        return tree_map(lambda g: g * inv, grads)
+
+    def sum_all(self, x, op=dist.ReduceOp.SUM):
+        """``x`` reduced over the whole mesh (model, then data), in
+        place: the same bits on every rank."""
+        if self.tp_group is not None:
+            dist.all_reduce(x, op=op, group=self.tp_group.group)
+            self.tp_group.calls += 1
+            self.tp_group.bytes += _bytes(x)
+        if self.group is not None:
+            self.group.all_reduce(x, op=op)
+        return x
+
+    def global_norm(self, grads):
+        """The global norm of sharded gradients: every element counted
+        once (a block held by several ranks only by its owner), summed
+        over the mesh."""
+        sq = [torch.sum(torch.square(g.to(torch.float32))) * float(own)
+              for g, own in zip(tree_leaves(grads), tree_leaves(self.owner))]
+        return torch.sqrt(self.sum_all(torch.stack(sq).sum()))
+
+    def reduce_max(self, x):
+        """``x`` (per-leaf maxima of the rank's blocks) -> the maxima over
+        each whole leaf."""
+        return self.sum_all(x, op=dist.ReduceOp.MAX)
+
+    # -- checkpoints ------------------------------------------------------
+    def whole(self, tree, keep: bool = True):
+        """A tree laid out like the params (params, ``m``, ``v``, error
+        buffers) -> every leaf whole on the host (gathered over both
+        axes a leaf at a time); None leaves where not ``keep`` (every rank
+        joins the gathers, one keeps the result)."""
+        def one(t, sh, key):
+            for axis, g in (("model", self.tp_group), ("data", self.group)):
+                d = _dim_of(sh.spec, axis)
+                if d is None or g is None:
+                    continue
+                if key == "in_proj" and axis == "model":
+                    # the x | z halves are cut apart (model.shard_params)
+                    t = torch.cat([all_gather(h, d, g.group, g.size)[0]
+                                   for h in t.chunk(2, dim=-1)], dim=-1)
+                else:
+                    t = all_gather(t, d, g.group, g.size)[0]
+            return t.cpu() if keep else None
+
+        def walk(t, sh, key=None):
+            if isinstance(t, dict):
+                return {k: walk(v, sh[k], k) for k, v in t.items()}
+            return one(t, sh, key)
+
+        return walk(tree, self.shardings)

@@ -22,6 +22,17 @@ axis: gloo takes it on CPU and CUDA tensors alike, and no other
 collective is needed. The group is read from the active
 ``partition.axis_rules`` context; without a mesh there a sharded weight
 raises rather than compute a partial answer.
+
+Training differentiates through them as Megatron's pair does. Every rank
+computes the same loss, so a sum over the group (``_Exit``: the
+row-parallel sum, the vocab-parallel lookup, ``gather_last``) is the
+identity backward, not another sum, which would scale the gradient by
+the group's size. Where a replicated value enters a column-parallel
+product, or any computation on the rank's own shards (``enter``:
+identity forward), each rank's gradient of it is a partial one, and the
+backward sums them over the group. A leaf held whole but read only by
+the rank's shards (qwen3's ``q_norm``; kv heads whole while heads shard)
+enters the same way, so its gradient is the whole sum on every rank.
 """
 from __future__ import annotations
 
@@ -56,6 +67,11 @@ class TPGroup:
         self.bytes += x.numel() * x.element_size()
         return x
 
+    def sum_f32(self, x):
+        """The group's sum of ``x`` taken in f32 (a new tensor), cast back
+        to ``x``'s dtype."""
+        return self.all_reduce(x.to(torch.float32, copy=True)).to(x.dtype)
+
 
 @functools.lru_cache(maxsize=None)
 def group_of(mesh) -> TPGroup:
@@ -72,31 +88,73 @@ def current() -> TPGroup:
     return group_of(mesh)
 
 
+class _Exit(torch.autograd.Function):
+    """Forward: the group's sum (in ``x``'s dtype), in place on ``x`` (a
+    temporary of the caller's). Backward: the identity (every rank holds
+    the loss's whole gradient of the sum)."""
+
+    @staticmethod
+    def forward(ctx, x, g):
+        ctx.mark_dirty(x)
+        return g.all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, gy):
+        return gy, None
+
+
+class _Enter(torch.autograd.Function):
+    """Forward: the identity. Backward: the group's f32 sum of the ranks'
+    partial gradients."""
+
+    @staticmethod
+    def forward(ctx, x, g):
+        ctx.g = g
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, gy):
+        return ctx.g.sum_f32(gy), None
+
+
+def enter(x):
+    """``x`` (replicated on every rank) where it enters computation on the
+    rank's shards: the identity, whose gradient is summed over the
+    group."""
+    return _Enter.apply(x, current())
+
+
 def row_parallel(x, w, matmul=torch.matmul):
     """``matmul(x, w)`` over a contracted dim that each rank holds a
     block of: the f32 partial products summed over the group, cast to
     ``x``'s dtype."""
     out = matmul(x.to(torch.float32), w.to(torch.float32))
-    return current().all_reduce(out).to(x.dtype)
+    return _Exit.apply(out, current()).to(x.dtype)
 
 
 def gather_last(local, full: int):
     """Each rank's block of the last dim -> the whole dim (``full``), the
-    same bits on every rank."""
+    same bits on every rank; the gradient is the rank's own block of the
+    whole one."""
     g = current()
     n = local.shape[-1]
     out = local.new_zeros(tuple(local.shape[:-1]) + (full,))
     out[..., g.rank * n:(g.rank + 1) * n] = local
-    return g.all_reduce(out)
+    return _Exit.apply(out, g)
 
 
 def vocab_rows(lookup, table, ids):
     """``lookup(table, ids)`` on a vocab-sharded ``table`` [V / n, ...]:
     this rank's rows of its id range, zeros elsewhere, in f32 (the sum
-    over the group, left to the caller, is exact)."""
+    over the group, ``vocab_sum``, is exact)."""
     g = current()
     v0 = g.rank * table.shape[0]
     local = ids - v0
     own = (local >= 0) & (local < table.shape[0])
     rows = lookup(table, torch.where(own, local, 0)).to(torch.float32)
     return rows * own[..., None]
+
+
+def vocab_sum(rows):
+    """The group's sum of ``vocab_rows``' blocks: every row whole."""
+    return _Exit.apply(rows, current())

@@ -228,16 +228,30 @@ def test_launcher_runs_on_cpu_and_prints_summary(tmp_path):
     (["--model-parallel", "2"], "item 12"),
     (["--arch", "qwen2-vl-2b"], None),
     (["--arch", "falcon-mamba-7b"], None)])
-def test_launcher_unported_flags_name_their_item(tmp_path, argv, item):
-    """Sharded training raises naming its ROADMAP item; the families that
-    once raised (M-RoPE with patch embeddings, Mamba) now train a step."""
-    run = lambda: train_mod.main(
+def test_launcher_unported_flags_name_their_item(tmp_path, argv, item,
+                                                 monkeypatch):
+    """The flags of ROADMAP item 12 (sharded training, ported with its
+    part 12b) start a rank a device of the (data, model) mesh, over gloo
+    on the CPU, and refuse nccl there (tests/test_torch_train_sharded.py
+    trains through them); the families that once raised (M-RoPE with
+    patch embeddings, Mamba) now train a step."""
+    run = lambda *extra: train_mod.main(
         ["--smoke", "--device", "cpu", "--steps", "1", "--batch", "2",
          "--seq", "16", "--ckpt-dir", str(tmp_path), "--log-every", "0"]
-        + argv)
+        + argv + list(extra))
     if item is not None:
-        with pytest.raises(NotImplementedError, match=item):
-            run()
+        seen = {}
+
+        def spawn(fn, world, *, backend, device, args=()):
+            seen.update(fn=fn, world=world, backend=backend, device=device)
+            return [{"steps": 1}]
+
+        monkeypatch.setattr(train_mod.mesh_mod, "spawn_ranks", spawn)
+        assert run() == {"steps": 1}
+        assert seen == {"fn": train_mod.train_rank, "world": 2,
+                        "backend": "gloo", "device": "cpu"}
+        with pytest.raises(SystemExit, match="nccl backend needs CUDA"):
+            run("--dist-backend", "nccl")
         return
     summary = run()
     assert summary["arch"] == argv[1] + "-smoke" and summary["steps"] == 1

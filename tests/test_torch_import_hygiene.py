@@ -198,3 +198,24 @@ def test_new_archs_run_without_jax():
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, env=env, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+# the sharded-training slice's modules: the dry run's cells and the data
+# axis (a port-only module: the reference leaves the data axis to XLA)
+SHARDED_TRAINING_MODULES = ("repro_torch.launch.shapes",
+                            "repro_torch.parallel.dp")
+
+
+@pytest.mark.parametrize("mod", SHARDED_TRAINING_MODULES)
+def test_sharded_training_modules_import_alone_without_jax(mod):
+    assert mod in list(_port_modules())
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({mod!r})\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "assert not bad, bad\n")
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
