@@ -121,7 +121,7 @@ lines:
      Then ``serve_tp_*`` (ROADMAP item 12): TP_WORLD ranks spawned by
      ``launch/mesh.py::spawn_ranks`` share the card over gloo (NCCL
      refuses two ranks on one device) and serve TP_RUNS through
-     ``ServeEngine(mesh=)``: qwen3-0.6b at full depth in bf16 at TP 2
+     ``ServeEngine(mesh=)``: qwen3-0.6b (4 of 28 layers) in bf16 at TP 2
      and 4 on the paged pool, at TP 2 on the slot cache, chunked and
      kernelized, and at f32 at TP 2 and 4; at f32 and cut depths
      qwen2.5-3b at TP 4 (kv heads whole), hymba-1.5b (heads whole, Mamba
@@ -141,14 +141,14 @@ lines:
      train TRAIN_SHARDED_RUNS through ``make_train_step(mesh=)`` and a
      sharded ``TrainDriver`` (FSDP of the embed dim over ``data``, TP
      over ``model``, each rank storing its blocks of the params and of
-     AdamW's state): qwen3-0.6b at all 28 layers in bf16 at (data,
+     AdamW's state): qwen3-0.6b at 4 of 28 layers in bf16 at (data,
      model) = (2, 2), fused and kernelized, 3 steps at a global 8 x 128
      (finite, unskipped, loss and gnorm the same bits on every rank, each
      rank's launches exactly ``launches_per_forward`` x forwards, the
      other kernel none, bf16 glu_2d on ``tma_wgmma``; step ms,
      collectives and MB a step per axis, peak GB a rank and the host
-     syncs of the last step printed); then at f32 qwen3-0.6b (8 of 28
-     layers) at (2, 2), (4, 1) and (1, 4) and hymba-1.5b (8 of 32) at
+     syncs of the last step printed); then at f32 qwen3-0.6b (4 of 28
+     layers) at (2, 2), (4, 1) and (1, 4) and hymba-1.5b (4 of 32) at
      (2, 2), each held against the one-process step on the card (rank 0
      runs it first; step 1 from the same weights and batch): loss and
      gnorm, every gathered gradient leaf (the act leaf per knot) and
@@ -172,6 +172,19 @@ lines:
      every scheme, against their plain versions at phase 2's tolerances,
      glu_2d on the variant the launch took, a repeated launch
      bit-identical.
+     Then (3f) ``roofline_calibration_*`` (ROADMAP item 13): qwen3-0.6b
+     fused and kernelized, one decode chunk (CHUNK steps, SLOTS rows, the
+     slot cache) and one train step (TRAIN_BATCH x TRAIN_SEQ) counted by
+     ``analysis/hlo_cost.py::count_step`` on the card's tensors and on
+     meta tensors: FLOPs by class, bytes and kernel counts equal, the
+     kernel counts equal to the launches; each count's roofline (the
+     H100 data sheet's rates) against the step's measured wall, device
+     busy time and MFU (no speed gate); the meta count's step peak
+     against ``max_memory_allocated()`` over the train step, within
+     CALIB_MEM_TOL. Meanwhile the dry-run CLI runs in subprocesses on the
+     host (DRYRUN_CLI: qwen3-0.6b on the single-pod mesh, mixtral-8x22b
+     ``decode_32k`` on the multi-pod one, over a fake process group):
+     every DRYRUN_OK cell must report ok.
   4. kernel timings at the main path's shapes (decode 2 rows, prefill 128
      rows, 256 rows, the largest ragged prefill two slots form, and 1024,
      a training step's rows), beside the bound from the card's data-sheet
@@ -449,8 +462,9 @@ TRAIN_GLU_TIMED = ((TRAIN_ROWS, 2048, 8192), (TRAIN_ROWS, 2048, 11008),
                    (TRAIN_ROWS, 7168, 20480), (TRAIN_ROWS, 5120, 8192))
 # one profiled train step of the Mamba families (where the scan's backward
 # spends its time), at a cut depth: at the trained 20 / 32 layers the two
-# traces took 79 s (100-171 k kernels a step), the layers being alike
-TRAIN_ARCH_TRACED = {"falcon-mamba-7b": 5, "hymba-1.5b": 8}
+# traces took 79 s (100-171 k kernels a step), the layers being alike;
+# at 5 / 8 layers 23-26 s, so 3 / 4 since the script needed the time
+TRAIN_ARCH_TRACED = {"falcon-mamba-7b": 3, "hymba-1.5b": 4}
 TRACE_WALL_STEPS = 3            # unprofiled steps a train trace's wall reads
 # the autotuner (core/autotune.py) on the card: the reference's autotune
 # arch at full width (olmo-1b: 16 layers, d 2048, bf16), trained under the
@@ -474,10 +488,27 @@ EXAMPLE_RUNS = (("torch_quickstart", []),
                 ("torch_serve_spline_lm", []),
                 ("torch_activation_ablation", ["--method", "all",
                                                "--steps", "8"]))
-# f32 operations of each epilogue's wiring around its one tanh unit
-# (csrc/approximant.cuh epi_arg + epi_out)
-WIRING_OPS = {"tanh": 0, "sigmoid": 3, "silu": 4, "gelu_tanh": 8,
-              "softplus": 3}
+# roofline_calibration (ROADMAP item 13): the dry run's counts of qwen3's
+# train step (TRAIN_BATCH x TRAIN_SEQ) and of one decode chunk (CHUNK
+# steps, SLOTS rows, the slot cache), on the card's tensors and on meta
+# tensors; the wall is the median of CALIB_WALL_STEPS unprofiled steps
+CALIB_WALL_STEPS = 3
+# the meta count's step peak (the dry run's temp + outputs) against the
+# card's max_memory_allocated() over the step, relative: the limit set in
+# PERF.md before the first card run (the same storages, the caching
+# allocator's 512-byte rounding and nothing else expected; read -2.8e-7
+# on an H100)
+CALIB_MEM_TOL = 0.10
+# the dry-run CLI in subprocesses on the card's host (its torch): every
+# cell of DRYRUN_OK must report ok
+DRYRUN_CLI = (["--arch", "qwen3-0.6b", "--mesh", "single"],
+              ["--arch", "mixtral-8x22b", "--shape", "decode_32k",
+               "--mesh", "multi"])
+DRYRUN_OK = (("qwen3-0.6b", "train_4k", "single"),
+             ("qwen3-0.6b", "prefill_32k", "single"),
+             ("qwen3-0.6b", "decode_32k", "single"),
+             ("mixtral-8x22b", "decode_32k", "multi"))
+DRYRUN_TAG = "chip_smoke"
 
 
 def emit(obj) -> None:
@@ -563,22 +594,6 @@ def bound(bytes_moved: float, ops: float, peak_ops: float):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def epilogue_ops(spec, params, act: str = "silu") -> int:
-    """f32 operations of one ``act`` epilogue element under ``spec``,
-    counted from csrc/approximant.cuh: the wiring (WIRING_OPS: silu 4),
-    |x| 1, saturate and sign 3, and the scheme's block: index split 6 for
-    the LUT schemes; cr_spline basis
-    22 + 4-tap MAC 7; pwl one MAC 2; poly Horner 2 per degree; rational
-    clamp + square 2, two Horner chains 4 per step, x multiply 1, seed 2,
-    Newton 3 per step, product + clamp 2."""
-    rows, cols = params.shape
-    block = {"cr_spline": lambda: 6 + 22 + 7,
-             "pwl": lambda: 6 + 2,
-             "poly": lambda: 6 + 2 * (cols - 1),
-             "rational": lambda: 2 + 4 * (cols - 1) + 1 + 2 + 3 * 5 + 2}
-    return WIRING_OPS[act] + 1 + 3 + block[spec.scheme]()
 
 
 def bf16_ulp_ok(got, ref) -> bool:
@@ -978,7 +993,8 @@ def phase_kernel_times(torch, epi, dev, flush, arch_lines):
                 extra=dict(geometry=list(epi._elementwise_geometry(
                     rows, N, x.dtype))),
                 bound=bound(2 * x.numel() * 2 + p.numel() * 4,
-                            epilogue_ops(spec, p) * x.numel(), F32_FLOPS),
+                            epi.epilogue_ops(spec, p) * x.numel(),
+                            F32_FLOPS),
                 fns={"kernel": lambda x=x, s=spec, p=p:
                          epi.elementwise_2d(x, p, spec=s, act="silu"),
                      "plain": lambda x=x, s=spec, p=p:
@@ -1102,7 +1118,8 @@ def arch_time_cases(torch, epi, dev, gen, arch_lines):
             extra=dict(act=act, geometry=list(epi._elementwise_geometry(
                 *shape, x.dtype))),
             bound=bound(2 * x.numel() * x.element_size() + p.numel() * 4,
-                        epilogue_ops(spec, p, act) * x.numel(), F32_FLOPS),
+                        epi.epilogue_ops(spec, p, act) * x.numel(),
+                        F32_FLOPS),
             fns={"kernel": lambda x=x, s=spec, p=p, act=act:
                      epi.elementwise_2d(x, p, spec=s, act=act),
                  "plain": lambda x=x, s=spec, p=p, act=act:
@@ -2737,11 +2754,13 @@ def phase_process_replica(torch, np, base, dev, card, smoke=False):
 # the host: the rates the serve_tp lines print are two or four processes
 # sharing one card, information and never a speed claim. Each run: (arch,
 # depth, deployment of arch_deployments, TP width, engine kwargs, compute
-# dtype or None for the config's bf16). qwen3-0.6b at full depth in bf16
-# (glu_2d's tma_wgmma and elementwise_2d at the shard widths) at TP 2 and
-# 4 on the paged pool, at TP 2 on the slot cache, chunked and kernelized;
-# at f32 (8 of 28 layers) at TP 2 and 4; then the layouts at f32
-# and cut depths:
+# dtype or None for the config's bf16). qwen3-0.6b in bf16 (glu_2d's
+# tma_wgmma and elementwise_2d at the shard widths) at TP 2 and 4 on the
+# paged pool, at TP 2 on the slot cache, chunked and kernelized; at f32 at
+# TP 2 and 4, all at 4 of 28 layers (the bf16 runs served all 28 and the
+# f32 runs 8 until the script passed its 1,200 s limit on a slow host:
+# 1,245 s, the TP and sharded block 311 s of it; 194 s at 8 layers); then
+# the layouts at f32 and 4 layers:
 # qwen2.5-3b at TP 4 (KV = 2 stays whole while 16 heads shard),
 # hymba-1.5b at TP 2 (25 heads stay whole, d_inner shards),
 # musicgen-large at TP 2 (K = 4 codebook planes, vocab-parallel
@@ -2750,17 +2769,17 @@ def phase_process_replica(torch, np, base, dev, card, smoke=False):
 TP_WORLD = 4
 TP_BACKEND = "gloo"
 TP_RUNS = (
-    ("qwen3-0.6b", None, "fused", 2, {}, None),
-    ("qwen3-0.6b", None, "fused", 4, {}, None),
-    ("qwen3-0.6b", None, "fused", 2, {"chunk_prefill": CHUNK_PREFILL}, None),
-    ("qwen3-0.6b", None, "fused", 2, {"cache": "slot"}, None),
-    ("hymba-1.5b", 8, "fused", 2, {}, "float32"),
-    ("qwen3-0.6b", None, "kernelized", 2, {}, None),
+    ("qwen3-0.6b", 4, "fused", 2, {}, None),
+    ("qwen3-0.6b", 4, "fused", 4, {}, None),
+    ("qwen3-0.6b", 4, "fused", 2, {"chunk_prefill": CHUNK_PREFILL}, None),
+    ("qwen3-0.6b", 4, "fused", 2, {"cache": "slot"}, None),
+    ("hymba-1.5b", 4, "fused", 2, {}, "float32"),
+    ("qwen3-0.6b", 4, "kernelized", 2, {}, None),
     ("mixtral-8x22b", 1, "ragged", 2, {}, "float32"),
-    ("qwen3-0.6b", 8, "fused", 2, {}, "float32"),
-    ("qwen3-0.6b", 8, "fused", 4, {}, "float32"),
-    ("qwen2.5-3b", 8, "fused", 4, {}, "float32"),
-    ("musicgen-large", 8, "kernelized", 2, {}, "float32"),
+    ("qwen3-0.6b", 4, "fused", 2, {}, "float32"),
+    ("qwen3-0.6b", 4, "fused", 4, {}, "float32"),
+    ("qwen2.5-3b", 4, "fused", 4, {}, "float32"),
+    ("musicgen-large", 4, "kernelized", 2, {}, "float32"),
 )
 # prefill logits on tp_logit_tokens, TP against TP=1, relative to TP=1's
 # largest |logit|. At f32 the row-parallel products sum f32 partials in
@@ -2777,7 +2796,8 @@ TP_F32_TOL = 1e-5
 TP_BF16_TOL = 5e-2
 TP_LOGIT_TOKENS = 32
 # sharded training (ROADMAP item 12b): the serve_tp ranks train after
-# serving, on (data, model) meshes over all TP_WORLD ranks. Entries:
+# serving, on (data, model) meshes over all TP_WORLD ranks (at 4 layers,
+# as TP_RUNS, for the same reason). Entries:
 # (arch, layers or None for all, deployment, (data, model), dtype or None
 # for the arch's bf16). The bf16 runs take TRAIN_SHARDED_STEPS steps at a
 # global TRAIN_BATCH x TRAIN_SEQ; the f32 runs one step (step 1: at step
@@ -2786,12 +2806,12 @@ TP_LOGIT_TOKENS = 32
 # the same weights and batch. mixtral stays on the CPU test (tests/test_torch_train_sharded.py):
 # a rank gathers its f32 experts whole, over a quarter of the card.
 TRAIN_SHARDED_RUNS = (
-    ("qwen3-0.6b", None, "fused", (2, 2), None),
-    ("qwen3-0.6b", None, "kernelized", (2, 2), None),
-    ("qwen3-0.6b", 8, "fused", (2, 2), "float32"),
-    ("qwen3-0.6b", 8, "fused", (4, 1), "float32"),
-    ("qwen3-0.6b", 8, "fused", (1, 4), "float32"),
-    ("hymba-1.5b", 8, "fused", (2, 2), "float32"),
+    ("qwen3-0.6b", 4, "fused", (2, 2), None),
+    ("qwen3-0.6b", 4, "kernelized", (2, 2), None),
+    ("qwen3-0.6b", 4, "fused", (2, 2), "float32"),
+    ("qwen3-0.6b", 4, "fused", (4, 1), "float32"),
+    ("qwen3-0.6b", 4, "fused", (1, 4), "float32"),
+    ("hymba-1.5b", 4, "fused", (2, 2), "float32"),
 )
 TRAIN_SHARDED_STEPS = 3
 TRAIN_SHARDED_F32_BATCH = 4
@@ -3009,7 +3029,7 @@ def _grads_at_start(torch, TS, M, cfg, hyper, params, batch, fsdp=None):
     from repro_torch.parallel import dp as DP
     p = tree_map(lambda t: t.detach().requires_grad_(), params)
     if fsdp is not None and fsdp.group is not None:
-        batch = DP.local_rows(batch, fsdp.group.rank, fsdp.dp)
+        batch = DP.local_rows(batch, fsdp.group.rank, fsdp.group.size)
     loss, _ = M.loss_fn(p, batch, cfg, TS.make_engine(cfg),
                         remat=hyper.remat, z_loss=hyper.z_loss, fsdp=fsdp)
     leaves = tree_leaves(p)
@@ -3577,6 +3597,186 @@ def phase_serve_autotuned(torch, np, epi, cfg, params, res, dev, card):
           "decode_chunk_host_syncs": 0})
 
 
+def _as_meta(torch, tree):
+    """Meta tensors of ``tree``'s shapes and types (other leaves kept)."""
+    if isinstance(tree, dict):
+        return {k: _as_meta(torch, v) for k, v in tree.items()}
+    if torch.is_tensor(tree):
+        return torch.empty(tree.shape, dtype=tree.dtype, device="meta")
+    return tree
+
+
+def _calibrate(torch, H, RL, epi, name, fn, args, model_flops, card,
+               gate_memory, warm_meta):
+    """One step counted on the card's tensors and on meta tensors (after
+    an uncounted call on the card, and with ``warm_meta`` one on meta: the
+    parameter caches and cuBLAS warm; a model's caches on meta are filled
+    by its first call), the counts held equal and the kernels to the
+    launches; the roofline of the card's count against the step's wall
+    (median of CALIB_WALL_STEPS unprofiled calls) and device busy time
+    (one profiled call); the meta count's step peak against
+    max_memory_allocated(). Emits the line."""
+    from torch.profiler import ProfilerActivity, profile
+    meta_args = _as_meta(torch, args)
+    fn(*args)
+    if warm_meta:
+        fn(*meta_args)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    zero_launches(epi)
+    got = H.count_step(fn, *args)
+    torch.cuda.synchronize()
+    step_peak = torch.cuda.max_memory_allocated() - before
+    launches = {k: n for k, n in epi.LAUNCHES.items() if n}
+    meta = H.count_step(fn, *meta_args)
+    walls = []
+    for _ in range(CALIB_WALL_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = statistics.median(walls)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    roof = RL.analyze(got, n_devices=1, model_flops=model_flops)
+    bound = max(roof.compute_s, roof.memory_s, roof.collective_s) * 1e3
+    mem = meta.memory
+    line = {"phase": "roofline_calibration_" + name, "card": card,
+            "flops_by_dtype": {"card": got.flops_by_dtype,
+                               "meta": meta.flops_by_dtype},
+            "bytes": {"card": got.bytes, "meta": meta.bytes},
+            "kernels": {"card": got.kernels, "meta": meta.kernels,
+                        "launches": launches},
+            "transcendentals": got.transcendentals,
+            "counts_equal": (got.flops_by_dtype, got.bytes, got.kernels) == (
+                meta.flops_by_dtype, meta.bytes, meta.kernels),
+            "compute_ms": roof.compute_s * 1e3,
+            "memory_ms": roof.memory_s * 1e3,
+            "collective_ms": roof.collective_s * 1e3,
+            "bottleneck": roof.bottleneck, "bound_ms": bound,
+            "wall_ms": wall, "walls_ms": walls, "device_busy_ms": busy,
+            "wall_over_bound": wall / bound, "busy_over_bound": busy / bound,
+            "model_flops": model_flops,
+            "mfu": model_flops / (wall / 1e3 * RL.PEAK_FLOPS_BF16),
+            "mfu_bound": roof.mfu_bound,
+            "memory": {"argument_bytes": mem["argument_bytes"],
+                       "peak_estimate_bytes": mem["argument_bytes"]
+                       + mem["output_bytes"] + mem["temp_bytes"]
+                       - mem["alias_bytes"],
+                       "step_peak_meta": mem["peak_bytes"],
+                       "step_peak_card_count": got.memory["peak_bytes"],
+                       "allocated_before": before,
+                       "max_memory_allocated": before + step_peak,
+                       "step_peak_measured": step_peak,
+                       "rel_err": mem["peak_bytes"] / step_peak - 1,
+                       "tolerance": CALIB_MEM_TOL if gate_memory else None}}
+    emit(line)
+    assert line["counts_equal"], (name, line["flops_by_dtype"],
+                                  line["bytes"], line["kernels"])
+    assert got.kernels == meta.kernels == launches, line["kernels"]
+    if gate_memory:
+        assert abs(line["memory"]["rel_err"]) <= CALIB_MEM_TOL, \
+            line["memory"]
+    return line
+
+
+def phase_roofline_calibration(torch, epi, base, weights, dev, card):
+    """ROADMAP item 13 on the card: (a) qwen3-0.6b at full width, fused
+    (glu_2d) and kernelized (elementwise_2d), one train step at TRAIN_BATCH
+    x TRAIN_SEQ and one decode chunk counted on the card's tensors equal
+    the same counted on meta tensors (FLOPs by class, bytes, kernels =
+    the launches); (b) each count's roofline against the measured wall
+    and busy time, and the MFU; (c) the meta count's peak of the train
+    step against max_memory_allocated(), within CALIB_MEM_TOL; (d) the
+    dry-run CLI in subprocesses on this host (DRYRUN_CLI, running while
+    the card works): every DRYRUN_OK cell ok."""
+    import os
+    from repro_torch.analysis import hlo_cost as H
+    from repro_torch.analysis import roofline as RL
+    from repro_torch.configs.common import act_impl_of, fused_of
+    from repro_torch.launch import shapes as SH
+    from repro_torch.launch import steps as TS
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.serve.engine import make_decode_chunk
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *argv,
+         "--force", "--tag", DRYRUN_TAG], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for argv in DRYRUN_CLI]
+    try:
+        lines = {}
+        for dep, cfg in (("fused", fused_of(base)),
+                         ("kernelized", act_impl_of(base, "cr_spline",
+                                                    use_kernel=True))):
+            # the decode chunk first: its meta call warms the model's
+            # caches on meta for both steps
+            params = with_act(torch, weights, cfg, dev)
+            serve = M.compute_params(params, cfg)
+            cache = M.init_cache(cfg, SLOTS, MAX_LEN, per_slot=True,
+                                 device=dev)
+            state = {"tok": torch.zeros((SLOTS,), dtype=torch.int32,
+                                        device=dev),
+                     "emitted": torch.zeros((SLOTS,), dtype=torch.int32,
+                                            device=dev),
+                     "active": torch.ones((SLOTS,), dtype=torch.bool,
+                                          device=dev),
+                     "budget": torch.full((SLOTS,), 10 ** 6,
+                                          dtype=torch.int32, device=dev),
+                     "eos": torch.full((SLOTS,), -1, dtype=torch.int32,
+                                       device=dev)}
+            chunk = make_decode_chunk(cfg, CHUNK)
+            lines[dep + "_decode"] = _calibrate(
+                torch, H, RL, epi, dep + "_decode_chunk", chunk,
+                (serve, cache, state, 0, [0, 1], [0, 0], [0.0, 0.0]),
+                CHUNK * RL.model_flops_for(cfg, SH.ShapeCell(
+                    "decode", MAX_LEN, SLOTS, "decode")), card, False, True)
+            del serve, cache, state
+            opt = adamw.init_state(params)
+            batch = train_pipe(cfg, TRAIN_BATCH, TRAIN_SEQ, dev)(0)
+            step = TS.make_train_step(cfg, TS.TrainHyper(opt=train_opt()))
+            lines[dep + "_train"] = _calibrate(
+                torch, H, RL, epi, dep + "_train", step,
+                (params, opt, batch, 1), RL.model_flops_for(cfg, SH.ShapeCell(
+                    "train", TRAIN_SEQ, TRAIN_BATCH, "train")), card, True,
+                False)
+            del opt, batch, step, params
+            release(torch)
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    cells = {}
+    for arch, shape, mesh in DRYRUN_OK:
+        path = (ROOT / "experiments" / "dryrun_torch"
+                / f"{arch}__{shape}__{mesh}__{DRYRUN_TAG}.json")
+        res = json.loads(path.read_text()) if path.exists() else {
+            "status": "missing"}
+        cells[f"{arch} x {shape} x {mesh}"] = {
+            k: res.get(k) for k in ("status", "count_s", "error")} | {
+            "bottleneck": res.get("roofline", {}).get("bottleneck"),
+            "mfu_bound": res.get("roofline", {}).get("mfu_bound"),
+            "peak_estimate_gb": res.get("memory", {}).get(
+                "peak_estimate_bytes", 0) / 1e9}
+    emit({"phase": "roofline_calibration_dryrun_cli", "card": card,
+          "returncodes": [p.returncode for p in procs], "cells": cells,
+          "tails": [o[-800:] for o in outs]})
+    assert all(c["status"] == "ok" for c in cells.values()), cells
+    assert all(p.returncode == 0 for p in procs), outs
+    emit({"phase": "roofline_calibration", "card": card,
+          "seconds": time.perf_counter() - t0})
+    return lines
+
+
 def phase_examples(torch, epi, dev, card):
     """The four examples/torch_*.py on the card, in-process through their
     ``main(argv)`` (EXAMPLE_RUNS, ``--device`` added; train_lm into a
@@ -3808,6 +4008,10 @@ def main() -> int:
     # both kernels against their plain versions at every shape the
     # counted served runs launched them at
     phase_kernel_checks_served(torch, epi, dev, worst)
+    release(torch)
+    # 3f. the dry run's counts held against the card (ROADMAP item 13),
+    #     the last phase before any profiler session but its own
+    phase_roofline_calibration(torch, epi, base, weights, dev, card)
     release(torch)
 
     # 4. kernel timings, then where a decode step's time goes

@@ -17,7 +17,13 @@ Counterpart of ``repro/kernels/epilogue.py``. It owns:
 
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor
 it launches its kernel (``csrc/elementwise.cu``, ``csrc/epilogue.cu``,
-built by ``_build``) or raises. There is no other route.
+built by ``_build``) or raises. There is no other route. A meta tensor
+(the dry run, ``launch/dryrun.py``) gets the kernel's meta contract: the
+CUDA route's checks, then an empty output of the right shape, no launch.
+``elementwise_work`` / ``glu_work`` are each kernel's work (FLOPs from
+``csrc/approximant.cuh``, ``epilogue_ops``; the bytes it moves), which a
+cost count (``COUNTER``, ``analysis/hlo_cost.py``) takes at the entry in
+place of whatever the route runs inside.
 ``_elementwise_geometry`` sets ``elementwise_2d``'s launch geometry by
 shape. ``LAUNCHES[name]`` counts the kernel's launches and nothing else;
 ``GLU_VARIANTS`` splits ``glu_2d``'s launches by the variant
@@ -27,6 +33,7 @@ cannot address, SIMT for f32). Both kernels carry every registered scheme
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 
@@ -56,6 +63,63 @@ _SCHEME_IDS = {"cr_spline": 0, "pwl": 1, "poly": 2, "rational": 3}
 _MAX_PARAMS = 2048    # csrc/approximant.cuh MAX_PARAMS: f32 params in shared memory
 _MAX_POLY_DEGREE = 7  # csrc/approximant.cuh MAX_POLY_COLS - 1
 _EW_THREADS = 128     # threads of an elementwise_2d block
+
+# f32 operations of each epilogue's wiring around its one tanh unit
+# (csrc/approximant.cuh epi_arg + epi_out)
+WIRING_OPS = {"tanh": 0, "sigmoid": 3, "silu": 4, "gelu_tanh": 8,
+              "softplus": 3}
+
+# the cost counter of a running count (analysis/hlo_cost.py::Counter), or
+# None: a kernel's work is counted once, at its entry
+COUNTER = None
+
+
+def epilogue_ops(spec, params, act: str = "silu") -> int:
+    """f32 operations of one ``act`` epilogue element under ``spec``,
+    counted from csrc/approximant.cuh: the wiring (WIRING_OPS: silu 4),
+    |x| 1, saturate and sign 3, and the scheme's block: index split 6 for
+    the LUT schemes; cr_spline basis 22 + 4-tap MAC 7; pwl one MAC 2; poly
+    Horner 2 per degree; rational clamp + square 2, two Horner chains 4
+    per step, x multiply 1, seed 2, Newton 3 per step, product + clamp
+    2."""
+    rows, cols = params.shape
+    block = {"cr_spline": lambda: 6 + 22 + 7,
+             "pwl": lambda: 6 + 2,
+             "poly": lambda: 6 + 2 * (cols - 1),
+             "rational": lambda: 2 + 4 * (cols - 1) + 1 + 2 + 3 * 5 + 2}
+    return WIRING_OPS[act] + 1 + 3 + block[spec.scheme]()
+
+
+def elementwise_work(x, params, spec, act: str) -> tuple[dict, int]:
+    """({flop class: FLOPs}, bytes) of one ``elementwise_2d`` launch: the
+    epilogue's f32 operations on every element (``"vector"``: CUDA cores,
+    whatever x's type), x read and y written once, the params read."""
+    n = x.numel()
+    return ({"vector": n * epilogue_ops(spec, params, act)},
+            2 * n * x.element_size() + params.numel() * 4)
+
+
+def glu_work(x, w_gate, params, spec, act: str) -> tuple[dict, int]:
+    """({flop class: FLOPs}, bytes) of one ``glu_2d`` launch: the two
+    products' 2 x 2 x M x K x N in x's type (tensor cores for bf16; f32
+    runs SIMT), the epilogue on the M x N gate accumulator; x and both
+    weights read, out written once, the params read."""
+    (m, k), n = x.shape, w_gate.shape[1]
+    return ({str(x.dtype).removeprefix("torch."): 4 * m * k * n,
+             "vector": m * n * epilogue_ops(spec, params, act)},
+            (m * k + 2 * k * n + m * n) * x.element_size()
+            + params.numel() * 4)
+
+
+def _counted(name: str, work):
+    """The running count's record of one launch of kernel ``name`` doing
+    ``work`` (a thunk giving ``*_work``'s pair; None: the call launches
+    nothing); nothing that runs inside is counted again. A no-op when no
+    count runs."""
+    c = COUNTER
+    if c is None or work is None:
+        return contextlib.nullcontext()
+    return c.kernel(name, work())
 
 
 def table_for(act: str, x_max: float, depth: int) -> cr.SplineTable:
@@ -177,13 +241,12 @@ def _check_params(params, spec: ApproxSpec, act: str):
                          f"{tuple(expected)} for {spec}")
 
 
-def _route(x) -> bool:
-    """True: launch the CUDA kernel; False: run the plain version. The
-    device of the input decides, nothing else."""
-    if x.device.type == "cuda":
-        return True
-    if x.device.type == "cpu":
-        return False
+def _route(x) -> str:
+    """"cuda": launch the kernel; "cpu": run the plain version; "meta":
+    the kernel's meta contract (its checks, an empty output). The device
+    of the input decides, nothing else."""
+    if x.device.type in ("cuda", "cpu", "meta"):
+        return x.device.type
     raise ValueError(f"no epilogue kernel for device {x.device}")
 
 
@@ -272,15 +335,23 @@ def elementwise_2d(x, params, *, spec: TableSpec, act: str = "tanh",
     if x.dim() != 2:
         raise ValueError(f"elementwise_2d takes a 2D tensor, got {x.shape}")
     _check_params(params, spec, act)
-    if not _route(x):
+    work = (lambda: elementwise_work(x, params, spec, act)) \
+        if x.numel() else None
+    with _counted("elementwise_2d", work):
+        return _elementwise_2d(x, params, spec, act, lookup)
+
+
+def _elementwise_2d(x, params, spec, act, lookup):
+    route = _route(x)
+    if route == "cpu":
         return elementwise_2d_plain(x, params, spec=spec, act=act,
                                     lookup=lookup)
-    from . import _build
     args = _kernel_args(act, spec, params, x)
     y = torch.empty_like(x)
     rows, cols = x.shape
-    if rows * cols == 0:
+    if rows * cols == 0 or route == "meta":
         return y
+    from . import _build
     geometry = _elementwise_geometry(rows, cols, x.dtype)
     rc = _build.library().repro_elementwise_2d(
         x.data_ptr(), params.data_ptr(), y.data_ptr(), rows, cols, *args,
@@ -342,20 +413,31 @@ def glu_2d(x, w_gate, w_up, params, *, spec: TableSpec, act: str = "silu",
         raise ValueError(f"shape mismatch: x {tuple(x.shape)}, w_gate "
                          f"{tuple(w_gate.shape)}, w_up {tuple(w_up.shape)}")
     _check_params(params, spec, act)
-    if not _route(x):
+    work = (lambda: glu_work(x, w_gate, params, spec, act)) \
+        if m * n * k else None
+    with _counted("glu_2d", work):
+        return _glu_2d(x, w_gate, w_up, params, spec, act, lookup)
+
+
+def _glu_2d(x, w_gate, w_up, params, spec, act, lookup):
+    route = _route(x)
+    if route == "cpu":
         return glu_2d_plain(x, w_gate, w_up, params, spec=spec, act=act,
                             lookup=lookup)
-    from . import _build
     args = _kernel_args(act, spec, params, x)
     for w in (w_gate, w_up):
         if w.device != x.device or w.dtype != x.dtype or not w.is_contiguous():
             raise ValueError(f"weights must be contiguous {x.dtype} on "
                              f"{x.device}")
+    (m, k), n = x.shape, w_gate.shape[1]
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0 or n == 0:
         return out
     if k == 0:
         raise ValueError("glu_2d needs K >= 1")
+    if route == "meta":
+        return out
+    from . import _build
     ptrs = (x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr())
     variant = _glu_variant(m, n, k, x.dtype, all(a % 16 == 0 for a in ptrs))
     rc = _build.library().repro_glu_2d(

@@ -2,9 +2,10 @@
 ``repro/launch/mesh.py``).
 
 A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` with named dims
-(``("data", "model")``) over ranks of an initialised process group. The
-reference's ``make_production_mesh`` (the 16 x 16 and 2 x 16 x 16 TPU pod
-meshes) serves only its dry run, whose port is ROADMAP item 13.
+(``("data", "model")``, or ``("pod", "data", "model")``) over ranks of an
+initialised process group. ``make_production_mesh`` gives the reference's
+production layouts (16 x 16 and 2 x 16 x 16); only the dry run uses them,
+over a fake process group of that many ranks (``launch/dryrun.py``).
 
 The backend is the caller's choice, never switched behind its back:
 ``default_backend`` gives ``nccl`` on CUDA and ``gloo`` on the CPU; ranks
@@ -15,6 +16,7 @@ on one device), and ``check_backend`` raises on ``nccl`` there.
 from __future__ import annotations
 
 import datetime
+import math
 import os
 import pickle
 import tempfile
@@ -25,6 +27,7 @@ import torch
 import torch.distributed as dist
 
 MESH_AXES = ("data", "model")
+POD_MESH_AXES = ("pod", "data", "model")
 
 
 def make_mesh_auto(shape: tuple, axes: tuple, *, device="cuda",
@@ -62,6 +65,22 @@ def make_host_mesh(data: int = 1, model: int = 1, *, device="cuda",
                          f"not {backend!r}")
     return make_mesh_auto((data, model), MESH_AXES, device=device,
                           ranks=ranks)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
+    """The production mesh: (16, 16) over ("data", "model"), or with
+    ``multi_pod`` (2, 16, 16) over ("pod", "data", "model"), whose ``pod``
+    axis carries only data-parallel traffic. A DeviceMesh over the first
+    256 / 512 ranks of the initialised process group, which must have at
+    least that many (the dry run starts a fake one); raises otherwise."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    n = math.prod(shape)
+    if not dist.is_initialized() or dist.get_world_size() < n:
+        have = dist.get_world_size() if dist.is_initialized() else 0
+        raise RuntimeError(f"the production mesh {shape} needs a process "
+                           f"group of at least {n} ranks (got {have})")
+    return make_mesh_auto(shape, POD_MESH_AXES if multi_pod else MESH_AXES,
+                          device=device)
 
 
 def dp_axes(mesh) -> tuple:

@@ -124,12 +124,13 @@ def make_train_step(cfg: ModelConfig, hyper: TrainHyper = TrainHyper(),
     rate, and the metrics (0-d tensors) are loss, nll, aux, gnorm, lr and,
     under ``skip_nonfinite``, skipped.
 
-    With ``mesh`` (a (data, model) DeviceMesh) the step is the sharded
-    one, run under ``partition.axis_rules(mesh, rules)``: ``params`` and
-    ``opt_state`` are this rank's blocks (``train_shardings``), ``batch``
-    the global batch, of which the rank takes its rows
-    (``dp.local_rows``; ``local_batch=True``: ``batch`` is those rows
-    already), and the metrics are global and the same on every rank."""
+    With ``mesh`` (a ([pod,] data, model) DeviceMesh) the step is the
+    sharded one, run under ``partition.axis_rules(mesh, rules)``:
+    ``params`` and ``opt_state`` are this rank's blocks
+    (``train_shardings``), ``batch`` the global batch, of which the rank
+    takes its rows over the batch axes (``dp.local_rows``;
+    ``local_batch=True``: ``batch`` is those rows already), and the
+    metrics are global and the same on every rank."""
     engine = _make_engine(cfg)
     rules = rules or part.DEFAULT_RULES
     fsdp = None
@@ -191,7 +192,7 @@ def make_train_step(cfg: ModelConfig, hyper: TrainHyper = TrainHyper(),
         if fsdp is None:
             return local_step(params, opt_state, batch, step)
         if fsdp.group is not None and not local_batch:
-            batch = dp.local_rows(batch, fsdp.group.rank, fsdp.dp,
+            batch = dp.local_rows(batch, fsdp.group.rank, fsdp.group.size,
                                   hyper.microbatches)
         with part.axis_rules(mesh, rules):
             return local_step(params, opt_state, batch, step)
@@ -416,12 +417,19 @@ def build_cell(cfg: ModelConfig, shape: shp.ShapeCell, mesh, *,
 
 
 def _built_on_call(build):
-    """A function that builds its step (``build()``) at its first call."""
+    """A function that builds its step (``build()``) at its first call, or
+    at ``fn.ready()`` (a cost count builds it first: the shardings' meta
+    tensors are no part of the step)."""
     def fn(*args):
+        return fn.ready()(*args)
+
+    def ready():
         if fn.step is None:
             fn.step = build()
-        return fn.step(*args)
+        return fn.step
+
     fn.step = None
+    fn.ready = ready
     return fn
 
 

@@ -678,6 +678,13 @@ def apply_moe_ragged(params, x, cfg: ModelConfig, engine: ActivationEngine):
 # Mamba-1 (selective SSM): falcon-mamba, and hymba's parallel branch
 # ---------------------------------------------------------------------------
 
+# time steps the selective scan runs, set by a cost count only
+# (analysis/hlo_cost.py::count_cell: the scan's cost is affine in its trip
+# count, so counts at two short trip counts give it at any S); None runs
+# every step
+SCAN_TRIPS: int | None = None
+
+
 def _mamba_inner(params, xz, conv_state, ssm_state, cfg: ModelConfig,
                  engine: ActivationEngine):
     """The Mamba core over a sequence chunk. xz: [B, S, 2*di]; conv_state:
@@ -713,10 +720,13 @@ def _mamba_inner(params, xz, conv_state, ssm_state, cfg: ModelConfig,
     Bf, Cf = Bc.to(f32), Cc.to(f32)
     h = ssm_state.to(f32)
     ys = []
-    for t in range(S):
+    trips = S if SCAN_TRIPS is None else min(S, SCAN_TRIPS)
+    for t in range(trips):
         dA = torch.exp(dt[:, t, :, None] * A)                 # [B, di, N]
         h = dA * h + dtx[:, t, :, None] * Bf[:, t, None, :]
         ys.append(torch.einsum("bdn,bn->bd", h, Cf[:, t]))
+    # a cost count's short scan: the steps not run leave placeholders
+    ys.extend(torch.empty_like(ys[0]) for _ in range(S - trips))
     y = torch.stack(ys, dim=1)                               # [B, S, di]
     y = y + xc.to(f32) * params["D"]
     y = y * engine.silu(z.to(f32))

@@ -1,6 +1,14 @@
-"""The data axis of sharded training: FSDP of the leaves that resolve to
+"""The data axes of sharded training: FSDP of the leaves that resolve to
 ``data``, the data mean of the gradients and the sums a sharded step
-needs over both axes (port-only: the reference leaves all of it to XLA).
+needs over every mesh axis (port-only: the reference leaves all of it to
+XLA).
+
+The batch is split over every batch axis of the mesh
+(``launch/mesh.py::dp_axes``: ``pod``, then ``data``, the rule table's
+("pod", "data") candidate), so the data mean, the gradients' sum, the
+norm and the int8 scale span them all. FSDP shards over ``data`` alone:
+a leaf is replicated over ``pod``, whose replicas' gradients are summed
+like any replicated leaf's.
 
 A train state on a (data, model) mesh is cut by ``launch/steps.py::
 train_shardings`` (``DEFAULT_RULES``): a leaf dim that resolves to
@@ -11,8 +19,9 @@ rank stores its block of the master param and of AdamW's ``m`` and
 "block"`` gathers it again in the backward), into the layout the
 tensor-parallel blocks read, and the gather's backward reduce-scatters
 the gradient back. Leaves replicated over ``data`` have their gradients
-summed by one ``all_reduce`` of a flat buffer (``FSDP.reduce_grads``);
-then every gradient is scaled by 1 / dp: the data mean.
+summed by one ``all_reduce`` of a flat buffer over each batch axis
+(``FSDP.reduce_grads``; the FSDP blocks over ``pod``); then every
+gradient is scaled by 1 / (the batch ranks): the data mean.
 
 Every rank computes the global loss (``mean``: an ``all_reduce`` mean
 whose backward is the identity, so rank i differentiates only its own
@@ -29,10 +38,12 @@ order, since gloo pairs them by order.
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 import torch.distributed as dist
 
+from repro_torch.launch.mesh import dp_axes
 from repro_torch.optim.adamw import tree_leaves, tree_map
 
 from . import partition as part
@@ -52,44 +63,58 @@ def all_gather(x, dim: int, group, size: int):
     return out.movedim(0, dim).flatten(dim, dim + 1), _bytes(out)
 
 
-class DPGroup:
-    """One rank's data-parallel group: the process group over the mesh's
-    ``data`` axis, this rank's index on it and the group's size.
-    ``calls`` / ``bytes`` count the collectives it ran."""
+class DPGroup(tp.Collectives):
+    """One rank's data-parallel groups. The batch is split over the mesh's
+    batch axes (``dp_axes``, pod-major): ``size`` ranks, of which this
+    rank is ``rank``; ``all_reduce`` spans them (``data``, then ``pod``).
+    FSDP gathers and scatters over ``data`` alone: ``group`` is its
+    process group, ``data_size`` its size. The collectives it ran are
+    counted by axis and kind (``tp.Collectives``)."""
 
     def __init__(self, mesh):
+        super().__init__()
+        sizes = part.mesh_shape(mesh)
+        axes = dp_axes(mesh)
+        self.size, self.rank = 1, 0
+        for a in axes:
+            self.size *= sizes[a]
+            self.rank = self.rank * sizes[a] + mesh.get_local_rank(a)
+        # the axes a sum spans, the fast one first
+        self.axes = tuple(a for a in reversed(axes) if sizes[a] > 1)
+        self.groups = {a: mesh.get_group(a) for a in self.axes}
         self.group = mesh.get_group("data")
-        self.rank = mesh.get_local_rank("data")
-        self.size = part.mesh_shape(mesh)["data"]
-        self.calls = 0
-        self.bytes = 0
+        self.data_size = sizes["data"]
 
-    def reset(self) -> None:
-        self.calls = self.bytes = 0
-
-    def all_reduce(self, x, op=dist.ReduceOp.SUM):
-        """Reduce ``x`` over the group, in place; returns it."""
-        dist.all_reduce(x, op=op, group=self.group)
-        self.calls += 1
-        self.bytes += _bytes(x)
+    def all_reduce(self, x, op=dist.ReduceOp.SUM, axes=None):
+        """Reduce ``x`` over the batch axes (or those of ``axes`` the sum
+        spans), one axis after the other, in place; returns it."""
+        for a in self.axes:
+            if axes is None or a in axes:
+                dist.all_reduce(x, op=op, group=self.groups[a])
+                self.count(a, "all-reduce", _bytes(x))
         return x
 
     def all_gather(self, x, dim: int):
-        out, n = all_gather(x, dim, self.group, self.size)
-        self.calls += 1
-        self.bytes += n
+        out, n = all_gather(x, dim, self.group, self.data_size)
+        self.count("data", "all-gather", n)
         return out
 
     def reduce_scatter(self, x, dim: int):
-        """The group's sum of ``x``, of which this rank keeps its block of
-        dim ``dim``."""
-        n = x.shape[dim] // self.size
-        parts = x.unflatten(dim, (self.size, n)).movedim(dim, 0).contiguous()
+        """The ``data`` group's sum of ``x``, of which this rank keeps its
+        block of dim ``dim``."""
+        n = x.shape[dim] // self.data_size
+        parts = x.unflatten(dim, (self.data_size, n)).movedim(dim, 0) \
+            .contiguous()
         out = x.new_empty(parts[0].numel())
         dist.reduce_scatter_tensor(out, parts.view(-1), group=self.group)
-        self.calls += 1
-        self.bytes += _bytes(parts)
+        self.count("data", "reduce-scatter", _bytes(out))
         return out.view(parts.shape[1:])
+
+
+def batch_ranks(mesh) -> int:
+    """How many ranks the batch is split over."""
+    sizes = part.mesh_shape(mesh)
+    return math.prod(sizes[a] for a in dp_axes(mesh))
 
 
 @functools.lru_cache(maxsize=None)
@@ -98,10 +123,10 @@ def group_of(mesh) -> DPGroup:
 
 
 def current() -> DPGroup | None:
-    """The active mesh's data group; None without a mesh or where its
-    ``data`` axis has one rank (nothing to reduce)."""
+    """The active mesh's data groups; None without a mesh or where the
+    batch is not split (nothing to reduce)."""
     mesh = part.current_mesh()
-    if mesh is None or part.mesh_shape(mesh).get("data", 1) == 1:
+    if mesh is None or batch_ranks(mesh) == 1:
         return None
     return group_of(mesh)
 
@@ -134,8 +159,8 @@ class _Mean(torch.autograd.Function):
 
 
 def mean(x):
-    """The data mean of ``x`` (each rank's value of its own rows), the
-    identity without a data axis."""
+    """The data mean of ``x`` (each rank's value of its own rows) over
+    every batch axis, the identity where the batch is not split."""
     g = current()
     return x if g is None else _Mean.apply(x, g)
 
@@ -171,17 +196,19 @@ def _dim_of(spec: tuple, axis: str) -> int | None:
 
 
 class FSDP:
-    """A train state's layout on a (data, model) mesh and the step's work
-    on it: ``shardings`` is the params' tree of ``partition.Sharding``
-    (``launch/steps.py::train_shardings``); ``m``, ``v`` and the error
-    buffers share it."""
+    """A train state's layout on a ([pod,] data, model) mesh and the
+    step's work on it: ``shardings`` is the params' tree of
+    ``partition.Sharding`` (``launch/steps.py::train_shardings``); ``m``,
+    ``v`` and the error buffers share it. ``dp`` is the FSDP degree (the
+    ``data`` axis), ``group`` the data groups (None where the batch is not
+    split)."""
 
     def __init__(self, mesh, shardings):
         self.mesh = mesh
         sizes = part.mesh_shape(mesh)
         self.dp, self.tp = sizes.get("data", 1), sizes.get("model", 1)
         self.shardings = shardings
-        self.group = group_of(mesh) if self.dp > 1 else None
+        self.group = group_of(mesh) if batch_ranks(mesh) > 1 else None
         self.tp_group = tp.group_of(mesh) if self.tp > 1 else None
         self.dims = tree_map(
             lambda sh: _dim_of(sh.spec, "data") if self.dp > 1 else None,
@@ -222,28 +249,31 @@ class FSDP:
     # -- after the backward ------------------------------------------------
     def reduce_grads(self, grads):
         """The data mean of the gradients: the leaves replicated over
-        ``data`` summed by one ``all_reduce`` of a flat f32 buffer (the
-        FSDP leaves were reduce-scattered by the gather's backward), then
-        every leaf times 1 / dp."""
+        ``data`` summed over every batch axis by one ``all_reduce`` of a
+        flat f32 buffer an axis, the FSDP leaves (reduce-scattered over
+        ``data`` by the gather's backward) over ``pod`` likewise, then
+        every leaf times 1 / (the batch ranks)."""
         if self.group is None:
             return grads
-        rep = [g for g, d in zip(tree_leaves(grads), tree_leaves(self.dims))
-               if d is None]
-        if rep:
+        pairs = list(zip(tree_leaves(grads), tree_leaves(self.dims)))
+        rep = [g for g, d in pairs if d is None]
+        blocks = [g for g, d in pairs if d is not None]
+        for leaves, axes in ((rep, None), (blocks, ("pod",))):
+            if not leaves or not any(axes is None or a in axes
+                                     for a in self.group.axes):
+                continue
             flat = self.group.all_reduce(torch.cat(
-                [g.reshape(-1).to(torch.float32) for g in rep]))
-            for g, s in zip(rep, flat.split([g.numel() for g in rep])):
+                [g.reshape(-1).to(torch.float32) for g in leaves]), axes=axes)
+            for g, s in zip(leaves, flat.split([g.numel() for g in leaves])):
                 g.copy_(s.view_as(g))
-        inv = 1.0 / self.dp
+        inv = 1.0 / self.group.size
         return tree_map(lambda g: g * inv, grads)
 
     def sum_all(self, x, op=dist.ReduceOp.SUM):
-        """``x`` reduced over the whole mesh (model, then data), in
-        place: the same bits on every rank."""
+        """``x`` reduced over the whole mesh (model, then the batch axes),
+        in place: the same bits on every rank."""
         if self.tp_group is not None:
-            dist.all_reduce(x, op=op, group=self.tp_group.group)
-            self.tp_group.calls += 1
-            self.tp_group.bytes += _bytes(x)
+            self.tp_group.all_reduce(x, op=op)
         if self.group is not None:
             self.group.all_reduce(x, op=op)
         return x
@@ -268,16 +298,17 @@ class FSDP:
         axes a leaf at a time); None leaves where not ``keep`` (every rank
         joins the gathers, one keeps the result)."""
         def one(t, sh, key):
-            for axis, g in (("model", self.tp_group), ("data", self.group)):
+            for axis, g, n in (("model", self.tp_group, self.tp),
+                               ("data", self.group, self.dp)):
                 d = _dim_of(sh.spec, axis)
-                if d is None or g is None:
+                if d is None or n == 1:
                     continue
                 if key == "in_proj" and axis == "model":
                     # the x | z halves are cut apart (model.shard_params)
-                    t = torch.cat([all_gather(h, d, g.group, g.size)[0]
+                    t = torch.cat([all_gather(h, d, g.group, n)[0]
                                    for h in t.chunk(2, dim=-1)], dim=-1)
                 else:
-                    t = all_gather(t, d, g.group, g.size)[0]
+                    t = all_gather(t, d, g.group, n)[0]
             return t.cpu() if keep else None
 
         def walk(t, sh, key=None):

@@ -44,27 +44,49 @@ import torch.distributed as dist
 from . import partition as part
 
 
-class TPGroup:
+class Collectives:
+    """The collectives a rank's group ran, counted by (mesh axis, kind):
+    ``by_kind[(axis, kind)] = [calls, bytes]``, the bytes of each
+    collective's result on this rank (what a step costs;
+    ``analysis/hlo_cost.py`` reads them). ``calls`` / ``bytes`` are the
+    totals; ``reset()`` zeroes them."""
+
+    def __init__(self):
+        self.by_kind: dict[tuple, list] = {}
+
+    def reset(self) -> None:
+        self.by_kind = {}
+
+    def count(self, axis: str, kind: str, nbytes: int) -> None:
+        c = self.by_kind.setdefault((axis, kind), [0, 0])
+        c[0] += 1
+        c[1] += nbytes
+
+    @property
+    def calls(self) -> int:
+        return sum(c[0] for c in self.by_kind.values())
+
+    @property
+    def bytes(self) -> int:
+        return sum(c[1] for c in self.by_kind.values())
+
+
+class TPGroup(Collectives):
     """One rank's tensor-parallel group: the process group over the
-    mesh's ``model`` axis, this rank's index on it and the group's size.
-    ``calls`` / ``bytes`` count the collectives it ran (what a decode step
-    costs); ``reset()`` zeroes them."""
+    mesh's ``model`` axis, this rank's index on it and the group's size,
+    with the counts of the collectives it ran (``Collectives``)."""
 
     def __init__(self, mesh):
+        super().__init__()
         self.group = mesh.get_group("model")
         self.rank = mesh.get_local_rank("model")
         self.size = part.mesh_shape(mesh)["model"]
-        self.calls = 0
-        self.bytes = 0
 
-    def reset(self) -> None:
-        self.calls = self.bytes = 0
-
-    def all_reduce(self, x):
-        """Sum ``x`` over the group, in place; returns it."""
-        dist.all_reduce(x, group=self.group)
-        self.calls += 1
-        self.bytes += x.numel() * x.element_size()
+    def all_reduce(self, x, op=dist.ReduceOp.SUM):
+        """Reduce ``x`` over the group (a sum unless ``op``), in place;
+        returns it."""
+        dist.all_reduce(x, op=op, group=self.group)
+        self.count("model", "all-reduce", x.numel() * x.element_size())
         return x
 
     def sum_f32(self, x):

@@ -49,6 +49,21 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+# the dry run and the analysis layer, each checked by name here beside
+# the sweeps above, which every module of the port is in
+ANALYSIS = ("launch/dryrun.py", "analysis/hlo_cost.py", "analysis/roofline.py")
+
+
+@pytest.mark.parametrize("rel", ANALYSIS)
+def test_analysis_layer_imports_no_jax_and_no_reference(rel):
+    path = PORT / rel
+    assert path in set(PORT.rglob("*.py"))
+    mod = "repro_torch." + rel[:-3].replace("/", ".")
+    assert mod in list(_port_modules())
+    for name in _imports(path):
+        assert name.split(".")[0] not in ("jax", "jaxlib", "repro"), name
+
+
 def _imports(path: pathlib.Path):
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):

@@ -14,6 +14,10 @@ gloo ranks (one thread a rank) runs every sharded case: ranks (0, 1) the
 (2, 1) mesh and ranks (2, 3) the (1, 2) mesh at once, then all four the
 (2, 2) and (4, 1) meshes, the options, ``build_cell``'s steps, the
 checkpoints and the launcher's ranks. The references run in this process.
+On (pod, data, model) meshes (2, 1, 1) and (2, 2, 1) each rank is given
+its rows as the rule table splits the batch over ("pod", "data"), and the
+step (qwen3 fused, mixtral gshard) must equal the one-device step: the
+data mean, the gradients' sum and the norm span both batch axes.
 
 Tolerances, ``tests/test_torch_train.py``'s: loss, nll, aux, gnorm, lr
 relative 1e-5; gradients (``loss_fn`` differentiated once, at the start,
@@ -66,6 +70,10 @@ CONFIGS = {"qwen3_fused": ("qwen3-0.6b", "fused"),
            "mixtral_ragged": ("mixtral-8x22b", "ragged"),
            "hymba": ("hymba-1.5b", "plain")}
 MESHES = ((2, 1), (1, 2), (2, 2), (4, 1))
+# (pod, data, model) meshes: the batch split over ("pod", "data") as the
+# rule table says, each rank given its rows of it (build_cell's args)
+POD_MESHES = ((2, 1, 1), (2, 2, 1))
+POD_CONFIGS = ("qwen3_fused", "mixtral_gshard")
 # (config, TrainHyper fields), each run at (2, 2)
 OPTIONS = {"grad_compression": ("qwen3_fused", {"grad_compression": True}),
            "microbatches": ("mixtral_gshard", {"microbatches": 2}),
@@ -128,13 +136,13 @@ def _tensors(batch):
 # the one-device runs (this process and each rank)
 # ---------------------------------------------------------------------------
 
-def grads_at_start(cfg, params, batch, hyper, fsdp=None):
+def grads_at_start(cfg, params, batch, hyper, fsdp=None, split=True):
     """``loss_fn`` differentiated once; sharded (``fsdp``): the rank's
-    rows, the data mean taken, each leaf gathered whole (the mesh's first
-    rank keeps them)."""
+    rows (``batch`` is those already unless ``split``), the data mean
+    taken, each leaf gathered whole (the mesh's first rank keeps them)."""
     p = tree_map(lambda t: t.detach().requires_grad_(), params)
-    if fsdp is not None and fsdp.group is not None:
-        batch = dp.local_rows(batch, fsdp.group.rank, fsdp.dp)
+    if fsdp is not None and fsdp.group is not None and split:
+        batch = dp.local_rows(batch, fsdp.group.rank, fsdp.group.size)
     loss, _ = TM.loss_fn(p, batch, cfg, TS.make_engine(cfg),
                          remat=hyper.remat, z_loss=hyper.z_loss, fsdp=fsdp)
     leaves = TA.tree_leaves(p)
@@ -177,25 +185,38 @@ def one_device(name, params_np, batch, **kw):
 # the spawned ranks
 # ---------------------------------------------------------------------------
 
-def sharded(inp, name, mesh, **kw):
+def rule_rows(batch, mesh):
+    """This rank's rows of the global batch as the rule table splits its
+    "batch" axis on ``mesh`` (over ("pod", "data") where there is a pod
+    axis)."""
+    return {k: part.make_sharding(("batch",) + (None,) * (v.dim() - 1),
+                                  tuple(v.shape), mesh=mesh).shard(v)
+            for k, v in batch.items()}
+
+
+def sharded(inp, name, mesh, by_rules=False, **kw):
     """One sharded run on this rank (as ``one_device``): its metrics, its
     blocks' local shapes and slices, and on the mesh's first rank the
-    gradients, params, m and v gathered whole."""
+    gradients, params, m and v gathered whole. ``by_rules``: the rank is
+    given its rows (``rule_rows``), not the global batch."""
     cfg, hyper = port_cfg(name), port_hyper(**kw)
     full = TM.params_from_numpy(inp["params"][name], cfg, device="cpu")
     psh, _ = TS.train_shardings(cfg, mesh, hyper=hyper)
     params = TM.shard_params(full, cfg, psh)
     fsdp = dp.FSDP(mesh, psh)
     batch = _tensors(inp["batch"][name])
+    if by_rules:
+        batch = rule_rows(batch, mesh)
     lead = _leader(mesh)
     with part.axis_rules(mesh):
-        grads = grads_at_start(cfg, params, batch, hyper, fsdp)
-    step = TS.make_train_step(cfg, hyper, mesh=mesh)
+        grads = grads_at_start(cfg, params, batch, hyper, fsdp,
+                               split=not by_rules)
+    step = TS.make_train_step(cfg, hyper, mesh=mesh, local_batch=by_rules)
     opt, metrics = _init_opt(params, hyper), []
     for s in (1, 2):
         params, opt, m = step(params, opt, batch, s)
         metrics.append({k: float(v) for k, v in m.items()})
-    out = {"metrics": metrics,
+    out = {"metrics": metrics, "rows": int(batch["tokens"].shape[0]),
            "shapes": {k: tree_map(lambda t: tuple(t.shape), v)
                       for k, v in (("params", params), ("m", opt["m"]),
                                    ("v", opt["v"]))},
@@ -294,6 +315,13 @@ def _rank(rank, world, device, path):
             out[(name, shape)] = sharded(inp, name, mesh)
     for opt, (name, kw) in OPTIONS.items():
         out[(opt, (2, 2))] = sharded(inp, name, wide[(2, 2)], **kw)
+    pods = {shape: LM.make_mesh_auto(shape, ("pod", "data", "model"),
+                                     device="cpu", ranks=_mesh_ranks(shape))
+            for shape in POD_MESHES}
+    for shape, mesh in pods.items():
+        if rank in _mesh_ranks(shape):
+            for name in POD_CONFIGS:
+                out[(name, shape)] = sharded(inp, name, mesh, by_rules=True)
     out["cell"] = _cell_run(inp, wide[(2, 2)])
     out["ckpt"] = _ckpt_runs(inp, wide[(2, 2)])
     args = train_mod.build_parser().parse_args(
@@ -447,7 +475,8 @@ def refs(results):
 
 
 def _mesh_ranks(shape):
-    return {(2, 1): (0, 1), (1, 2): (2, 3)}.get(shape, (0, 1, 2, 3))
+    return {(2, 1): (0, 1), (1, 2): (2, 3), (2, 1, 1): (0, 1)}.get(
+        shape, (0, 1, 2, 3))
 
 
 def _leader_result(runs, case, shape):
@@ -561,6 +590,24 @@ def test_each_rank_stores_only_its_blocks(runs, shape):
     if shape == (2, 2):
         one = runs["ranks"][0][("qwen3_fused", shape)]["shapes"]["params"]
         assert one["embed"] == (256, 32)
+
+
+@pytest.mark.parametrize("shape", POD_MESHES,
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("name", POD_CONFIGS)
+def test_pod_axis_step_equals_one_device(runs, refs, name, shape):
+    """A (pod, data, model) mesh, each rank given its rows as the rule
+    table splits the batch over ("pod", "data"): the data mean, the
+    gradients' sum and the norm span both axes, so the step is the
+    one-device step (loss, nll, aux, gnorm, every gradient leaf, params,
+    m and v after 2 steps), the same bits on every rank."""
+    res = [runs["ranks"][r][(name, shape)] for r in _mesh_ranks(shape)]
+    assert {r["rows"] for r in res} == {B // (shape[0] * shape[1])}
+    for r in res[1:]:
+        assert r["metrics"] == res[0]["metrics"], (name, shape)
+    assert_run(res[0], refs[name][1], what="one-device")
+    if name.startswith("mixtral"):
+        assert res[0]["metrics"][0]["aux"] > 0
 
 
 @pytest.mark.parametrize("option", list(OPTIONS))
