@@ -14,12 +14,14 @@ lines:
   2. kernel checks: each kernel against its plain PyTorch version on the
      card, at stated tolerances, for every scheme and epilogue at the
      deployment geometry (depth 32, degree 3), and at every float
-     geometry ``benchmarks/dse.py`` sweeps. ``glu_2d``'s TMA + wgmma
-     variant at M = 1, 2, 64, 65, 128, 256, 512, 1000 and 1024 (K=1024,
-     N=3072; above 256 rows the grid loops over 256-row M tiles) and at a
-     ragged K=1000, N=3000, and its wmma variant at N=3001, for every
-     scheme and epilogue: each case asserts the variant it took and that
-     a repeated launch gives the same bits. Then gradients through both
+     geometry ``benchmarks/dse.py`` sweeps. ``glu_2d``'s TMA variants
+     (bf16 ``tma_wgmma``, f32 ``tma_f32``) at M = 1, 2, 64, 65, 128, 256,
+     512, 1000 and 1024 (K=1024, N=3072; above 256 / 64 rows the grid
+     runs 256 / 64-row M tiles) and at a ragged K=1000, N=3000, and the
+     variants for operands TMA cannot address (bf16 ``wmma``, f32
+     ``simt_f32``) at N=3001, for every scheme and epilogue: each case
+     asserts the variant it took and that a repeated launch gives the
+     same bits. Then gradients through both
      kernels (``ops.act`` / ``ops.fused_glu``: the kernel forward, the
      plain recompute backward) for every scheme at f32 and bf16, at the
      training row count (1024) and a ragged 1000: bitwise equal to
@@ -50,7 +52,8 @@ lines:
      In every served run the kernel of the path must launch exactly 28 x
      (prefill batches + prefill chunks + decode steps) times, the other
      kernel not at all, and every bf16 ``glu_2d`` launch must take the
-     ``tma_wgmma`` variant. For the two cr_spline deployments, at bf16
+     ``tma_wgmma`` variant, every f32 one ``tma_f32``. For the two
+     cr_spline deployments, at bf16
      and at f32 compute: ``serve_prefix`` (4 requests sharing a 4-page
      prefix, serial admission: 192 prompt tokens from cached pages, all
      pages back after the run, f32 tokens identical to prefix_cache=False)
@@ -213,8 +216,13 @@ lines:
      kernel's decode shape and its largest per type and epilogue
      (cr_spline: ``glu_2d`` beside two ``torch.matmul`` calls, cuBLAS
      warmed first; ``elementwise_2d`` beside a copy; Mamba's f32 softplus
-     and silu among them), and glu_2d at the train runs' FFN shapes
-     (TRAIN_GLU_TIMED, M = 1024). Profiling comes after serving and training
+     and silu among them), glu_2d at the train runs' FFN shapes
+     (TRAIN_GLU_TIMED, M = 1024), and the f32 glu_2d (``tma_f32``) at
+     qwen3-0.6b's full-width FFN at every ROWS_TIMED row count, beside
+     two f32 cuBLAS GEMMs with TF32 off (GLU_F32_TIMED); the
+     ``glu_f32_aims`` line sets every f32 glu_2d time against its
+     library yardstick and its bound (information, not a gate).
+     Profiling comes after serving and training
      because a profiled process keeps paying tracing costs on every later
      launch.
   5. f32 prefill logits of every deployment on the card (kernels) against
@@ -295,12 +303,16 @@ SOURCES = {"elementwise_2d": "src/repro_torch/csrc/elementwise.cu",
 # copy_ms at each shape, the schemes within 15% of each other at decode
 AIM_OVER_COPY, AIM_DECODE_SPREAD = 1.25, 0.15
 SESSIONS = 3                    # profiler traces device_ms takes at most
-# glu_2d checks of the TMA + wgmma variant: every decode and prefill row
-# count the engine forms (M = 65 crosses a warpgroup boundary), a ragged K
-# and N (TMA's out-of-bounds fill), and N = 3001, which TMA cannot address
+# glu_2d checks of the TMA variants (bf16 tma_wgmma, f32 tma_f32): every
+# decode and prefill row count the engine forms (M = 65 crosses a
+# warpgroup boundary and tma_f32's 64-row tile), a ragged K and N (TMA's
+# out-of-bounds fill), and N = 3001, which TMA cannot address at either
+# type (wmma, simt_f32)
 GLU_TMA_ROWS = (1, 2, 64, 65, 128, 256, 512, 1000, 1024)
 GLU_RAGGED = ((2, 1000, 3000), (65, 1000, 3000))
-GLU_WMMA_CASE = (3, 1024, 3001)
+GLU_UNADDRESSABLE = (3, 1024, 3001)
+GLU_VARIANT_OF = {"bfloat16": ("tma_wgmma", "wmma"),
+                  "float32": ("tma_f32", "simt_f32")}
 
 SLOTS, MAX_PROMPT, MAX_LEN, CHUNK = 2, 128, 160, 8
 # decode steps a trace's engine takes a chunk (its profiled chunk and its
@@ -317,6 +329,13 @@ TRAIN_ROWS = TRAIN_BATCH * TRAIN_SEQ
 TRAIN_RUNS = (("none", 5, 1), ("block", 2, 2))
 # decode, prefill, 2 x prefill, a training step
 ROWS_TIMED = (SLOTS, MAX_PROMPT, GLU_PREFILL_MAX, TRAIN_ROWS)
+# the f32 glu_2d (tma_f32) timed at qwen3-0.6b's full-width FFN (K, N) at
+# every ROWS_TIMED row count, cr_spline, beside its plain version and two
+# f32 cuBLAS GEMMs (TF32 off); what it is designed to reach (not gates):
+# no slower than those GEMMs at every f32 shape, and at least half of the
+# bound at the unsharded decode shape
+GLU_F32_TIMED = tuple((rows, 1024, 3072) for rows in ROWS_TIMED)
+AIM_F32_DECODE_SHARE = 0.5
 GRAD_ROWS = (TRAIN_ROWS, 1000)      # kernel gradient checks: train + ragged
 TRAIN_F32_BATCH, TRAIN_F32_SEQ = 1, 32    # train_f32_vs_cpu
 PROMPT_LENS = (17, 40, 64, 100)
@@ -570,6 +589,24 @@ def device_events(fn, iters: int):
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
+FLUSH_NAMES: set = set()
+
+
+def flush_kernel_names(flush) -> set:
+    """The names of the device kernels of ``flush.zero_()``, from a trace
+    of the flush alone, taken again (at most SESSIONS times) while the
+    trace comes back empty, and kept once found. A lost trace left the set
+    empty and every ``device_ms`` counted the flush (~20 us for 64 MB) into
+    the call's time: seen in whole-script runs on an H100, where a decode
+    glu_2d read 0.029-0.035 ms against 0.010-0.016 ms in other runs."""
+    global FLUSH_NAMES
+    for _ in range(SESSIONS):
+        if FLUSH_NAMES:
+            break
+        FLUSH_NAMES = {n for n, _ in device_events(flush.zero_, 3)}
+    return FLUSH_NAMES
+
+
 def device_ms(fn, flush, iters: int = 30, outliers: bool = False):
     """(ms, retakes): the mean device time of one call, the sum of its
     kernels' (and copies') durations in a profiler trace, L2 flushed
@@ -579,8 +616,11 @@ def device_ms(fn, flush, iters: int = 30, outliers: bool = False):
     ``outliers`` (the copy yardstick only, whose lone-copy traces were seen
     to hold one event 16x the rest) so is a trace whose longest event
     lasts over 5x the median. At most SESSIONS traces; ms is None if none
-    passed."""
-    flush_names = {n for n, _ in device_events(flush.zero_, 3)}
+    passed, or if no trace of the flush alone held its kernels (then
+    nothing could tell them from the call's)."""
+    flush_names = flush_kernel_names(flush)
+    if not flush_names:
+        return None, SESSIONS
     for retakes in range(SESSIONS):
         evs = device_events(lambda: (flush.zero_(), fn()), iters)
         own = [us for n, us in evs if n not in flush_names]
@@ -712,28 +752,29 @@ def phase_kernel_checks(torch, epi, dev):
         emit({"phase": "kernel_check", "kernel": "glu_2d", "scheme": scheme,
               "act": "silu", "max_abs_err": errs})
 
-    # the TMA + wgmma variant at every row count, ragged K and N, and the
-    # wmma variant, for every scheme and epilogue; each launch repeated
-    # for bitwise determinism
-    for scheme in SCHEMES:
-        for act in acts_of(epi, scheme):
-            spec, p = scheme_spec(torch, epi, scheme, act, dev)
-            errs, variants = {}, {}
-            cases = [(M, K, N) for M in GLU_TMA_ROWS] + list(GLU_RAGGED)
-            for M_, K_, N_ in cases + [GLU_WMMA_CASE]:
-                variant = "wmma" if (M_, K_, N_) == GLU_WMMA_CASE \
-                    else "tma_wgmma"
-                key = f"{[M_, K_, N_]}"
-                errs[key] = check_glu_variant(
-                    torch, epi, spec, p, act,
-                    *glu_operands(torch, gen, dev, M_, K_, N_,
-                                  torch.bfloat16), variant)
-                variants[key] = variant
-            worst["glu_2d", scheme] = max(worst["glu_2d", scheme],
-                                          *errs.values())
-            emit({"phase": "kernel_check_glu_variants", "scheme": scheme,
-                  "act": act, "dtype": "bfloat16", "deterministic": True,
-                  "variant": variants, "max_abs_err": errs})
+    # each type's TMA variant at every row count, ragged K and N, and its
+    # variant for operands TMA cannot address, for every scheme and
+    # epilogue; each launch repeated for bitwise determinism
+    cases = [(M, K, N) for M in GLU_TMA_ROWS] + list(GLU_RAGGED)
+    for dtype, (tma, other) in GLU_VARIANT_OF.items():
+        dt = getattr(torch, dtype)
+        for scheme in SCHEMES:
+            for act in acts_of(epi, scheme):
+                spec, p = scheme_spec(torch, epi, scheme, act, dev)
+                errs, variants = {}, {}
+                for shape in cases + [GLU_UNADDRESSABLE]:
+                    variant = other if shape == GLU_UNADDRESSABLE else tma
+                    key = f"{list(shape)}"
+                    errs[key] = check_glu_variant(
+                        torch, epi, spec, p, act,
+                        *glu_operands(torch, gen, dev, *shape, dt), variant)
+                    variants[key] = variant
+                worst["glu_2d", scheme] = max(worst["glu_2d", scheme],
+                                              *errs.values())
+                emit({"phase": "kernel_check_glu_variants",
+                      "scheme": scheme, "act": act, "dtype": dtype,
+                      "deterministic": True, "variant": variants,
+                      "max_abs_err": errs})
 
     # every float geometry the DSE sweeps, both kernels, f32 and bf16
     for scheme, geom in DSE_GEOMS:
@@ -977,7 +1018,9 @@ def phase_kernel_times(torch, epi, dev, flush, arch_lines):
     rows; elementwise_2d beside a copy of the same bytes; then the archs'
     shapes (``arch_time_cases``). All per-call
     event times are taken before the first profiler session: a profiled
-    process keeps paying per-launch tracing costs afterwards."""
+    process keeps paying per-launch tracing costs afterwards. main() has
+    turned TF32 off, so the f32 library yardstick is two full f32 GEMMs,
+    as the f32 kernel never uses TF32."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     K, N = 1024, 3072
@@ -1073,8 +1116,9 @@ def arch_time_cases(torch, epi, dev, gen, arch_lines):
     """phase_kernel_times' cases at the archs' shapes, under cr_spline (the
     scheme they serve): of each arch run's launches (``kernel_shapes`` of
     its serve line), for each kernel, type and epilogue, the decode shape
-    (fewest rows) and the largest, and glu_2d at TRAIN_GLU_TIMED; glu_2d
-    beside two torch.matmul calls, elementwise_2d beside a copy. Keyed
+    (fewest rows) and the largest, glu_2d at TRAIN_GLU_TIMED and the f32
+    glu_2d at GLU_F32_TIMED; glu_2d beside two torch.matmul calls,
+    elementwise_2d beside a copy. Keyed
     (kernel, "cr_spline", "MxKxN" or "RxC"), the name suffixed
     ":<dtype>:<act>" unless bf16 silu."""
     picked = {}
@@ -1088,6 +1132,9 @@ def arch_time_cases(torch, epi, dev, gen, arch_lines):
             picked.setdefault((kernel, got[-1], dt, act), "prefill")
     for shape in TRAIN_GLU_TIMED:
         picked.setdefault(("glu_2d", shape, "bfloat16", "silu"), "train")
+    for shape in GLU_F32_TIMED:
+        picked.setdefault(("glu_2d", shape, "float32", "silu"), {
+            SLOTS: "decode", TRAIN_ROWS: "train"}.get(shape[0], "prefill"))
     cases = {}
     for (kernel, shape, dt, act), where in sorted(picked.items()):
         name = "x".join(map(str, shape))
@@ -1146,6 +1193,44 @@ def elementwise_aims(timings) -> None:
           AIM_DECODE_SPREAD, "spread_met": spread <= AIM_DECODE_SPREAD})
 
 
+def f32_glu_variants(epi, before, block) -> None:
+    """The glu_2d launches of an f32 block (phase 5: the card side of every
+    f32 comparison with the CPU) since ``before``, by variant: all on
+    tma_f32, whose operands the f32 path always gives TMA-addressable."""
+    got = {v: epi.GLU_VARIANTS[v] - before[v] for v in before}
+    emit({"phase": "f32_glu_variants", "block": block, "glu_variants": got})
+    assert got["tma_f32"] > 0 and got["tma_f32"] == sum(got.values()), got
+
+
+def glu_f32_aims(timings, seconds, tf32) -> None:
+    """The f32 glu_2d's design aims, from this run's timings of every f32
+    glu_2d shape (GLU_F32_TIMED and the archs' f32 launches): ``ms`` over
+    ``library_ms`` (two f32 cuBLAS GEMMs; aim: at most 1; ``library_tf32``
+    is the TF32 setting they ran under, which main() turns off) and the
+    share of the bound (``bound_ms`` / ``ms``; aim at the unsharded
+    decode shape: AIM_F32_DECODE_SHARE). Information, not a gate. Also
+    the kernel-timing phase's seconds."""
+    rows = {}
+    for key, t in timings.items():
+        if key[0] != "glu_2d" or t["dtype"] != "float32":
+            continue
+        rows["x".join(map(str, t["shape"]))] = {
+            "variant": t["variant"], "ms": t["ms"],
+            "library_ms": t["library_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "ms_over_library_ms": t["ms"] / t["library_ms"],
+            "bound_share": t["bound_ms"] / t["ms"],
+            "library_met": t["ms"] <= t["library_ms"]}
+    decode = rows.get("x".join(map(str, GLU_F32_TIMED[0])))
+    emit({"phase": "glu_f32_aims", "library_tf32": tf32, "shapes": rows,
+          "aim_decode_bound_share": AIM_F32_DECODE_SHARE,
+          "decode_share_met": bool(decode) and decode["bound_share"]
+          >= AIM_F32_DECODE_SHARE,
+          "library_met_everywhere": all(r["library_met"]
+                                        for r in rows.values()),
+          "kernel_times_s": seconds})
+
+
 def serve(torch, cfg, params, prompts, dev, max_new=MAX_NEW, mesh=None,
           **ecfg):
     from repro_torch.serve import EngineConfig, ServeEngine
@@ -1168,7 +1253,7 @@ def drive(torch, epi, cfg, params, prompts, dev, mesh=None, **ecfg):
     launch counts zeroed just before and read just after. Each kernel must launch exactly launches_per_forward(cfg)
     x forwards times (forwards: prefill batches + prefill chunks + decode
     steps, from the run's EngineStats), every glu_2d launch on its compute
-    type's variant (tma_wgmma at bf16, simt_f32 at f32); every request
+    type's variant (tma_wgmma at bf16, tma_f32 at f32); every request
     completes with MAX_NEW tokens and every page comes back. Each launch's
     shape goes into SERVED_SHAPES. Returns a Served."""
     zero_launches(epi)
@@ -1181,7 +1266,7 @@ def drive(torch, epi, cfg, params, prompts, dev, mesh=None, **ecfg):
     forwards = st.prefill_batches + st.prefill_chunks + st.decode_steps
     want = {k: n * forwards for k, n in launches_per_forward(cfg).items()}
     assert launches == want, (cfg.name, launches, want, forwards)
-    variant = "tma_wgmma" if cfg.compute_dtype == "bfloat16" else "simt_f32"
+    variant = GLU_VARIANT_OF[cfg.compute_dtype][0]
     assert variants == {v: launches["glu_2d"] if v == variant else 0
                         for v in variants}, (variants, launches)
     assert len(done) == len(prompts), done
@@ -1462,8 +1547,9 @@ def phase_train(torch, epi, name, cfg, weights, dev, card, runs=TRAIN_RUNS,
     exactly launches_per_forward(cfg) x forwards a step x steps times
     (a step is one forward without remat and two under "block", whose
     checkpoint reruns each block's forward in the backward; the
-    recompute backward of the kernels launches none), every bf16 glu_2d
-    launch on tma_wgmma; every loss finite, nothing skipped. ``hyper``
+    recompute backward of the kernels launches none), every glu_2d
+    launch on its type's TMA variant (bf16 tma_wgmma, f32 tma_f32); every
+    loss finite, nothing skipped. ``hyper``
     adds TrainHyper fields (``donate`` for a model whose state fills the
     card: then the steps update ``weights``' tensors in place). Then one
     more step under CUDA's sync debug mode must make no host sync.
@@ -1511,9 +1597,9 @@ def phase_train(torch, epi, name, cfg, weights, dev, card, runs=TRAIN_RUNS,
                 [(r.loss, r.skipped) for r in recs]
             want = {k: n * fwd * n_steps for k, n in per_fwd.items()}
             assert launches == want, (name, remat, launches, want)
-            if launches["glu_2d"]:
-                assert variants == {"tma_wgmma": launches["glu_2d"],
-                                    "wmma": 0, "simt_f32": 0}, variants
+            tma = GLU_VARIANT_OF[cfg.compute_dtype][0]
+            assert variants == {v: launches["glu_2d"] if v == tma else 0
+                                for v in variants}, variants
             walls = [r.wall_s * 1e3 for r in recs]
             steady = statistics.median(walls[1:] if len(walls) > 1
                                        else walls)
@@ -3179,9 +3265,9 @@ def phase_train_sharded(torch, registry, card, ranks):
     skipped; loss and gnorm the same bits on every rank; each rank's
     launches exactly ``launches_per_forward`` x steps (one forward a step:
     no remat), every glu_2d launch on its type's variant (bf16
-    ``tma_wgmma``); f32: loss and gnorm within TRAIN_SHARDED_SCALAR_TOL
-    of the one-process step's, every gradient leaf within
-    TRAIN_SHARDED_GRAD_TOL, every leaf's update within
+    ``tma_wgmma``, f32 ``tma_f32``); f32: loss and gnorm within
+    TRAIN_SHARDED_SCALAR_TOL of the one-process step's, every gradient
+    leaf within TRAIN_SHARDED_GRAD_TOL, every leaf's update within
     TRAIN_SHARDED_UPDATE_TOL (see there). Host syncs are printed,
     not gated (gloo waits once a collective). Each line carries
     ``kernel_shapes`` and ``launches`` (rank 0's) as serve lines do, so
@@ -3200,7 +3286,7 @@ def phase_train_sharded(torch, registry, card, ranks):
                      else (TRAIN_BATCH, TRAIN_SEQ))
         per_fwd = launches_per_forward(cfg)
         want = {k: n * steps for k, n in per_fwd.items()}
-        variant = "simt_f32" if f32 else "tma_wgmma"
+        variant = GLU_VARIANT_OF[dtype or "bfloat16"][0]
         walls = r0["step_wall_ms"]
         # the first step warms up; a bf16 run's last ran in sync debug mode
         steady = walls[0] if f32 else statistics.median(walls[1:-1])
@@ -4016,8 +4102,11 @@ def main() -> int:
 
     # 4. kernel timings, then where a decode step's time goes
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    t_times = time.perf_counter()
     timings = phase_kernel_times(torch, epi, dev, flush, arch_lines)
     elementwise_aims(timings)
+    glu_f32_aims(timings, time.perf_counter() - t_times,
+                 torch.backends.cuda.matmul.allow_tf32)
     for name, _, _, cfg in deployments:
         for cache, key in (("paged", "line"), ("slot", "slot_line")):
             phase_trace(torch, name, cfg, served[name]["params"], prompts,
@@ -4043,6 +4132,7 @@ def main() -> int:
     release(torch)
 
     # 5. f32 prefill logits: card (kernels) vs CPU (plain versions)
+    f32_before = dict(epi.GLU_VARIANTS)
     tol = 1e-4
     weights_cpu = _tree_to(weights, "cpu")
     for name, _, _, cfg in deployments:
@@ -4088,6 +4178,7 @@ def main() -> int:
     phase_arch_f32_vs_cpu(torch, np, epi, registry, dev, card)
     # each arch train run's loss and gradient at f32, card against CPU
     phase_train_arch_f32_vs_cpu(torch, epi, ops, registry, dev, card)
+    f32_glu_variants(epi, f32_before, "f32_vs_cpu")
 
     # 6. the kernels line: one entry per (kernel, scheme), its launches on
     #    its own deployment's run, its timings at the decode shape (the

@@ -3,17 +3,21 @@
 // src/repro_torch/kernels/_build.py builds with nvcc and loads with ctypes:
 //
 //   repro_glu_2d  <- src/repro/kernels/epilogue.py:glu_2d (_glu_kernel), in
-//                    three variants the caller names: a TMA + wgmma kernel
+//                    four variants the caller names: a TMA + wgmma kernel
 //                    for bf16 (the served path), a wmma kernel for bf16
-//                    operands TMA cannot address, and an IEEE f32 SIMT
-//                    kernel
+//                    operands TMA cannot address, a TMA + cluster IEEE f32
+//                    kernel for f32 (the f32 path), and an IEEE f32 SIMT
+//                    kernel for f32 operands TMA cannot address
 //
 // The epilogue (approximant.cuh) runs in f32, in the plain PyTorch
 // version's operation order. The scheme is a runtime switch, uniform
 // across the grid, not a template parameter: the instantiations (epilogue
 // x variant x tile) stay as many as with one scheme, and so does the build
-// time. elementwise.cu holds the other kernel; each source is compiled on
-// its own, in parallel.
+// time. elementwise.cu holds the other kernel. The build compiles this file
+// as one unit per epilogue (-DREPRO_GLU_PART=e, kernels/_build.py
+// GLU_PARTS), in parallel with each other and with elementwise.cu: unit e
+// instantiates the kernels of epilogue e only, and unit 0 also holds the
+// entry points. Without the define the file is one whole unit.
 //
 // Each entry point launches on the caller's stream, does not synchronise,
 // allocates nothing, and returns cudaGetLastError() so the Python wrapper
@@ -28,10 +32,40 @@
 
 #include "approximant.cuh"
 
+#ifdef REPRO_GLU_PART
+#define GLU_WHOLE 0
+#else
+#define GLU_WHOLE 1
+#define REPRO_GLU_PART 0
+#endif
+// whether this unit holds epilogue e's kernels (e: approximant.cuh EPI_*)
+#define GLU_HOLDS(e) (GLU_WHOLE || REPRO_GLU_PART == (e))
+#if defined(REPRO_GLU_PHASES) && !GLU_WHOLE
+#error "the phase stamps' buffer is one unit's own: build the file whole"
+#endif
+
+// One glu_2d launch, as it passes from the entry point to the unit that
+// holds its epilogue's kernels (approximant.cuh's Table is each unit's own).
+namespace repro_glu {
+struct Launch {
+  const void *x, *wg, *wu, *params;
+  void* out;
+  int M, N, K, scheme, p_rows, p_cols;
+  float inv_period, x_max, saturation;
+  int variant, split;
+  cudaStream_t stream;
+};
+cudaError_t launch_tanh(const Launch& a);
+cudaError_t launch_sigmoid(const Launch& a);
+cudaError_t launch_silu(const Launch& a);
+cudaError_t launch_gelu(const Launch& a);
+cudaError_t launch_softplus(const Launch& a);
+}  // namespace repro_glu
+
 namespace {
 
 // kernels/epilogue.py _GLU_VARIANT_IDS
-enum { GLU_WMMA = 0, GLU_TMA_WGMMA = 1, GLU_SIMT_F32 = 2 };
+enum { GLU_WMMA = 0, GLU_TMA_WGMMA = 1, GLU_SIMT_F32 = 2, GLU_TMA_F32 = 3 };
 
 // ---------------------------------------------------------------------------
 // glu_2d
@@ -50,7 +84,7 @@ enum { GLU_WMMA = 0, GLU_TMA_WGMMA = 1, GLU_SIMT_F32 = 2 };
 // fusion. The TPU's sequential K grid axis and its VMEM scratch have no
 // counterpart: nothing carries over between blocks.
 //
-// Three variants, chosen by the Python wrapper (kernels/epilogue.py
+// Four variants, chosen by the Python wrapper (kernels/epilogue.py
 // _glu_variant) and refused here when they do not fit the operands:
 //
 //   tma_wgmma  bf16, every operand addressable by TMA (16-byte aligned,
@@ -60,9 +94,14 @@ enum { GLU_WMMA = 0, GLU_TMA_WGMMA = 1, GLU_SIMT_F32 = 2 };
 //   wmma       bf16 operands TMA cannot address: one output tile per block,
 //              nvcuda::wmma 16x16x16 on plain zero-filled tile loads, no
 //              pipelining (the first slice's kernel, kept for these only).
-//   simt_f32   f32: an IEEE f32 SIMT path (FMA on CUDA cores, no TF32), the
-//              path of the f32-logits checks; TF32 would break their 1e-4
-//              gates.
+//   tma_f32    f32, every operand addressable by TMA (16-byte aligned, K
+//              and N multiples of 4): repro_glu_f32_tma_kernel below, IEEE
+//              f32 FMAs on the CUDA cores (no TF32: the f32 checks gate at
+//              1e-4, and one Q2.13 LSB of the unit is 1.22e-4). Every f32
+//              launch of the served and trained models takes it.
+//   simt_f32   f32 operands TMA cannot address: one output tile per block,
+//              the same IEEE f32 FMAs on plain zero-filled tile loads, no
+//              pipelining (the first slice's kernel, kept for these only).
 //
 // M, N and K are masked by zero-filled tile loads and a bounds-checked
 // store.
@@ -601,6 +640,320 @@ repro_glu_bf16_tma_kernel(const __grid_constant__ CUtensorMap tm_x,
   GLU_PHASE(7, threadIdx.x == 0);
 }
 
+// ---------------------------------------------------------------------------
+// glu_2d, variant tma_f32: repro_glu_f32_tma_kernel
+//
+// Replaces: src/repro/kernels/epilogue.py:289 glu_2d (_glu_kernel) for f32,
+// in IEEE f32 FMAs on the CUDA cores (no TF32, no 3xTF32).
+// Bound: at decode and at the tensor-parallel and sharded-train shards (M <=
+// 64) the 2*K*N*4 weight bytes (25.2 MB at K=1024, N=3072: 7.5 us at 3.35
+// TB/s); above that the 4*M*K*N FFMA operations at 67 TFLOP/s. The first
+// slice's kernel (simt_f32) walked all of K in each CTA, 16-32 rows a step,
+// with scalar loads waited on between two barriers and no load in flight
+// across steps, on 12-48 CTAs at decode: bound by latency, 1.6-11% of the
+// bound. What the design does about each part of that:
+//
+//   * One producer warp streams [BK x BN] f32 tiles of w_gate and w_up
+//     and the matching [BM x BK] tile of x by TMA through a ring of 4
+//     stages (one full and one empty mbarrier each), so every CTA keeps
+//     36-48 KB of loads in flight. TMA zero-fills boxes past the tensor's
+//     edge, which masks ragged M, N, K. No swizzle: consumers read weight
+//     rows along N in float4s, 8 or 16 threads over one 128 or 256-byte
+//     row, which is conflict-free.
+//   * K is split across a thread-block cluster of `split` CTAs (1-8,
+//     computed by kernels/epilogue.py _glu_f32_geometry), so the decode
+//     shapes run on 172-192 CTAs instead of 12-48. Each rank owns every
+//     split-th float4 group of the tile. After its K loop a rank pushes
+//     its partial gate and up sums of each group into the owner's receive
+//     buffer through distributed shared memory (stores, not loads: their
+//     latency is not waited on); after one cluster barrier each owner sums
+//     its groups from its own shared memory in rank order 0, 1, ..., so
+//     the result is deterministic, fires the epilogue once on the complete
+//     gate sum and stores. No CTA reads a peer's shared memory, so none
+//     waits at a second barrier before it leaves. At decode the receive
+//     buffer has shared memory of its own, so a rank pushes as soon as its
+//     K loop ends; the larger tiles reuse the ring and first wait until
+//     every rank has left its K loop.
+//   * Each CTA owns all M rows of its N tile up to 64 rows (above 64 the
+//     grid runs 64-row M tiles, which read the weights again from L2), so
+//     at decode and at the shards each weight byte is read from device
+//     memory once. A consumer thread keeps TM rows x 4 columns of f32 gate
+//     and of up sums in registers (64 at TM = 8); per four K rows it reads
+//     TM float4s of x (a row's four K values; threads of a warp share
+//     them) and per K row one float4 of each weight, then does 8*TM FFMAs,
+//     so the CUDA cores, not shared memory, bound the compute-bound tiles.
+//     The 64-row tile takes 16 K rows a stage, so an SM holds three of its
+//     CTAs (12 consumer warps), whose loads hide each other's latency.
+//   * At M <= 8 the tile is 32 columns wide and the 128 consumer threads
+//     also split each stage's K rows 8 ways (their partials summed in
+//     slice order in the ring before the push): narrow N tiles give the
+//     cluster split enough tiles to fill the card at N = 768 (qwen3 at
+//     TP 4) without a cluster above 8.
+//
+// Sums: each thread adds its K rows in order with fmaf (one rounding each);
+// slices, then ranks, add in fixed order; the epilogue (approximant.cuh)
+// runs once on the complete f32 gate sum, in the plain version's operation
+// order. The result is bitwise deterministic.
+// ---------------------------------------------------------------------------
+
+constexpr int F32_MAX_SPLIT = 8;      // the portable cluster size
+constexpr int F32_CONSUMERS = 128;    // four consumer warps
+constexpr int F32_THREADS = F32_CONSUMERS + 32;   // + one producer warp
+
+// One tile of tma_f32 (kernels/epilogue.py _F32_TILES mirrors it): a CTA
+// owns BM rows x BN columns of out and takes BK rows of K a stage through a
+// ring of STAGES; a consumer thread TM rows x 4 columns, over 1/KS of each
+// stage's K rows; the launch bounds let an SM hold MINB CTAs. OWN_RECV: the
+// partials' receive buffer has shared memory of its own, and the K slices'
+// partials are summed in the ring first; else (one slice) the receive
+// buffer reuses the ring, once every rank of the cluster has left its K
+// loop.
+template <int BM_, int BN_, int TM_, int BK_, int STAGES_, int MINB_, bool OWN_RECV_>
+struct F32Cfg {
+  static constexpr int BM = BM_, BN = BN_, TM = TM_, BK = BK_, STAGES = STAGES_;
+  static constexpr int MIN_BLOCKS = MINB_;
+  static constexpr bool OWN_RECV = OWN_RECV_;
+  static constexpr int CG = BN / 4;                       // float4 columns
+  static constexpr int RG = BM / TM;                      // row groups
+  static constexpr int KS = F32_CONSUMERS / (CG * RG);    // K slices
+  static constexpr int KPS = BK / KS;                     // K rows a slice
+  static constexpr int RED_LD = BN + 4;                   // a slice's partial row
+  static constexpr int W_FLOATS = BK * BN;
+  static constexpr int STAGE_FLOATS = 2 * W_FLOATS + BM * BK;
+  static constexpr int STAGE = STAGE_FLOATS * 4;
+  static constexpr int RING = STAGES * STAGE;
+  // receive buffer: one float4 of gate and of up per (source rank, group),
+  // a rank owning every split-th group of the tile
+  static constexpr int RECV_F4 = BM * CG + F32_MAX_SPLIT;
+  static constexpr int RECV = 2 * RECV_F4 * 16;
+  static constexpr int SMEM = RING + (OWN_RECV ? RECV : 0) + 1024;   // + alignment slack
+  static_assert(CG * RG * KS == F32_CONSUMERS, "threads cover the tile");
+  static_assert(KPS % 4 == 0, "a slice reads x in float4s along K");
+  static_assert(STAGE % 1024 == 0 && W_FLOATS * 4 % 1024 == 0, "TMA boxes aligned");
+  static_assert(OWN_RECV ? 2 * KS * BM * RED_LD * 4 <= RING : KS == 1 && RECV <= RING,
+                "partials fit the ring");
+  static_assert(MIN_BLOCKS * (SMEM + MAX_PARAMS * 4 + 16 * STAGES + 1024) <= SM_SMEM_BYTES,
+                "an SM holds MIN_BLOCKS CTAs");
+};
+
+__device__ __forceinline__ void fma4(float4& d, float a, const float4& b) {
+  d.x = fmaf(a, b.x, d.x);
+  d.y = fmaf(a, b.y, d.y);
+  d.z = fmaf(a, b.z, d.z);
+  d.w = fmaf(a, b.w, d.w);
+}
+
+__device__ __forceinline__ void add4(float4& d, const float4& b) {
+  d.x = __fadd_rn(d.x, b.x);
+  d.y = __fadd_rn(d.y, b.y);
+  d.z = __fadd_rn(d.z, b.z);
+  d.w = __fadd_rn(d.w, b.w);
+}
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+template <int EPI, class C>
+__global__ void __launch_bounds__(F32_THREADS, C::MIN_BLOCKS)
+repro_glu_f32_tma_kernel(const __grid_constant__ CUtensorMap tm_x,
+                         const __grid_constant__ CUtensorMap tm_g,
+                         const __grid_constant__ CUtensorMap tm_u, float* __restrict__ out,
+                         int M, int N, int K, Table tb) {
+  constexpr int BM = C::BM, BN = C::BN, TM = C::TM, BK = C::BK, STAGES = C::STAGES;
+  constexpr int PRODUCER = F32_CONSUMERS / 32;   // the producer's warp index
+  extern __shared__ uint8_t dsmem[];
+  __shared__ __align__(16) float s_par[MAX_PARAMS];
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
+  uint8_t* base = dsmem + ((1024 - (smem_u32(dsmem) & 1023)) & 1023);
+  float* ring = reinterpret_cast<float*>(base);
+  float4* recv_g = reinterpret_cast<float4*>(base + (C::OWN_RECV ? C::RING : 0));
+  float4* recv_u = recv_g + C::RECV_F4;
+
+  GLU_PHASE(0, threadIdx.x == 0);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int n0 = blockIdx.y * BN, m0 = blockIdx.z * BM;
+  const int kb_all = (K + BK - 1) / BK;
+  const int kb0 = rank * kb_all / split;
+  const int nkb = (rank + 1) * kb_all / split - kb0;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (warp == PRODUCER && lane == 0) {
+    asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(&tm_g)) : "memory");
+    asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(&tm_u)) : "memory");
+    asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(&tm_x)) : "memory");
+  }
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], F32_CONSUMERS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  // with a receive buffer of its own, this CTA is ready for its peers'
+  // partials from here on: they wait for that below, after their K loop
+  if constexpr (C::OWN_RECV) cluster_arrive_relaxed();
+
+  // a consumer's place: column group, row group, K slice
+  const int cgi = threadIdx.x % C::CG;
+  const int rg = (threadIdx.x / C::CG) % C::RG;
+  const int slice = threadIdx.x / (C::CG * C::RG);
+  float4 acc_g[TM], acc_u[TM];
+#pragma unroll
+  for (int r = 0; r < TM; ++r) acc_g[r] = acc_u[r] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+
+  if (warp == PRODUCER) {
+    // producer: one thread keeps the ring full
+    if (lane == 0) {
+      for (int i = 0; i < nkb; ++i) {
+        const int s = i % STAGES;
+        if (i >= STAGES) mbar_wait(&empty[s], ((i / STAGES) - 1) & 1);
+        float* st = ring + s * C::STAGE_FLOATS;
+        const int k0 = (kb0 + i) * BK;
+        mbar_expect_tx(&full[s], C::STAGE);
+        tma_load_2d(st, &tm_g, n0, k0, &full[s]);
+        tma_load_2d(st + C::W_FLOATS, &tm_u, n0, k0, &full[s]);
+        tma_load_2d(st + 2 * C::W_FLOATS, &tm_x, k0, m0, &full[s]);
+      }
+      GLU_PHASE(1, true);
+    }
+    __syncwarp();
+    // the scheme params, copied while the loads are in flight; read after
+    // the cluster barrier below the K loop
+    for (int i = lane; i < tb.rows * tb.cols; i += 32) s_par[i] = tb.p[i];
+  } else {
+    for (int i = 0; i < nkb; ++i) {
+      const int s = i % STAGES;
+      mbar_wait(&full[s], (i / STAGES) & 1);
+      GLU_PHASE(2, i == 0 && threadIdx.x == 0);
+      const float* sg = ring + s * C::STAGE_FLOATS;   // [BK][BN]
+      const float* su = sg + C::W_FLOATS;             // [BK][BN]
+      const float* sx = sg + 2 * C::W_FLOATS;         // [BM][BK]
+#pragma unroll
+      for (int k4 = 0; k4 < C::KPS; k4 += 4) {
+        const int kk = slice * C::KPS + k4;
+        float4 xv[TM];
+#pragma unroll
+        for (int r = 0; r < TM; ++r)
+          xv[r] = *reinterpret_cast<const float4*>(sx + (rg * TM + r) * BK + kk);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float4 g = *reinterpret_cast<const float4*>(sg + (kk + j) * BN + cgi * 4);
+          const float4 u = *reinterpret_cast<const float4*>(su + (kk + j) * BN + cgi * 4);
+#pragma unroll
+          for (int r = 0; r < TM; ++r) {
+            const float a = j == 0 ? xv[r].x : j == 1 ? xv[r].y : j == 2 ? xv[r].z : xv[r].w;
+            fma4(acc_g[r], a, g);
+            fma4(acc_u[r], a, u);
+          }
+        }
+      }
+      __syncwarp();   // every lane of the warp has read the stage
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+  }
+  GLU_PHASE(3, threadIdx.x == 0);
+  const int mvalid = min(BM, M - m0);
+  const int slots = (BM * C::CG + split - 1) / split;   // groups a rank owns
+  if constexpr (C::KS > 1) {
+    // park each K slice's partials in the ring: red[slice][m][n]
+    __syncthreads();   // every consumer has read its last stage
+    if (warp < PRODUCER) {
+#pragma unroll
+      for (int r = 0; r < TM; ++r) {
+        const int off = (slice * BM + rg * TM + r) * C::RED_LD + cgi * 4;
+        *reinterpret_cast<float4*>(ring + off) = acc_g[r];
+        *reinterpret_cast<float4*>(ring + C::KS * BM * C::RED_LD + off) = acc_u[r];
+      }
+    }
+    __syncthreads();
+  }
+  // Wait until every destination can take the partials: with a receive
+  // buffer of its own, until every rank has started (the arrive above);
+  // else until every rank has left its K loop and its ring is free.
+  if constexpr (!C::OWN_RECV) cluster_arrive();
+  cluster_wait();
+  GLU_PHASE(4, threadIdx.x == 0);
+
+  // Push: group idx (row m, float4 column q) belongs to rank idx % split;
+  // each rank stores its partial float4s of gate and up (its K slices
+  // summed in slice order) into the owner's buffer at [rank][idx / split],
+  // through distributed shared memory for the other ranks. Rows past M
+  // are skipped.
+  auto push = [&](int idx, const float4& g, const float4& u) {
+    const int owner = idx % split, off = rank * slots + idx / split;
+    (owner == rank ? recv_g : cluster.map_shared_rank(recv_g, owner))[off] = g;
+    (owner == rank ? recv_u : cluster.map_shared_rank(recv_u, owner))[off] = u;
+  };
+  if constexpr (C::KS > 1) {
+    const float* red_g = ring;
+    const float* red_u = ring + C::KS * BM * C::RED_LD;
+    for (int idx = threadIdx.x; idx < mvalid * C::CG; idx += F32_THREADS) {
+      const int off = (idx / C::CG) * C::RED_LD + (idx % C::CG) * 4;
+      float4 pg[C::KS], pu[C::KS];
+#pragma unroll
+      for (int sl = 0; sl < C::KS; ++sl) {
+        pg[sl] = *reinterpret_cast<const float4*>(red_g + sl * BM * C::RED_LD + off);
+        pu[sl] = *reinterpret_cast<const float4*>(red_u + sl * BM * C::RED_LD + off);
+      }
+#pragma unroll
+      for (int sl = 1; sl < C::KS; ++sl) {   // slice order
+        add4(pg[0], pg[sl]);
+        add4(pu[0], pu[sl]);
+      }
+      push(idx, pg[0], pu[0]);
+    }
+  } else if (warp < PRODUCER) {
+#pragma unroll
+    for (int r = 0; r < TM; ++r)
+      if (rg * TM + r < mvalid) push((rg * TM + r) * C::CG + cgi, acc_g[r], acc_u[r]);
+  }
+  cluster.sync();   // every rank's partials have landed and are visible
+  GLU_PHASE(5, threadIdx.x == 0);
+  tb.p = s_par;
+
+  // Each rank reduces the groups it owns from its own buffer, the ranks
+  // always in order 0, 1, ..., so the sums are deterministic (all loads
+  // issued before the adds). No peer touches this CTA's shared memory from
+  // here on, so it leaves without another barrier.
+  for (int slot = threadIdx.x; slot < slots; slot += F32_THREADS) {
+    const int idx = slot * split + rank;
+    const int m = idx / C::CG, n = n0 + (idx % C::CG) * 4;
+    if (m >= mvalid || n >= N) continue;   // N % 4 == 0: a group is all in or all out
+    float4 pg[F32_MAX_SPLIT], pu[F32_MAX_SPLIT];
+#pragma unroll
+    for (int r = 0; r < F32_MAX_SPLIT; ++r)
+      if (r < split) {
+        pg[r] = recv_g[r * slots + slot];
+        pu[r] = recv_u[r * slots + slot];
+      }
+#pragma unroll
+    for (int r = 1; r < F32_MAX_SPLIT; ++r)
+      if (r < split) {
+        add4(pg[0], pg[r]);
+        add4(pu[0], pu[r]);
+      }
+    float4 o;
+    o.x = __fmul_rn(epilogue<EPI>(pg[0].x, tb), pu[0].x);
+    o.y = __fmul_rn(epilogue<EPI>(pg[0].y, tb), pu[0].y);
+    o.z = __fmul_rn(epilogue<EPI>(pg[0].z, tb), pu[0].z);
+    o.w = __fmul_rn(epilogue<EPI>(pg[0].w, tb), pu[0].w);
+    *reinterpret_cast<float4*>(out + (long long)(m0 + m) * N + n) = o;
+  }
+  GLU_PHASE(6, threadIdx.x == 0);
+  GLU_PHASE(7, threadIdx.x == 0);
+}
+
 // cuTensorMapEncodeTiled from the driver, through the runtime's entry-point
 // query: no -lcuda at link time.
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -626,18 +979,20 @@ EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A row-major bf16 [rows, cols] matrix as a 2-D tensor map with
-// [box_rows, box_cols] boxes, 128-byte swizzle, zeros outside the matrix.
+// A row-major [rows, cols] matrix as a 2-D tensor map with [box_rows,
+// box_cols] boxes, zeros outside the matrix: bf16 with the 128-byte swizzle
+// wgmma reads, or f32 unswizzled (tma_f32's threads read rows along N).
 bool encode_2d(CUtensorMap* map, const void* base, int rows, int cols, int box_rows,
-               int box_cols) {
+               int box_cols, bool f32 = false) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * (f32 ? 4 : 2)};
   const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t estr[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
-            box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return fn(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+            const_cast<void*>(base), dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            f32 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
          CUDA_SUCCESS;
 }
@@ -693,6 +1048,49 @@ cudaError_t launch_glu_tma(const void* x, const void* wg, const void* wu, void* 
   return cudaLaunchKernelExC(&cfg, kern, args);
 }
 
+// tma_f32's tiles by M: decode (up to 8 rows), up to 32 rows, and 64-row M
+// tiles above; PERF.md names the alternatives tried against them on an
+// H100.
+using F32Decode = F32Cfg<8, 32, 4, 32, 4, 3, true>;
+using F32Rows32 = F32Cfg<32, 64, 4, 16, 4, 3, false>;
+using F32Rows64 = F32Cfg<64, 64, 8, 16, 4, 3, false>;
+
+// The f32 variant's launch. The split (the cluster's size) comes from the
+// caller (kernels/epilogue.py _glu_f32_geometry): 1-8 CTAs, each with at
+// least one K block, or the launch is refused.
+template <int EPI, class C>
+cudaError_t launch_glu_f32_tma(const void* x, const void* wg, const void* wu, void* out, int M,
+                               int N, int K, int split, const Table& tb, cudaStream_t s) {
+  constexpr int BM = C::BM, BN = C::BN, BK = C::BK;
+  if (split < 1 || split > F32_MAX_SPLIT || split > (K + BK - 1) / BK)
+    return cudaErrorInvalidValue;
+  const void* kern = reinterpret_cast<const void*>(&repro_glu_f32_tma_kernel<EPI, C>);
+  static const cudaError_t opt_in =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (opt_in != cudaSuccess) return opt_in;
+  CUtensorMap tm_x, tm_g, tm_u;
+  if (!encode_2d(&tm_x, x, M, K, BM, BK, true) ||
+      !encode_2d(&tm_g, wg, K, N, BK, BN, true) ||
+      !encode_2d(&tm_u, wu, K, N, BK, BN, true))
+    return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(split, (N + BN - 1) / BN, (M + BM - 1) / BM);
+  cfg.blockDim = dim3(F32_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = C::SMEM;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  float* o = static_cast<float*>(out);
+  Table t = tb;
+  void* args[] = {&tm_x, &tm_g, &tm_u, &o, &M, &N, &K, &t};
+  return cudaLaunchKernelExC(&cfg, kern, args);
+}
+
 // Whether TMA can address the operands: 16-byte aligned bases, row strides
 // (K and N bf16) multiples of 16 bytes.
 bool tma_addressable(const void* x, const void* wg, const void* wu, int N, int K) {
@@ -700,9 +1098,22 @@ bool tma_addressable(const void* x, const void* wg, const void* wu, int N, int K
          (uintptr_t)wu % 16 == 0;
 }
 
+// The same for f32 (K and N multiples of 4), and out 16-byte aligned for
+// tma_f32's float4 stores.
+bool tma_f32_addressable(const void* x, const void* wg, const void* wu, const void* out, int N,
+                         int K) {
+  return N % 4 == 0 && K % 4 == 0 && (uintptr_t)x % 16 == 0 && (uintptr_t)wg % 16 == 0 &&
+         (uintptr_t)wu % 16 == 0 && (uintptr_t)out % 16 == 0;
+}
+
 template <int EPI>
 cudaError_t launch_glu(const void* x, const void* wg, const void* wu, void* out, int M, int N,
-                       int K, int variant, const Table& tb, cudaStream_t s) {
+                       int K, int variant, int split, const Table& tb, cudaStream_t s) {
+  if (variant == GLU_TMA_F32) {
+    if (M <= 8) return launch_glu_f32_tma<EPI, F32Decode>(x, wg, wu, out, M, N, K, split, tb, s);
+    if (M <= 32) return launch_glu_f32_tma<EPI, F32Rows32>(x, wg, wu, out, M, N, K, split, tb, s);
+    return launch_glu_f32_tma<EPI, F32Rows64>(x, wg, wu, out, M, N, K, split, tb, s);
+  }
   if (variant == GLU_TMA_WGMMA) {
     if (M <= 16) return launch_glu_tma<EPI, 16, 1>(x, wg, wu, out, M, N, K, tb, s);
     if (M <= 64) return launch_glu_tma<EPI, 64, 1>(x, wg, wu, out, M, N, K, tb, s);
@@ -737,8 +1148,35 @@ cudaError_t launch_glu(const void* x, const void* wg, const void* wu, void* out,
   return cudaGetLastError();
 }
 
+template <int EPI>
+cudaError_t launch_epi(const repro_glu::Launch& a) {
+  const Table tb{static_cast<const float*>(a.params), a.scheme, a.p_rows, a.p_cols,
+                 a.inv_period, a.x_max, a.saturation};
+  return launch_glu<EPI>(a.x, a.wg, a.wu, a.out, a.M, a.N, a.K, a.variant, a.split, tb,
+                         a.stream);
+}
+
 }  // namespace
 
+namespace repro_glu {
+#if GLU_HOLDS(0)
+cudaError_t launch_tanh(const Launch& a) { return launch_epi<EPI_TANH>(a); }
+#endif
+#if GLU_HOLDS(1)
+cudaError_t launch_sigmoid(const Launch& a) { return launch_epi<EPI_SIGMOID>(a); }
+#endif
+#if GLU_HOLDS(2)
+cudaError_t launch_silu(const Launch& a) { return launch_epi<EPI_SILU>(a); }
+#endif
+#if GLU_HOLDS(3)
+cudaError_t launch_gelu(const Launch& a) { return launch_epi<EPI_GELU>(a); }
+#endif
+#if GLU_HOLDS(4)
+cudaError_t launch_softplus(const Launch& a) { return launch_epi<EPI_SOFTPLUS>(a); }
+#endif
+}  // namespace repro_glu
+
+#if GLU_HOLDS(0)
 #ifdef REPRO_GLU_PHASES
 // Copy the phase stamps of the last TMA launch (ctas x 8 u64) to host memory
 // and clear them.
@@ -755,27 +1193,34 @@ extern "C" int repro_glu_phases(void* dst, int ctas) {
 extern "C" int repro_glu_2d(const void* x, const void* w_gate, const void* w_up,
                             const void* params, void* out, int M, int N, int K, int scheme,
                             int p_rows, int p_cols, int epi, int dtype, float inv_period,
-                            float x_max, float saturation, int variant, void* stream) {
+                            float x_max, float saturation, int variant, int split,
+                            void* stream) {
   if (!params_ok(scheme, p_rows, p_cols, epi) || M < 1 || N < 1 || K < 1)
     return (int)cudaErrorInvalidValue;
   // the variant the caller names must fit the operands; nothing is retried
   const bool fits =
       (variant == GLU_SIMT_F32 && dtype == DT_F32) ||
+      (variant == GLU_TMA_F32 && dtype == DT_F32 &&
+       tma_f32_addressable(x, w_gate, w_up, out, N, K)) ||
       (variant == GLU_WMMA && dtype == DT_BF16) ||
       (variant == GLU_TMA_WGMMA && dtype == DT_BF16 && tma_addressable(x, w_gate, w_up, N, K));
   if (!fits) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Table tb{static_cast<const float*>(params), scheme, p_rows, p_cols, inv_period, x_max,
-                 saturation};
+  // tma_f32 takes its cluster's size from the caller (checked at its
+  // launch); the other variants take none
+  if (variant != GLU_TMA_F32 && split != 0) return (int)cudaErrorInvalidValue;
+  const repro_glu::Launch a{x, w_gate, w_up, params, out, M, N, K, scheme, p_rows, p_cols,
+                            inv_period, x_max, saturation, variant, split,
+                            static_cast<cudaStream_t>(stream)};
   cudaError_t rc;
   switch (epi) {
-    case EPI_TANH: rc = launch_glu<EPI_TANH>(x, w_gate, w_up, out, M, N, K, variant, tb, s); break;
-    case EPI_SIGMOID: rc = launch_glu<EPI_SIGMOID>(x, w_gate, w_up, out, M, N, K, variant, tb, s); break;
-    case EPI_SILU: rc = launch_glu<EPI_SILU>(x, w_gate, w_up, out, M, N, K, variant, tb, s); break;
-    case EPI_GELU: rc = launch_glu<EPI_GELU>(x, w_gate, w_up, out, M, N, K, variant, tb, s); break;
-    case EPI_SOFTPLUS: rc = launch_glu<EPI_SOFTPLUS>(x, w_gate, w_up, out, M, N, K, variant, tb, s); break;
+    case EPI_TANH: rc = repro_glu::launch_tanh(a); break;
+    case EPI_SIGMOID: rc = repro_glu::launch_sigmoid(a); break;
+    case EPI_SILU: rc = repro_glu::launch_silu(a); break;
+    case EPI_GELU: rc = repro_glu::launch_gelu(a); break;
+    case EPI_SOFTPLUS: rc = repro_glu::launch_softplus(a); break;
     default: return (int)cudaErrorInvalidValue;
   }
   if (rc != cudaSuccess) return (int)rc;
   return (int)cudaGetLastError();
 }
+#endif  // GLU_HOLDS(0)

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels of ``repro_torch/csrc``.
 
 At first use, ``nvcc`` compiles every ``csrc/*.cu`` source into an object,
-one process per source, all started together, and links the objects into
+one process per unit (``epilogue.cu`` is GLU_PARTS units, one per
+epilogue), all started together, and links the objects into
 one shared library with a plain C interface, cached under
 ``build/repro_torch/`` in the repository checkout and keyed by a hash of
 the sources (headers included) and flags, so an edited kernel is rebuilt
@@ -30,6 +31,13 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
+# epilogue.cu compiles as one unit per epilogue (-DREPRO_GLU_PART=e: the
+# kernels of approximant.cuh's epilogue e; unit 0 also holds the entry
+# points): its kernels are instantiated per epilogue, so each unit takes
+# about a fifth of the whole file's time. A build with ``extra`` flags (the
+# phase stamps, whose buffer is one unit's own) compiles it whole.
+GLU_PARTS = 5
+
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # entry point -> argtypes (see csrc/elementwise.cu, csrc/epilogue.cu)
 SIGNATURES = {
@@ -39,9 +47,9 @@ SIGNATURES = {
     "repro_elementwise_2d": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                              _F, _F, _F, _I, _I, _I, _P),
     # x, w_gate, w_up, params, out, M, N, K, scheme, p_rows, p_cols, epi,
-    # dtype, inv_period, x_max, saturation, variant, stream
+    # dtype, inv_period, x_max, saturation, variant, split, stream
     "repro_glu_2d": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                     _F, _F, _F, _I, _P),
+                     _F, _F, _F, _I, _I, _P),
 }
 
 
@@ -57,6 +65,17 @@ def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
+def units(extra: tuple[str, ...] = ()) -> list[tuple[Path, tuple[str, ...]]]:
+    """(source, its own nvcc flags) of every compilation unit."""
+    out = []
+    for cu in (s for s in sources() if s.suffix == ".cu"):
+        if cu.name == "epilogue.cu" and not extra:
+            out += [(cu, (f"-DREPRO_GLU_PART={e}",)) for e in range(GLU_PARTS)]
+        else:
+            out.append((cu, ()))
+    return out
+
+
 def _key(extra: tuple[str, ...]) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS + extra).encode())
     for src in sources():
@@ -68,22 +87,23 @@ def _key(extra: tuple[str, ...]) -> str:
 def build(extra: tuple[str, ...] = ()) -> Path:
     """Compile the sources (with ``extra`` nvcc flags, e.g. a ``-D`` of a
     diagnostic build) if this exact set has no library yet; returns the
-    library's path. Each ``.cu`` compiles in its own ``nvcc`` process, all
-    at once; the link waits for every one of them."""
+    library's path. Each unit (``units``) compiles in its own ``nvcc``
+    process, all at once; the link waits for every one of them."""
     out = BUILD_DIR / f"libepilogue_{_key(extra)}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     stem = f"{out.stem}.{os.getpid()}"
-    cus = [s for s in sources() if s.suffix == ".cu"]
-    objs = [BUILD_DIR / f"{stem}.{cu.stem}.o" for cu in cus]
+    todo = units(extra)
+    objs = [BUILD_DIR / f"{stem}.{cu.stem}.{i}.o"
+            for i, (cu, _) in enumerate(todo)]
     procs = [subprocess.Popen(
-        [_nvcc(), *NVCC_FLAGS, *extra, "-c", "-o", str(obj), str(cu)],
+        [_nvcc(), *NVCC_FLAGS, *extra, *own, "-c", "-o", str(obj), str(cu)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for cu, obj in zip(cus, objs)]
+        for (cu, own), obj in zip(todo, objs)]
     # communicate() waits for its process, so every nvcc has ended below
-    logs = [(cu.name, *proc.communicate(), proc.returncode)
-            for cu, proc in zip(cus, procs)]
+    logs = [(" ".join((cu.name, *own)), *proc.communicate(), proc.returncode)
+            for (cu, own), proc in zip(todo, procs)]
     try:
         failed = [f"{name} ({rc}):\n{so}\n{se}"
                   for name, so, se, rc in logs if rc != 0]

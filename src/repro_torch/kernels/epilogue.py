@@ -25,10 +25,12 @@ CUDA route's checks, then an empty output of the right shape, no launch.
 cost count (``COUNTER``, ``analysis/hlo_cost.py``) takes at the entry in
 place of whatever the route runs inside.
 ``_elementwise_geometry`` sets ``elementwise_2d``'s launch geometry by
-shape. ``LAUNCHES[name]`` counts the kernel's launches and nothing else;
+shape, ``_glu_f32_geometry`` the f32 ``glu_2d`` kernel's tile and K split.
+``LAUNCHES[name]`` counts the kernel's launches and nothing else;
 ``GLU_VARIANTS`` splits ``glu_2d``'s launches by the variant
 ``_glu_variant`` chose (TMA + wgmma for bf16, wmma for bf16 operands TMA
-cannot address, SIMT for f32). Both kernels carry every registered scheme
+cannot address, TMA + cluster FFMA for f32, SIMT for f32 operands TMA
+cannot address). Both kernels carry every registered scheme
 (``cr_spline``, ``pwl``, ``poly``, ``rational``), chosen per launch.
 """
 from __future__ import annotations
@@ -55,14 +57,23 @@ TableSpec = ApproxSpec
 LAUNCHES = {"elementwise_2d": 0, "glu_2d": 0}
 # glu_2d launches by variant (see _glu_variant); they sum to
 # LAUNCHES["glu_2d"]
-GLU_VARIANTS = {"tma_wgmma": 0, "wmma": 0, "simt_f32": 0}
+GLU_VARIANTS = {"tma_wgmma": 0, "wmma": 0, "tma_f32": 0, "simt_f32": 0}
 
 _DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
-_GLU_VARIANT_IDS = {"wmma": 0, "tma_wgmma": 1, "simt_f32": 2}  # csrc GLU_*
+_GLU_VARIANT_IDS = {"wmma": 0, "tma_wgmma": 1, "simt_f32": 2,
+                    "tma_f32": 3}  # csrc GLU_*
 _SCHEME_IDS = {"cr_spline": 0, "pwl": 1, "poly": 2, "rational": 3}
 _MAX_PARAMS = 2048    # csrc/approximant.cuh MAX_PARAMS: f32 params in shared memory
 _MAX_POLY_DEGREE = 7  # csrc/approximant.cuh MAX_POLY_COLS - 1
 _EW_THREADS = 128     # threads of an elementwise_2d block
+# tma_f32's tiles (csrc/epilogue.cu F32Decode, F32Rows32, F32Rows64, picked
+# by M in launch_glu): (most rows, tile rows, tile columns, K rows a stage,
+# CTAs an SM holds (MIN_BLOCKS), whether the K split fills every slot the
+# SMs hold or stops at one CTA for each SM); the largest cluster
+# (F32_MAX_SPLIT) and the H100 SXM's SMs (SM_COUNT)
+_F32_TILES = ((8, 8, 32, 32, 3, False), (32, 32, 64, 16, 3, False),
+              (None, 64, 64, 16, 3, True))
+_F32_MAX_SPLIT, _SM_COUNT = 8, 132
 
 # f32 operations of each epilogue's wiring around its one tanh unit
 # (csrc/approximant.cuh epi_arg + epi_out)
@@ -384,18 +395,52 @@ def _glu_variant(m: int, n: int, k: int, dtype, aligned: bool) -> str:
       "tma_wgmma"  bf16 that TMA can address: x, w_gate and w_up 16-byte
                    aligned (``aligned``) and both row strides multiples of
                    16 bytes (K % 8 == 0 for x, N % 8 == 0 for the weights);
-      "simt_f32"   float32 (IEEE f32, no TF32);
-      "wmma"       bf16 operands TMA cannot address.
+      "wmma"       bf16 operands TMA cannot address;
+      "tma_f32"    float32 that TMA can address: the same alignment, K % 4
+                   == 0 and N % 4 == 0 (IEEE f32 FMAs, no TF32);
+      "simt_f32"   float32 operands TMA cannot address (the same
+                   arithmetic, no pipelining).
 
-    ``m`` does not decide the variant; the TMA kernel picks its tile for
-    it."""
+    ``m`` does not decide the variant; the TMA kernels pick their tile for
+    it. The output is allocated by the wrapper, always aligned."""
     if dtype == torch.float32:
-        return "simt_f32"
+        return "tma_f32" if aligned and n % 4 == 0 and k % 4 == 0 \
+            else "simt_f32"
     if dtype != torch.bfloat16:
         raise TypeError(f"glu_2d kernel takes float32 or bfloat16, got {dtype}")
     if aligned and n % 8 == 0 and k % 8 == 0:
         return "tma_wgmma"
     return "wmma"
+
+
+def _glu_f32_geometry(m: int, n: int, k: int) -> tuple[int, int, int, int,
+                                                       int, int]:
+    """(tile rows, tile columns, K rows a block, N tiles, M tiles, split)
+    of one ``tma_f32`` launch: the tile csrc/epilogue.cu picks for ``m``
+    (``_F32_TILES``), and the cluster of ``split`` CTAs that share each
+    tile's kb K blocks; rank r of a cluster takes blocks [r * kb // split,
+    (r + 1) * kb // split).
+
+    The split doubles, up to a portable cluster of 8, while the CTAs stay
+    under the tile's target, every rank keeps at least one K block, and
+    all CTAs still fit on the card at once (``blocks`` an SM). The target
+    is one CTA for each SM for the tiles bound by bytes (decode, up to 32
+    rows: 172-192 CTAs at the decode shapes; more ranks cost more than
+    they stream, measured on an H100) and every slot the SMs hold for the
+    64-row tile, bound by FFMAs (a third CTA on an SM hides the latency
+    of the others' loads). The C side refuses a split past 8 or past the
+    K blocks, and the wrapper raises."""
+    bm, bn, bk, blocks, fill = next(t[1:] for t in _F32_TILES
+                                    if t[0] is None or m <= t[0])
+    slots = blocks * _SM_COUNT
+    target = slots if fill else _SM_COUNT
+    n_tiles, m_tiles = -(-n // bn), -(-m // bm)
+    tiles, kb = n_tiles * m_tiles, -(-k // bk)
+    split = 1
+    while (split < _F32_MAX_SPLIT and tiles * split < target
+           and kb >= 2 * split and tiles * 2 * split <= slots):
+        split *= 2
+    return bm, bn, bk, n_tiles, m_tiles, split
 
 
 def glu_2d(x, w_gate, w_up, params, *, spec: TableSpec, act: str = "silu",
@@ -440,9 +485,10 @@ def _glu_2d(x, w_gate, w_up, params, spec, act, lookup):
     from . import _build
     ptrs = (x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr())
     variant = _glu_variant(m, n, k, x.dtype, all(a % 16 == 0 for a in ptrs))
+    split = _glu_f32_geometry(m, n, k)[-1] if variant == "tma_f32" else 0
     rc = _build.library().repro_glu_2d(
         *ptrs, params.data_ptr(), out.data_ptr(), m, n, k, *args,
-        _GLU_VARIANT_IDS[variant], _raw_stream(x.device))
+        _GLU_VARIANT_IDS[variant], split, _raw_stream(x.device))
     _raise_on(rc, f"glu_2d ({variant})")
     LAUNCHES["glu_2d"] += 1
     GLU_VARIANTS[variant] += 1

@@ -204,7 +204,7 @@ def test_glu_variant_serving_shapes_take_tma_wgmma(m):
 
 
 @pytest.mark.parametrize("m,n,k,dtype,aligned,variant", [
-    (2, 3072, 1024, torch.float32, True, "simt_f32"),
+    (2, 3072, 1024, torch.float32, True, "tma_f32"),
     (256, 3072, 1024, torch.float32, False, "simt_f32"),
     (2, 3001, 1024, torch.bfloat16, True, "wmma"),       # N % 8 != 0
     (2, 130, 1024, torch.bfloat16, True, "wmma"),
@@ -216,6 +216,25 @@ def test_glu_variant_serving_shapes_take_tma_wgmma(m):
 def test_glu_variant_by_type_and_addressability(m, n, k, dtype, aligned,
                                                 variant):
     assert tepi._glu_variant(m, n, k, dtype, aligned) == variant
+
+
+@pytest.mark.parametrize("m,n,k,aligned,variant", [
+    (2, 3072, 1022, True, "simt_f32"),     # K % 4: x's row stride
+    (2, 3002, 1024, True, "simt_f32"),     # N % 4: the weights' row stride
+    (3, 3001, 1024, True, "simt_f32"),     # chip_smoke's unaddressable case
+    (2, 3072, 1024, False, "simt_f32"),    # an unaligned base
+    (2, 3072, 1020, True, "tma_f32"),      # K % 8 != 0 but K % 4 == 0
+    (2, 130, 1024, True, "simt_f32"),
+    (2, 132, 1024, True, "tma_f32"),
+    (65, 3000, 1000, True, "tma_f32"),     # ragged, addressable
+    (1024, 3072, 1024, True, "tma_f32"),
+], ids=["k1022", "n3002", "n3001", "unaligned", "k1020", "n130", "n132",
+        "ragged-aligned", "train"])
+def test_glu_f32_variant_by_addressability(m, n, k, aligned, variant):
+    """f32 takes tma_f32 wherever TMA can address the operands: 16-byte
+    aligned bases and row strides of whole 16 bytes (K % 4, N % 4); every
+    other f32 launch takes simt_f32."""
+    assert tepi._glu_variant(m, n, k, torch.float32, aligned) == variant
 
 
 def test_glu_variant_refuses_other_dtypes():
@@ -238,6 +257,85 @@ def test_glu_cpu_call_runs_plain_and_counts_nothing(dtype, mkn):
     y = tepi.glu_2d(x, wg, wu, p, spec=spec)
     assert tepi.LAUNCHES == launches and tepi.GLU_VARIANTS == variants
     assert torch.equal(y, tepi.glu_2d_plain(x, wg, wu, p, spec=spec))
+
+
+# --- glu_2d's f32 launch geometry (tma_f32) ---------------------------------
+
+# the f32 shapes the main path launches glu_2d at (M, K, N): qwen3-0.6b's
+# full-width FFN at every timed row count, its TP 2 / 4 decode shards,
+# qwen2.5-3b's TP 4 and hymba's TP 2 shards, the sharded-train shards, the
+# f32 checks against the CPU (1 x 32 tokens, a 2 x 40 ragged prefill)
+_F32_SHAPES = [(2, 1024, 3072), (128, 1024, 3072), (256, 1024, 3072),
+               (1024, 1024, 3072), (2, 1024, 1536), (2, 1024, 768),
+               (128, 1024, 1536), (2, 2048, 2752), (128, 2048, 2752),
+               (2, 1600, 2752), (100, 1600, 2752), (64, 1024, 1536),
+               (32, 1024, 3072), (128, 1024, 768), (64, 1600, 2752),
+               (32, 1024, 3072), (80, 1024, 3072), (1, 1024, 3072),
+               (65, 1000, 3000), (2, 64, 32), (3, 4, 4), (1000, 1024, 3072)]
+# the decode shapes chip_smoke.py times at f32 (M = 2)
+_F32_DECODE = [(2, 1024, 3072), (2, 1024, 1536), (2, 1024, 768),
+               (2, 2048, 2752), (2, 1600, 2752)]
+
+
+def _f32_k_blocks_walk(k, bk, split):
+    """How many ranks of a cluster of ``split`` take each of the K blocks
+    (``bk`` rows each) of csrc/epilogue.cu's tma_f32 kernel: rank r takes
+    blocks [r * kb // split, (r + 1) * kb // split)."""
+    kb = -(-k // bk)
+    seen = np.zeros(kb, dtype=np.int64)
+    for r in range(split):
+        seen[r * kb // split:(r + 1) * kb // split] += 1
+    return seen
+
+
+@pytest.mark.parametrize("mkn", _F32_SHAPES, ids=lambda s: "x".join(map(
+    str, s)))
+def test_glu_f32_geometry_covers_every_k_block_once(mkn):
+    """Every K block of every tile is summed by exactly one rank of its
+    cluster, each rank has at least one, the cluster is a portable one
+    (1-8, what the C side takes), and the tiles cover M and N."""
+    m, k, n = mkn
+    bm, bn, bk, n_tiles, m_tiles, split = tepi._glu_f32_geometry(m, n, k)
+    assert (bm, bn, bk) in {t[1:4] for t in tepi._F32_TILES}
+    assert split in (1, 2, 4, 8) and split <= -(-k // bk)
+    seen = _f32_k_blocks_walk(k, bk, split)
+    assert (seen == 1).all()
+    kb = len(seen)
+    assert min((r + 1) * kb // split - r * kb // split
+               for r in range(split)) >= 1
+    assert n_tiles * bn >= n > (n_tiles - 1) * bn
+    assert m_tiles * bm >= m > (m_tiles - 1) * bm
+
+
+@pytest.mark.parametrize("mkn", _F32_DECODE, ids=lambda s: "x".join(map(
+    str, s)))
+def test_glu_f32_geometry_fills_the_card_at_decode(mkn):
+    """At every timed decode shape the launch has at least one CTA for each
+    of the H100's 132 SMs (the first slice's kernel ran 12-48 there), all
+    of them resident at once."""
+    m, k, n = mkn
+    bm, bn, bk, n_tiles, m_tiles, split = tepi._glu_f32_geometry(m, n, k)
+    ctas = n_tiles * m_tiles * split
+    assert bm == 8 and ctas >= 132
+    blocks = next(t[4] for t in tepi._F32_TILES if t[1] == bm)
+    assert ctas <= blocks * 132
+
+
+def test_glu_f32_geometry_by_shape():
+    """The tile follows M (8 rows at decode, 32, then 64-row M tiles). The
+    split of the bytes-bound tiles stops at one CTA for each SM; that of
+    the 64-row tile fills the three CTAs an SM holds; a short K caps it."""
+    assert tepi._glu_f32_geometry(2, 3072, 1024) == (8, 32, 32, 96, 1, 2)
+    assert tepi._glu_f32_geometry(2, 768, 1024) == (8, 32, 32, 24, 1, 8)
+    assert tepi._glu_f32_geometry(32, 3072, 1024) == (32, 64, 16, 48, 1, 4)
+    assert tepi._glu_f32_geometry(64, 1536, 1024) == (64, 64, 16, 24, 1, 8)
+    assert tepi._glu_f32_geometry(128, 2752, 2048) == (64, 64, 16, 43, 2, 4)
+    assert tepi._glu_f32_geometry(256, 3072, 1024) == (64, 64, 16, 48, 4, 2)
+    assert tepi._glu_f32_geometry(1024, 3072, 1024) == (64, 64, 16, 48, 16,
+                                                         1)
+    # a short K caps the split at its blocks
+    assert tepi._glu_f32_geometry(2, 32, 64)[-1] == 2
+    assert tepi._glu_f32_geometry(3, 4, 4)[-1] == 1
 
 
 # --- elementwise_2d's launch geometry ---------------------------------------

@@ -266,6 +266,11 @@ ALL_SCHEME_ACTS = [("cr_spline", a) for a in EPILOGUES] + SCHEME_ACTS
 # (TMA's out-of-bounds fill), all addressable by TMA
 GLU_TMA_RAGGED = ((65, 1000, 3000), (1, 1024, 136), (300, 64, 72),
                   (130, 512, 256), (17, 8, 8))
+# the same for tma_f32 (K and N multiples of 4), across its 8-, 32- and
+# 64-row tiles (65 and 300 cross 64-row M tiles) and its K split (K = 36:
+# two K blocks, the second ragged)
+GLU_TMA_F32_RAGGED = GLU_TMA_RAGGED + ((9, 1020, 3004), (33, 36, 4),
+                                       (2, 4, 12))
 
 
 def _any_scheme(scheme, act, dev):
@@ -310,6 +315,35 @@ def test_glu_tma_variant_is_bitwise_deterministic(cuda, m):
         assert torch.equal(tepi.glu_2d(x, wg, wu, p, spec=spec), first)
 
 
+@pytest.mark.parametrize("scheme,act", ALL_SCHEME_ACTS)
+def test_glu_tma_f32_variant_ragged_shapes(cuda, scheme, act):
+    """tma_f32 at ragged M, N and K against the plain version at the f32
+    tolerance (the K sums run in another order)."""
+    spec, p = _any_scheme(scheme, act, cuda)
+    for m, k, n in GLU_TMA_F32_RAGGED:
+        x, wg, wu = (t.float() for t in _bf16_operands(m, k, n, cuda))
+        n0 = tepi.GLU_VARIANTS["tma_f32"]
+        y = tepi.glu_2d(x, wg, wu, p, spec=spec, act=act)
+        torch.cuda.synchronize()
+        assert tepi.GLU_VARIANTS["tma_f32"] == n0 + 1, (m, k, n)
+        torch.testing.assert_close(
+            y, tepi.glu_2d_plain(x, wg, wu, p, spec=spec, act=act),
+            rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("m", [2, 32, 64, 128, 1024])
+def test_glu_tma_f32_variant_is_bitwise_deterministic(cuda, m):
+    """tma_f32 sums each thread's K rows in order, its K slices and its
+    cluster's ranks in a fixed order: repeated launches give the same
+    bits, at every tile."""
+    spec, p = _table("silu", cuda)
+    x, wg, wu = (t.float() for t in _bf16_operands(m, 1024, 3072, cuda,
+                                                    seed=3))
+    first = tepi.glu_2d(x, wg, wu, p, spec=spec)
+    for _ in range(4):
+        assert torch.equal(tepi.glu_2d(x, wg, wu, p, spec=spec), first)
+
+
 def test_glu_variants_counted_on_the_ops_route(cuda):
     before = dict(tepi.GLU_VARIANTS)
     n_before = tepi.LAUNCHES["glu_2d"]
@@ -318,16 +352,19 @@ def test_glu_variants_counted_on_the_ops_route(cuda):
     tops.fused_glu(x.float(), wg.float(), wu.float(), act="silu")   # f32
     x5, w5, _ = _bf16_operands(2, 64, 5, cuda)
     tops.fused_glu(x5, w5, w5, act="silu")                       # N = 5
+    tops.fused_glu(x5.float(), w5.float(), w5.float(), act="silu")  # f32
     torch.cuda.synchronize()
     got = {k: tepi.GLU_VARIANTS[k] - before[k] for k in before}
-    assert got == {"tma_wgmma": 1, "simt_f32": 1, "wmma": 1}
-    assert tepi.LAUNCHES["glu_2d"] == n_before + 3
+    assert got == {"tma_wgmma": 1, "tma_f32": 1, "simt_f32": 1, "wmma": 1}
+    assert tepi.LAUNCHES["glu_2d"] == n_before + 4
 
 
 @pytest.mark.parametrize("forced,dtype,n", [
     ("tma_wgmma", torch.bfloat16, 3001),   # N's row stride: not addressable
     ("simt_f32", torch.bfloat16, 3072),    # wrong type for the variant
     ("wmma", torch.float32, 3072),
+    ("tma_f32", torch.float32, 3001),      # N's row stride: not addressable
+    ("tma_f32", torch.bfloat16, 3072),
 ])
 def test_glu_wrapper_raises_when_the_variant_is_refused(cuda, monkeypatch,
                                                         forced, dtype, n):
