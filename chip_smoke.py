@@ -15,13 +15,16 @@ lines:
      card, at stated tolerances, for every scheme and epilogue at the
      deployment geometry (depth 32, degree 3), and at every float
      geometry ``benchmarks/dse.py`` sweeps. ``glu_2d``'s TMA variants
-     (bf16 ``tma_wgmma``, f32 ``tma_f32``) at M = 1, 2, 64, 65, 128, 256,
-     512, 1000 and 1024 (K=1024, N=3072; above 256 / 64 rows the grid
-     runs 256 / 64-row M tiles) and at a ragged K=1000, N=3000, and the
+     (bf16 ``tma_wgmma_gemm`` from ``epilogue.GLU_GEMM_ROWS`` (512) rows
+     at K up to ``epilogue.GLU_GEMM_MAX_K`` (2048), else ``tma_wgmma``;
+     f32 ``tma_f32``) at M = 1, 2, 64,
+     65, 128, 256, 512, 1000 and 1024 (K=1024, N=3072; 512, 1000 and 1024
+     take ``tma_wgmma_gemm`` at bf16; tma_f32 runs 64-row M tiles above 64) and
+     at a ragged K=1000, N=3000, and the
      variants for operands TMA cannot address (bf16 ``wmma``, f32
      ``simt_f32``) at N=3001, for every scheme and epilogue: each case
-     asserts the variant it took and that a repeated launch gives the
-     same bits. Then gradients through both
+     asserts the variant it took (``tma_variant``) and that a repeated
+     launch gives the same bits. Then gradients through both
      kernels (``ops.act`` / ``ops.fused_glu``: the kernel forward, the
      plain recompute backward) for every scheme at f32 and bf16, at the
      training row count (1024) and a ragged 1000: bitwise equal to
@@ -51,8 +54,12 @@ lines:
      ``cache="slot"``; the ``paged_vs_slot`` line gates identical tokens.
      In every served run the kernel of the path must launch exactly 28 x
      (prefill batches + prefill chunks + decode steps) times, the other
-     kernel not at all, and every bf16 ``glu_2d`` launch must take the
-     ``tma_wgmma`` variant, every f32 one ``tma_f32``. For the two
+     kernel not at all, and every ``glu_2d`` launch must take the variant
+     its type and rows give (``tma_variant``: every served bf16 launch,
+     up to 256 rows, ``tma_wgmma``; every f32 one ``tma_f32``; a bf16
+     train launch, 1024 rows a rank or 512 a sharded one,
+     ``tma_wgmma_gemm`` at K up to 2048, else ``tma_wgmma``), counted
+     exactly by variant. For the two
      cr_spline deployments, at bf16
      and at f32 compute: ``serve_prefix`` (4 requests sharing a 4-page
      prefix, serial admission: 192 prompt tokens from cached pages, all
@@ -148,7 +155,7 @@ lines:
      model) = (2, 2), fused and kernelized, 3 steps at a global 8 x 128
      (finite, unskipped, loss and gnorm the same bits on every rank, each
      rank's launches exactly ``launches_per_forward`` x forwards, the
-     other kernel none, bf16 glu_2d on ``tma_wgmma``; step ms,
+     other kernel none, bf16 glu_2d on ``tma_wgmma_gemm``; step ms,
      collectives and MB a step per axis, peak GB a rank and the host
      syncs of the last step printed); then at f32 qwen3-0.6b (4 of 28
      layers) at (2, 2), (4, 1) and (1, 4) and hymba-1.5b (4 of 32) at
@@ -221,7 +228,10 @@ lines:
      qwen3-0.6b's full-width FFN at every ROWS_TIMED row count, beside
      two f32 cuBLAS GEMMs with TF32 off (GLU_F32_TIMED); the
      ``glu_f32_aims`` line sets every f32 glu_2d time against its
-     library yardstick and its bound (information, not a gate).
+     library yardstick and its bound, the ``glu_bf16_aims`` line every
+     bf16 glu_2d time at M >= 512 (qwen3's train rows under each scheme,
+     TRAIN_GLU_TIMED, the sharded rank's shape; ``tma_wgmma_gemm`` at K up
+     to 2048, ``tma_wgmma`` past it) likewise (information, not gates).
      Profiling comes after serving and training
      because a profiled process keeps paying tracing costs on every later
      launch.
@@ -311,8 +321,11 @@ SESSIONS = 3                    # profiler traces device_ms takes at most
 GLU_TMA_ROWS = (1, 2, 64, 65, 128, 256, 512, 1000, 1024)
 GLU_RAGGED = ((2, 1000, 3000), (65, 1000, 3000))
 GLU_UNADDRESSABLE = (3, 1024, 3001)
-GLU_VARIANT_OF = {"bfloat16": ("tma_wgmma", "wmma"),
-                  "float32": ("tma_f32", "simt_f32")}
+# each type's variants: (TMA under GLU_GEMM_ROWS rows or past
+# GLU_GEMM_MAX_K, TMA from those rows up to that K, operands TMA cannot
+# address); f32 has one TMA kernel at every M and K
+GLU_VARIANT_OF = {"bfloat16": ("tma_wgmma", "tma_wgmma_gemm", "wmma"),
+                  "float32": ("tma_f32", "tma_f32", "simt_f32")}
 
 SLOTS, MAX_PROMPT, MAX_LEN, CHUNK = 2, 128, 160, 8
 # decode steps a trace's engine takes a chunk (its profiled chunk and its
@@ -336,6 +349,12 @@ ROWS_TIMED = (SLOTS, MAX_PROMPT, GLU_PREFILL_MAX, TRAIN_ROWS)
 # bound at the unsharded decode shape
 GLU_F32_TIMED = tuple((rows, 1024, 3072) for rows in ROWS_TIMED)
 AIM_F32_DECODE_SHARE = 0.5
+# what the bf16 train-step glu_2d (tma_wgmma_gemm) is designed to reach
+# (not gates): no slower than two cuBLAS GEMMs at every bf16 shape of at
+# least epilogue.GLU_GEMM_ROWS rows (qwen3's train rows under each scheme,
+# TRAIN_GLU_TIMED, the sharded rank's shape), and at least half of the
+# bound at qwen3's train shape
+AIM_BF16_TRAIN_SHARE = 0.5
 GRAD_ROWS = (TRAIN_ROWS, 1000)      # kernel gradient checks: train + ragged
 TRAIN_F32_BATCH, TRAIN_F32_SEQ = 1, 32    # train_f32_vs_cpu
 PROMPT_LENS = (17, 40, 64, 100)
@@ -693,6 +712,33 @@ def check_glu(torch, epi, spec, p, act, x, wg, wu):
     return float((y.float() - yp.float()).abs().max())
 
 
+def tma_variant(epi, dtype, m, k) -> str:
+    """The TMA variant a glu_2d launch of ``m`` rows, ``k`` K rows and type
+    ``dtype`` (its name, "bfloat16" / "float32") takes: bf16 from
+    ``epilogue.GLU_GEMM_ROWS`` (512) rows at K up to
+    ``epilogue.GLU_GEMM_MAX_K`` (2048) on the GEMM tile, else the served
+    kernel."""
+    below, above, _ = GLU_VARIANT_OF[dtype]
+    return above if m >= epi.GLU_GEMM_ROWS and k <= epi.GLU_GEMM_MAX_K \
+        else below
+
+
+def glu_variant_tally(epi, shapes):
+    """The glu_2d launches by variant that ``shapes`` (ShapeLog's record
+    of a run) should count, each launch on the TMA variant of its type and
+    rows, and the recorded launches that took another: (tally,
+    mismatches)."""
+    want, off = {v: 0 for v in epi.GLU_VARIANTS}, []
+    for (kernel, shape, dtype, act, variant), n in shapes.items():
+        if kernel != "glu_2d":
+            continue
+        tma = tma_variant(epi, dtype, shape[0], shape[1])
+        want[tma] += n
+        if variant != tma:
+            off.append((list(shape), dtype, variant, tma))
+    return want, off
+
+
 def check_glu_variant(torch, epi, spec, p, act, x, wg, wu, variant):
     """check_glu for one launch that must take ``variant``, plus a second
     launch on the same inputs that must give the same bits (the K split's
@@ -756,14 +802,18 @@ def phase_kernel_checks(torch, epi, dev):
     # variant for operands TMA cannot address, for every scheme and
     # epilogue; each launch repeated for bitwise determinism
     cases = [(M, K, N) for M in GLU_TMA_ROWS] + list(GLU_RAGGED)
-    for dtype, (tma, other) in GLU_VARIANT_OF.items():
+    # the served rows (at most GLU_PREFILL_MAX) stay on tma_wgmma, 512,
+    # 1000 and 1024 take tma_wgmma_gemm
+    assert GLU_PREFILL_MAX < epi.GLU_GEMM_ROWS <= 512, epi.GLU_GEMM_ROWS
+    for dtype, (_, _, other) in GLU_VARIANT_OF.items():
         dt = getattr(torch, dtype)
         for scheme in SCHEMES:
             for act in acts_of(epi, scheme):
                 spec, p = scheme_spec(torch, epi, scheme, act, dev)
                 errs, variants = {}, {}
                 for shape in cases + [GLU_UNADDRESSABLE]:
-                    variant = other if shape == GLU_UNADDRESSABLE else tma
+                    variant = other if shape == GLU_UNADDRESSABLE \
+                        else tma_variant(epi, dtype, *shape[:2])
                     key = f"{list(shape)}"
                     errs[key] = check_glu_variant(
                         torch, epi, spec, p, act,
@@ -1231,6 +1281,37 @@ def glu_f32_aims(timings, seconds, tf32) -> None:
           "kernel_times_s": seconds})
 
 
+def glu_bf16_aims(epi, timings) -> None:
+    """The bf16 train-step glu_2d's design aims, from this run's timings of
+    every bf16 glu_2d shape of at least ``epi.GLU_GEMM_ROWS`` rows: ``ms`` over
+    ``library_ms`` (two cuBLAS GEMMs; aim: at most 1) and the share of the
+    bound (``bound_ms`` / ``ms``; aim at qwen3's train shape, M = K = 1024,
+    N = 3072, under cr_spline: AIM_BF16_TRAIN_SHARE), with the variant each
+    took. Information, not a gate."""
+    rows = {}
+    for key, t in timings.items():
+        if (key[0] != "glu_2d" or t["dtype"] != "bfloat16"
+                or t["shape"][0] < epi.GLU_GEMM_ROWS):
+            continue
+        name = "x".join(map(str, t["shape"]))
+        if key[1] != "cr_spline":
+            name += f":{key[1]}"
+        rows[name] = {
+            "variant": t["variant"], "ms": t["ms"],
+            "library_ms": t["library_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "ms_over_library_ms": t["ms"] / t["library_ms"],
+            "bound_share": t["bound_ms"] / t["ms"],
+            "library_met": t["ms"] <= t["library_ms"]}
+    train = rows.get("x".join(map(str, (TRAIN_ROWS, 1024, 3072))))
+    emit({"phase": "glu_bf16_aims", "shapes": rows,
+          "aim_train_bound_share": AIM_BF16_TRAIN_SHARE,
+          "train_share_met": bool(train) and train["bound_share"]
+          >= AIM_BF16_TRAIN_SHARE,
+          "library_met_everywhere": all(r["library_met"]
+                                        for r in rows.values())})
+
+
 def serve(torch, cfg, params, prompts, dev, max_new=MAX_NEW, mesh=None,
           **ecfg):
     from repro_torch.serve import EngineConfig, ServeEngine
@@ -1252,8 +1333,10 @@ def drive(torch, epi, cfg, params, prompts, dev, mesh=None, **ecfg):
     """One served run (this rank's part of it with ``mesh``) with the
     launch counts zeroed just before and read just after. Each kernel must launch exactly launches_per_forward(cfg)
     x forwards times (forwards: prefill batches + prefill chunks + decode
-    steps, from the run's EngineStats), every glu_2d launch on its compute
-    type's variant (tma_wgmma at bf16, tma_f32 at f32); every request
+    steps, from the run's EngineStats), every glu_2d launch on the TMA
+    variant of its type and rows (``glu_variant_tally``: tma_wgmma at
+    bf16, every served launch having at most 256 rows; tma_f32 at f32),
+    the counts by variant exact; every request
     completes with MAX_NEW tokens and every page comes back. Each launch's
     shape goes into SERVED_SHAPES. Returns a Served."""
     zero_launches(epi)
@@ -1266,9 +1349,9 @@ def drive(torch, epi, cfg, params, prompts, dev, mesh=None, **ecfg):
     forwards = st.prefill_batches + st.prefill_chunks + st.decode_steps
     want = {k: n * forwards for k, n in launches_per_forward(cfg).items()}
     assert launches == want, (cfg.name, launches, want, forwards)
-    variant = GLU_VARIANT_OF[cfg.compute_dtype][0]
-    assert variants == {v: launches["glu_2d"] if v == variant else 0
-                        for v in variants}, (variants, launches)
+    want_variants, off = glu_variant_tally(epi, log.shapes)
+    assert not off and variants == want_variants, (variants, off)
+    assert sum(variants.values()) == launches["glu_2d"], variants
     assert len(done) == len(prompts), done
     K = cfg.n_codebooks
     for c in done:
@@ -1548,8 +1631,10 @@ def phase_train(torch, epi, name, cfg, weights, dev, card, runs=TRAIN_RUNS,
     (a step is one forward without remat and two under "block", whose
     checkpoint reruns each block's forward in the backward; the
     recompute backward of the kernels launches none), every glu_2d
-    launch on its type's TMA variant (bf16 tma_wgmma, f32 tma_f32); every
-    loss finite, nothing skipped. ``hyper``
+    launch on the TMA variant of its type and shape
+    (``glu_variant_tally``: bf16 tma_wgmma_gemm at the step's 1024 rows
+    and K up to 2048, tma_wgmma past that K; f32 tma_f32), the counts by
+    variant exact; every loss finite, nothing skipped. ``hyper``
     adds TrainHyper fields (``donate`` for a model whose state fills the
     card: then the steps update ``weights``' tensors in place). Then one
     more step under CUDA's sync debug mode must make no host sync.
@@ -1597,9 +1682,9 @@ def phase_train(torch, epi, name, cfg, weights, dev, card, runs=TRAIN_RUNS,
                 [(r.loss, r.skipped) for r in recs]
             want = {k: n * fwd * n_steps for k, n in per_fwd.items()}
             assert launches == want, (name, remat, launches, want)
-            tma = GLU_VARIANT_OF[cfg.compute_dtype][0]
-            assert variants == {v: launches["glu_2d"] if v == tma else 0
-                                for v in variants}, variants
+            want_variants, off = glu_variant_tally(epi, log.shapes)
+            assert not off and variants == want_variants, (variants, off)
+            assert sum(variants.values()) == launches["glu_2d"], variants
             walls = [r.wall_s * 1e3 for r in recs]
             steady = statistics.median(walls[1:] if len(walls) > 1
                                        else walls)
@@ -3264,8 +3349,10 @@ def phase_train_sharded(torch, registry, card, ranks):
     (``_train_sharded``) and their gates: every loss finite and no step
     skipped; loss and gnorm the same bits on every rank; each rank's
     launches exactly ``launches_per_forward`` x steps (one forward a step:
-    no remat), every glu_2d launch on its type's variant (bf16
-    ``tma_wgmma``, f32 ``tma_f32``); f32: loss and gnorm within
+    no remat), every glu_2d launch on the TMA variant of its type and
+    rows (``glu_variant_tally``: bf16 ``tma_wgmma_gemm`` at a rank's 512
+    rows, f32 ``tma_f32``), the counts by variant exact; f32: loss and
+    gnorm within
     TRAIN_SHARDED_SCALAR_TOL of the one-process step's, every gradient
     leaf within TRAIN_SHARDED_GRAD_TOL, every leaf's update within
     TRAIN_SHARDED_UPDATE_TOL (see there). Host syncs are printed,
@@ -3273,6 +3360,7 @@ def phase_train_sharded(torch, registry, card, ranks):
     ``kernel_shapes`` and ``launches`` (rank 0's) as serve lines do, so
     phase 4 times its launch shapes; they join SERVED_SHAPES. Returns
     {line name: line}."""
+    from repro_torch.kernels import epilogue as epi
     lines, fails = {}, []
     lr_peak = train_opt().lr_peak
     for i, run in enumerate(TRAIN_SHARDED_RUNS):
@@ -3286,7 +3374,7 @@ def phase_train_sharded(torch, registry, card, ranks):
                      else (TRAIN_BATCH, TRAIN_SEQ))
         per_fwd = launches_per_forward(cfg)
         want = {k: n * steps for k, n in per_fwd.items()}
-        variant = GLU_VARIANT_OF[dtype or "bfloat16"][0]
+        tallies = [glu_variant_tally(epi, r["shapes"]) for r in got]
         walls = r0["step_wall_ms"]
         # the first step warms up; a bf16 run's last ran in sync debug mode
         steady = walls[0] if f32 else statistics.median(walls[1:-1])
@@ -3350,8 +3438,12 @@ def phase_train_sharded(torch, registry, card, ranks):
              line["same_loss_gnorm_bits_on_every_rank"]),
             ("launches not launches_per_forward x steps on every rank",
              all(r["launches"] == want for r in got)),
-            (f"glu_2d off {variant}", all(
-                r["variants"][variant] == r["launches"]["glu_2d"]
+            ("glu_2d off the TMA variant of its type and rows", all(
+                not off and r["variants"] == want
+                and sum(want.values()) == r["launches"]["glu_2d"]
+                for r, (want, off) in zip(got, tallies))),
+            ("bf16 glu_2d off tma_wgmma_gemm", f32 or all(
+                r["variants"]["tma_wgmma_gemm"] == r["launches"]["glu_2d"]
                 for r in got))]
         if f32:
             checks += [
@@ -4107,6 +4199,7 @@ def main() -> int:
     elementwise_aims(timings)
     glu_f32_aims(timings, time.perf_counter() - t_times,
                  torch.backends.cuda.matmul.allow_tf32)
+    glu_bf16_aims(epi, timings)
     for name, _, _, cfg in deployments:
         for cache, key in (("paged", "line"), ("slot", "slot_line")):
             phase_trace(torch, name, cfg, served[name]["params"], prompts,

@@ -219,6 +219,18 @@ __device__ __forceinline__ float epilogue(float v, const Table& tb) {
   return epi_out<EPI>(v, scheme_block(epi_arg<EPI>(v), tb, EPI != EPI_SOFTPLUS));
 }
 
+// epilogue<EPI> over E values in place, the unit evaluated once per value
+// under scheme S, the values' chains interleaved (block_n).
+template <int EPI, int S, int E>
+__device__ __forceinline__ void epilogue_n(float (&v)[E], const Table& tb) {
+  float a[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) a[e] = epi_arg<EPI>(v[e]);
+  block_n<S, E>(a, tb, EPI != EPI_SOFTPLUS);
+#pragma unroll
+  for (int e = 0; e < E; ++e) v[e] = epi_out<EPI>(v[e], a[e]);
+}
+
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 template <typename T> __device__ __forceinline__ T from_f(float x);

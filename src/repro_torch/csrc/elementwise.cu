@@ -75,17 +75,6 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// epilogue<EPI> over E values in place, the unit evaluated once per value.
-template <int EPI, int S, int E>
-__device__ __forceinline__ void epilogue_n(float (&v)[E], const Table& tb) {
-  float a[E];
-#pragma unroll
-  for (int e = 0; e < E; ++e) a[e] = epi_arg<EPI>(v[e]);
-  block_n<S, E>(a, tb, EPI != EPI_SOFTPLUS);
-#pragma unroll
-  for (int e = 0; e < E; ++e) v[e] = epi_out<EPI>(v[e], a[e]);
-}
-
 // Thread g of the grid takes elements [g * E, g * E + E) of the n, the
 // ones below n; the caller's geometry covers n (checked at the entry
 // point). vec: both pointers 16-byte aligned.

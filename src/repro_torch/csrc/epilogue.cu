@@ -3,11 +3,14 @@
 // src/repro_torch/kernels/_build.py builds with nvcc and loads with ctypes:
 //
 //   repro_glu_2d  <- src/repro/kernels/epilogue.py:glu_2d (_glu_kernel), in
-//                    four variants the caller names: a TMA + wgmma kernel
-//                    for bf16 (the served path), a wmma kernel for bf16
-//                    operands TMA cannot address, a TMA + cluster IEEE f32
-//                    kernel for f32 (the f32 path), and an IEEE f32 SIMT
-//                    kernel for f32 operands TMA cannot address
+//                    five variants the caller names: a TMA + wgmma kernel
+//                    for bf16 under 512 rows or past 2048 K rows (the
+//                    served path), a persistent TMA + wgmma GEMM kernel for
+//                    bf16 from 512 rows at K up to 2048 (the train step), a
+//                    wmma kernel for bf16 operands TMA cannot
+//                    address, a TMA + cluster IEEE f32 kernel for f32 (the
+//                    f32 path), and an IEEE f32 SIMT kernel for f32 operands
+//                    TMA cannot address
 //
 // The epilogue (approximant.cuh) runs in f32, in the plain PyTorch
 // version's operation order. The scheme is a runtime switch, uniform
@@ -65,7 +68,7 @@ cudaError_t launch_softplus(const Launch& a);
 namespace {
 
 // kernels/epilogue.py _GLU_VARIANT_IDS
-enum { GLU_WMMA = 0, GLU_TMA_WGMMA = 1, GLU_SIMT_F32 = 2, GLU_TMA_F32 = 3 };
+enum { GLU_WMMA = 0, GLU_TMA_WGMMA = 1, GLU_SIMT_F32 = 2, GLU_TMA_F32 = 3, GLU_TMA_GEMM = 4 };
 
 // ---------------------------------------------------------------------------
 // glu_2d
@@ -84,13 +87,18 @@ enum { GLU_WMMA = 0, GLU_TMA_WGMMA = 1, GLU_SIMT_F32 = 2, GLU_TMA_F32 = 3 };
 // fusion. The TPU's sequential K grid axis and its VMEM scratch have no
 // counterpart: nothing carries over between blocks.
 //
-// Four variants, chosen by the Python wrapper (kernels/epilogue.py
+// Five variants, chosen by the Python wrapper (kernels/epilogue.py
 // _glu_variant) and refused here when they do not fit the operands:
 //
 //   tma_wgmma  bf16, every operand addressable by TMA (16-byte aligned,
-//              row strides multiples of 16 bytes): the Hopper kernel
+//              row strides multiples of 16 bytes), M under GLU_GEMM_ROWS
+//              (512) or K past GLU_GEMM_MAX_K (2048): the Hopper kernel
 //              below, repro_glu_bf16_tma_kernel. Every bf16 launch of the
-//              served model takes it.
+//              served model takes it, and the train step's at K > 2048.
+//   tma_wgmma_gemm  the same operands from GLU_GEMM_ROWS rows on at K up
+//              to GLU_GEMM_MAX_K: repro_glu_bf16_gemm_kernel below, a
+//              persistent ping-pong GEMM tile. The train step's bf16
+//              launches at K <= 2048 take it.
 //   wmma       bf16 operands TMA cannot address: one output tile per block,
 //              nvcuda::wmma 16x16x16 on plain zero-filled tile loads, no
 //              pipelining (the first slice's kernel, kept for these only).
@@ -408,6 +416,10 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
 }
+// all but the last committed group done
+__device__ __forceinline__ void wgmma_wait_but_last() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+}
 // Keep the compiler from moving accumulator reads or writes across the
 // asynchronous wgmma boundary.
 template <int R>
@@ -442,6 +454,25 @@ template <> struct Wgmma<64> {
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
         "%32, %33, p, 1, 1, 1, 0;\n}\n"
         : F4(0), F4(4), F4(8), F4(12), F4(16), F4(20), F4(24), F4(28)
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+// d[64 x 128] += A[64 x 16] . B[16 x 128]: A K-major, B MN-major
+// (transposed), bf16 in, f32 accumulate: the unswapped product of
+// tma_wgmma_gemm (x is A, the weights B).
+struct WgmmaKxN128 {
+  static __device__ __forceinline__ void mma(float* d, uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},  "
+        "%64, %65, p, 1, 1, 0, 1;\n}\n"
+        : F4(0), F4(4), F4(8), F4(12), F4(16), F4(20), F4(24), F4(28), F4(32), F4(36),
+          F4(40), F4(44), F4(48), F4(52), F4(56), F4(60)
         : "l"(a), "l"(b), "r"(1));
   }
 };
@@ -638,6 +669,400 @@ repro_glu_bf16_tma_kernel(const __grid_constant__ CUtensorMap tm_x,
   GLU_PHASE(6, threadIdx.x == 0);
   cluster.sync();   // no CTA leaves while a peer may still read its partials
   GLU_PHASE(7, threadIdx.x == 0);
+}
+
+// ---------------------------------------------------------------------------
+// glu_2d, variant tma_wgmma_gemm: repro_glu_bf16_gemm_kernel
+//
+// Replaces: src/repro/kernels/epilogue.py:289 glu_2d (_glu_kernel) for bf16
+// from kernels/epilogue.py GLU_GEMM_ROWS (512) rows on at K up to
+// GLU_GEMM_MAX_K (2048): the train step (M = 1024 at batch 8 x seq 128) and
+// its sharded ranks (M = 512). Bound: the 4*M*K*N
+// tensor-core operations at 989 TFLOP/s (M = 1024, K = 1024, N = 3072: 13.0
+// us), not the bytes; tma_wgmma above, built for M <= 256, re-reads the
+// weights once per 256 rows and x once per 64 columns, drains wgmma at every
+// K block and runs its epilogue with the tensor cores idle. This design:
+//
+//   * Unswapped products: x is wgmma's A (K-major, straight from the
+//     row-major x tile), w_gate and w_up are B (N-major, the transpose flag
+//     set). One m64n128k16 multiplies 64 rows of x by 64 columns of w_gate
+//     and the same 64 of w_up side by side (two 128-byte swizzle atoms 8 KB
+//     apart), so gate and up of one output element sit in one thread, 32
+//     registers apart.
+//   * A consumer warpgroup owns a whole output tile of 128 rows x 64
+//     columns: two m64n128k16 a K step, 128 f32 accumulators a thread. The
+//     two consumer warpgroups take a CTA's tiles in turn (ping-pong): while
+//     one runs its tile's epilogue (~45 f32 operations an element on the
+//     CUDA cores) the other keeps the tensor cores busy on the next tile.
+//     A warpgroup starts a tile once the other has seen the previous
+//     tile's last stage land (the `loaded` mbarriers): its waits run a
+//     tile ahead in the ring, and a wait must never meet a stage two uses
+//     behind, whose barrier phase has the same parity.
+//   * One producer thread streams a [128 x 64] box of x and a [64 x 64]
+//     box of each weight a stage by TMA (128-byte swizzle, zero fill past
+//     the edges, which masks ragged M, N and K) through a ring of
+//     GEMM_STAGES stages with a full and an empty mbarrier each, in the
+//     order the warpgroups take them and across tile boundaries: the next
+//     tiles' loads run during a tile's epilogue.
+//   * wgmma stays in flight across K blocks: a warpgroup waits for its
+//     group before last (wait_group 1) and then releases that stage.
+//   * Persistent: min(tiles, 132) CTAs, one an SM (the ring fills its
+//     shared memory); CTA c takes tiles c, c + grid, ..., M tiles fastest,
+//     so the CTAs running at once share a band of weight columns in L2.
+//   * Where the tiles do not outnumber the SMs (split 2: M = 512, N = 1536
+//     gives 96 tiles), each CTA takes one tile and its two warpgroups
+//     split the tile's K blocks in halves, loaded in turn into two rings
+//     of three stages, one a warpgroup. Each warpgroup hands the other,
+//     through the ring (free by then), the sums of the 64-row half the
+//     other stores, and adds the two halves in K order (first half +
+//     second half): bitwise the same from run to run. No atomics, no global
+//     scratch, no cluster.
+//   * setmaxnreg: the CTA is three warpgroups (384 threads, launched at 168
+//     registers a thread); the producer warpgroup, one thread of which
+//     issues the loads, drops to 40 and the consumers rise to 232: 128
+//     accumulators and the epilogue's 8 interleaved chains.
+//
+// Given the same f32 sums each element takes the plain version's operation
+// order: epilogue(gate) * up on the complete f32 sums, rounded to bf16 once.
+// Each quad of threads transposes its bf16 pairs by shuffles, so the output
+// is stored in 16-byte vectors. The epilogue loop stays rolled (gemm_store):
+// unrolled, every scheme's datapath inlined once an element overflows the
+// instruction cache.
+//
+// Measured (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6): a K loop
+// runs at ~60% of the tensor cores' rate, with the loads or without them,
+// and an epilogue of one tile takes 7-11 us; PERF.md §7 keeps what bounds
+// each open.
+// ---------------------------------------------------------------------------
+
+constexpr int GEMM_BM = 128;      // rows of x a tile: two m64 halves
+constexpr int GEMM_BN = 64;       // columns of each weight a tile: one swizzle atom
+constexpr int GEMM_BK = 64;       // K rows a stage: 128 B of an x row
+constexpr int GEMM_STAGES = 6;
+constexpr int GEMM_PRODUCER = 8;  // the producer's warp: warpgroup 2's first
+constexpr int GEMM_THREADS = 3 * 128;   // two consumer warpgroups + a producer warpgroup
+// registers a thread after setmaxnreg: launched at 168 (65536 / 384), the
+// producer warpgroup hands 128 a thread to the consumers
+constexpr int GEMM_PRODUCER_REGS = 40, GEMM_CONSUMER_REGS = 232;
+static_assert(128 * GEMM_PRODUCER_REGS + 256 * GEMM_CONSUMER_REGS <= 65536, "register file");
+constexpr int GEMM_X_BYTES = GEMM_BM * GEMM_BK * 2;            // 16 KB
+constexpr int GEMM_W_BYTES = GEMM_BK * GEMM_BN * 2;            // 8 KB
+constexpr int GEMM_STAGE = GEMM_X_BYTES + 2 * GEMM_W_BYTES;    // 32 KB
+constexpr int GEMM_SMEM = GEMM_STAGES * GEMM_STAGE + 1024;     // + alignment slack
+static_assert(GEMM_STAGE % 1024 == 0 && GEMM_X_BYTES % 1024 == 0, "swizzle atoms aligned");
+static_assert(2 * 64 * 128 * 4 <= GEMM_STAGES * GEMM_STAGE, "the split's exchange fits the ring");
+static_assert(GEMM_STAGES % 2 == 0, "split 2's two rings of half the stages");
+static_assert(GEMM_SMEM + MAX_PARAMS * 4 + 16 * GEMM_STAGES <= SM_SMEM_BYTES, "one CTA an SM");
+
+// Phase stamps of tma_wgmma_gemm (-DREPRO_GLU_PHASES, kernels/glu_phases.py):
+// GEMM_PHASE_SLOTS a CTA: 0 start, 1 the producer's last issue, 2 the last
+// consumer's end, then for each of the CTA's first GEMM_PHASE_TILES tiles
+// (the split's two halves as tiles 0 and 1) three: its first stage landed,
+// its K loop done, its epilogue stored.
+#ifdef REPRO_GLU_PHASES
+constexpr int GEMM_PHASE_SLOTS = 64, GEMM_PHASE_TILES = 16;
+static_assert(SM_COUNT * GEMM_PHASE_SLOTS <= PHASE_CTAS * PHASE_SLOTS, "stamps fit");
+__device__ __forceinline__ void gemm_stamp(int slot) {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  g_glu_phases[blockIdx.x * GEMM_PHASE_SLOTS + slot] = t;
+}
+#define GEMM_PHASE(slot, who) \
+  if (who) gemm_stamp(slot)
+#define GEMM_TILE_PHASE(tile, k, who) \
+  if ((who) && (tile) < GEMM_PHASE_TILES) gemm_stamp(3 + 3 * (tile) + (k))
+#else
+#define GEMM_PHASE(slot, who)
+#define GEMM_TILE_PHASE(tile, k, who)
+#endif
+
+// the 256 consumer threads only (named barrier 1; the producer warp never
+// waits on it)
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, 256;" ::: "memory");
+}
+
+// One warpgroup's K loop over nk stages of the ring, its i-th stage
+// at slot_of(i) = (stage, use), into acc (both m64 halves); each stage is
+// released once the products that read it are done. ``loaded``, if given,
+// is arrived on once the last stage has landed. tile_slot and stamp: its
+// phase stamps.
+template <class SlotOf>
+__device__ __forceinline__ void gemm_k_loop(float (&acc)[2][64], uint8_t* ring, uint64_t* full,
+                                            uint64_t* empty, int nk, SlotOf slot_of,
+                                            uint64_t* loaded, int tile_slot, bool stamp) {
+  const int lane = threadIdx.x % 32;
+  auto release = [&](int s) {   // each warp's lane 0 once its reads are done
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  };
+  int prev = 0;
+  for (int i = 0; i < nk; ++i) {
+    const int2 su = slot_of(i);
+    const int s = su.x;
+    mbar_wait(&full[s], su.y & 1);
+    GEMM_TILE_PHASE(tile_slot, 0, stamp && i == 0);
+    if (loaded != nullptr && i == nk - 1 && threadIdx.x % 128 == 0) mbar_arrive(loaded);
+    const uint32_t sx = smem_u32(ring + s * GEMM_STAGE);
+    const uint32_t sw = sx + GEMM_X_BYTES;
+    fence_regs<64>(acc[0]);
+    fence_regs<64>(acc[1]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < GEMM_BK / 16; ++kk) {
+      // B: weight rows k (128 B each, N contiguous), 16 K rows = 2 groups
+      // of 8 at 1024 B; w_up's atom GEMM_W_BYTES after w_gate's
+      const uint64_t db = sw128_desc(sw + kk * 2048, GEMM_W_BYTES, 1024);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        // A: x rows (128 B each, K contiguous), 64 rows a half; a k16 step
+        // is 32 B along the row, 8-row groups 1024 B apart
+        const uint64_t da = sw128_desc(sx + h * 64 * 128 + kk * 32, 16, 1024);
+        WgmmaKxN128::mma(acc[h], da, db);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait_but_last();   // the previous stage's products are done
+    fence_regs<64>(acc[0]);
+    fence_regs<64>(acc[1]);
+    if (i > 0) release(prev);
+    prev = s;
+  }
+  wgmma_wait_all();
+  fence_regs<64>(acc[0]);
+  fence_regs<64>(acc[1]);
+  if (nk > 0) release(prev);
+}
+
+// 4 x 4 transpose of bf16 pairs across a quad (lanes q = 0..3 of 4 adjacent
+// lanes): lane q holds v[j] = block j's pair q on entry and block q's pairs
+// 0..3 on exit, 8 adjacent bf16 of one row.
+__device__ __forceinline__ void quad_transpose(uint32_t (&v)[4], int q) {
+  const bool hi = q & 2, lo = q & 1;
+  uint32_t r = __shfl_xor_sync(0xffffffffu, hi ? v[0] : v[2], 2);
+  if (hi) v[0] = r; else v[2] = r;
+  r = __shfl_xor_sync(0xffffffffu, hi ? v[1] : v[3], 2);
+  if (hi) v[1] = r; else v[3] = r;
+  r = __shfl_xor_sync(0xffffffffu, lo ? v[0] : v[1], 1);
+  if (lo) v[0] = r; else v[1] = r;
+  r = __shfl_xor_sync(0xffffffffu, lo ? v[2] : v[3], 1);
+  if (lo) v[2] = r; else v[3] = r;
+}
+
+// Group g = (m64 half H, row half R8, first column block B0) of a tile's
+// accumulators: the 8 gate sums (gv) and the 8 up sums (uv) of a thread's
+// columns 8*(B0 + i) + 2*(lane%4) (+1), i < 4, in one row. wgmma's
+// accumulator layout puts acc[H][j] at row w*16 + lane/4 + 8*((j%4)/2),
+// column 8*(j/4) + 2*(lane%4) + j%2; j < 32 is gate, j + 32 up of the same
+// element.
+template <int H, int R8, int B0>
+__device__ __forceinline__ void gemm_pick(const float (&acc)[2][64], float (&gv)[8],
+                                          float (&uv)[8]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int j = 4 * (B0 + i) + 2 * R8;
+    gv[2 * i] = acc[H][j];
+    gv[2 * i + 1] = acc[H][j + 1];
+    uv[2 * i] = acc[H][j + 32];
+    uv[2 * i + 1] = acc[H][j + 33];
+  }
+}
+
+// The epilogue of groups [g0, g1) of a tile (rows m0..m0+127, columns
+// n0..n0+63; group g covers m64 half g/4, so half h is groups [4h, 4h +
+// 4)), one group of 8 elements a thread at a time, their chains
+// interleaved under one uniform scheme switch (as elementwise_2d's). The
+// loop stays rolled and a switch picks each group's registers, so each
+// scheme's datapath appears once in the code and the kernel fits the
+// instruction cache.
+template <int EPI>
+__device__ __forceinline__ void gemm_store(const float (&acc)[2][64], bf16* __restrict__ out,
+                                           int g0, int g1, int m0, int n0, int M, int N,
+                                           const Table& tb) {
+  const int lane = threadIdx.x % 32, w = (threadIdx.x / 32) % 4, q = lane % 4;
+#pragma unroll 1
+  for (int g = g0; g < g1; ++g) {
+    float gv[8], uv[8];
+    switch (g) {
+      case 0: gemm_pick<0, 0, 0>(acc, gv, uv); break;
+      case 1: gemm_pick<0, 0, 4>(acc, gv, uv); break;
+      case 2: gemm_pick<0, 1, 0>(acc, gv, uv); break;
+      case 3: gemm_pick<0, 1, 4>(acc, gv, uv); break;
+      case 4: gemm_pick<1, 0, 0>(acc, gv, uv); break;
+      case 5: gemm_pick<1, 0, 4>(acc, gv, uv); break;
+      case 6: gemm_pick<1, 1, 0>(acc, gv, uv); break;
+      default: gemm_pick<1, 1, 4>(acc, gv, uv); break;
+    }
+    // one uniform scheme switch around the group's 8 interleaved chains
+    switch (tb.scheme) {
+      case SCHEME_PWL: epilogue_n<EPI, SCHEME_PWL, 8>(gv, tb); break;
+      case SCHEME_POLY: epilogue_n<EPI, SCHEME_POLY, 8>(gv, tb); break;
+      case SCHEME_RATIONAL: epilogue_n<EPI, SCHEME_RATIONAL, 8>(gv, tb); break;
+      default: epilogue_n<EPI, SCHEME_CR, 8>(gv, tb); break;
+    }
+    uint32_t v[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      __nv_bfloat162 o;
+      o.x = __float2bfloat16_rn(__fmul_rn(gv[2 * i], uv[2 * i]));
+      o.y = __float2bfloat16_rn(__fmul_rn(gv[2 * i + 1], uv[2 * i + 1]));
+      v[i] = *reinterpret_cast<uint32_t*>(&o);
+    }
+    quad_transpose(v, q);
+    const int row = m0 + (g >> 2) * 64 + w * 16 + lane / 4 + 8 * ((g >> 1) & 1);
+    const int col = n0 + 8 * ((g & 1) * 4 + q);
+    if (row < M && col < N)   // N % 8 == 0: a vector is all in or all out
+      *reinterpret_cast<uint4*>(out + (long long)row * N + col) =
+          make_uint4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+// split 2's end for warpgroup C, which ran the K blocks of half C: hand the
+// other warpgroup the m64 half it stores (half 1 - C) through the ring, take
+// this one's (half C) from it, add in K order and store.
+template <int EPI, int C>
+__device__ __forceinline__ void gemm_split_finish(float (&acc)[2][64], uint8_t* ring,
+                                                  bf16* __restrict__ out, int m0, int n0,
+                                                  int M, int N, const Table& tb) {
+  float* xbuf = reinterpret_cast<float*>(ring);   // [2][64][128]: by sender
+  const int t = threadIdx.x % 128;
+  consumer_sync();   // both warpgroups' products have read the ring for the last time
+#pragma unroll
+  for (int j = 0; j < 64; ++j) xbuf[(C * 64 + j) * 128 + t] = acc[1 - C][j];
+  consumer_sync();
+#pragma unroll
+  for (int j = 0; j < 64; ++j) {
+    const float o = xbuf[((1 - C) * 64 + j) * 128 + t];
+    acc[C][j] = C == 0 ? __fadd_rn(acc[C][j], o) : __fadd_rn(o, acc[C][j]);
+  }
+  gemm_store<EPI>(acc, out, 4 * C, 4 * C + 4, m0, n0, M, N, tb);
+}
+
+template <int EPI>
+__global__ void __launch_bounds__(GEMM_THREADS, 1)
+repro_glu_bf16_gemm_kernel(const __grid_constant__ CUtensorMap tm_x,
+                           const __grid_constant__ CUtensorMap tm_g,
+                           const __grid_constant__ CUtensorMap tm_u, bf16* __restrict__ out,
+                           int M, int N, int K, int split, Table tb) {
+  extern __shared__ uint8_t dsmem[];
+  __shared__ __align__(16) float s_par[MAX_PARAMS];
+  __shared__ __align__(8) uint64_t full[GEMM_STAGES], empty[GEMM_STAGES], loaded[2];
+  // swizzled tiles sit on 1024-byte boundaries (the 128-byte swizzle atom)
+  uint8_t* ring = dsmem + ((1024 - (smem_u32(dsmem) & 1023)) & 1023);
+
+  GEMM_PHASE(0, threadIdx.x == 0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int m_tiles = (M + GEMM_BM - 1) / GEMM_BM;
+  const int tiles = m_tiles * ((N + GEMM_BN - 1) / GEMM_BN);
+  const int kb_all = (K + GEMM_BK - 1) / GEMM_BK;
+  const int kb_half = kb_all / 2;   // split 2: warpgroup 0 takes blocks [0, kb_half)
+  // Which stage and which use of it (the parity its barriers wait on) a
+  // load takes. split 1: the ring in order, ring position p at (p %
+  // GEMM_STAGES, p / GEMM_STAGES), tile i of the CTA's walk at positions
+  // [i * kb_all, (i + 1) * kb_all). split 2: two rings of half the stages,
+  // one a warpgroup (stages c, c + 2, c + 4), its i-th load at (2 * (i %
+  // SUB) + c, i / SUB).
+  constexpr int SUB = GEMM_STAGES / 2;
+  auto ring_slot = [](int p) { return make_int2(p % GEMM_STAGES, p / GEMM_STAGES); };
+  auto sub_slot = [](int c, int i) { return make_int2(2 * (i % SUB) + c, i / SUB); };
+
+  if (warp == GEMM_PRODUCER && lane == 0) {
+    asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(&tm_x)) : "memory");
+    asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(&tm_g)) : "memory");
+    asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(&tm_u)) : "memory");
+  }
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < GEMM_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);   // the four warps of the warpgroup that reads it
+    }
+    mbar_init(&loaded[0], 1);
+    mbar_init(&loaded[1], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= GEMM_PRODUCER) {
+    // the producer warpgroup: one thread keeps the ring full, in the order
+    // the warpgroups read it; the others hand their registers over
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(GEMM_PRODUCER_REGS));
+    if (warp == GEMM_PRODUCER && lane == 0) {
+      // wait until the use before this one has been read, then load
+      auto load = [&](int tile, int kb, int2 su) {
+        if (su.y > 0) mbar_wait(&empty[su.x], (su.y - 1) & 1);
+        uint8_t* st = ring + su.x * GEMM_STAGE;
+        const int m0 = (tile % m_tiles) * GEMM_BM, n0 = (tile / m_tiles) * GEMM_BN;
+        const int k0 = kb * GEMM_BK;
+        uint64_t* bar = &full[su.x];
+        mbar_expect_tx(bar, GEMM_STAGE);
+        tma_load_2d(st, &tm_x, k0, m0, bar);
+        tma_load_2d(st + GEMM_X_BYTES, &tm_g, n0, k0, bar);
+        tma_load_2d(st + GEMM_X_BYTES + GEMM_W_BYTES, &tm_u, n0, k0, bar);
+      };
+      if (split == 1) {
+        int p = 0;
+        for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x)
+          for (int kb = 0; kb < kb_all; ++kb) load(tile, kb, ring_slot(p++));
+      } else {
+        // one tile: warpgroup 0's K blocks and warpgroup 1's in turn
+        const int n1 = kb_all - kb_half;
+        for (int i = 0; i < n1; ++i) {
+          if (i < kb_half) load(blockIdx.x, i, sub_slot(0, i));
+          load(blockIdx.x, kb_half + i, sub_slot(1, i));
+        }
+      }
+      GEMM_PHASE(1, true);
+    }
+    return;
+  }
+
+  // consumers: warpgroup c
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(GEMM_CONSUMER_REGS));
+  const int c = warp / 4;
+  const bool lead = threadIdx.x % 128 == 0;
+  for (int i = threadIdx.x; i < tb.rows * tb.cols; i += 2 * 128) s_par[i] = tb.p[i];
+  consumer_sync();
+  tb.p = s_par;
+  float acc[2][64];
+
+  if (split == 1) {
+    // Tile i of the walk (warpgroup i % 2) starts once the other warpgroup
+    // has seen tile i - 1's last stage land: every earlier use of the ring
+    // has then completed, so no wait below can see the parity of a use two
+    // back (the ring's positions run a tile ahead of this warpgroup's own)
+    int local = c;   // the tile's index in this CTA's walk
+    for (int tile = blockIdx.x + c * gridDim.x; tile < tiles;
+         tile += 2 * gridDim.x, local += 2) {
+      if (local > 0) mbar_wait(&loaded[1 - c], ((local - 1) / 2) & 1);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < 64; ++j) acc[h][j] = 0.0f;
+      const int base = local * kb_all;
+      gemm_k_loop(acc, ring, full, empty, kb_all, [=](int i) { return ring_slot(base + i); },
+                  &loaded[c], local, lead);
+      GEMM_TILE_PHASE(local, 1, lead);
+      const int m0 = (tile % m_tiles) * GEMM_BM, n0 = (tile / m_tiles) * GEMM_BN;
+      gemm_store<EPI>(acc, out, 0, 8, m0, n0, M, N, tb);
+      GEMM_TILE_PHASE(local, 2, lead);
+    }
+  } else {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 64; ++j) acc[h][j] = 0.0f;
+    gemm_k_loop(acc, ring, full, empty, c == 0 ? kb_half : kb_all - kb_half,
+                [=](int i) { return sub_slot(c, i); }, nullptr, c, lead);
+    GEMM_TILE_PHASE(c, 1, lead);
+    const int m0 = (blockIdx.x % m_tiles) * GEMM_BM, n0 = (blockIdx.x / m_tiles) * GEMM_BN;
+    if (c == 0)
+      gemm_split_finish<EPI, 0>(acc, ring, out, m0, n0, M, N, tb);
+    else
+      gemm_split_finish<EPI, 1>(acc, ring, out, m0, n0, M, N, tb);
+    GEMM_TILE_PHASE(c, 2, lead);
+  }
+  GEMM_PHASE(2, lead);
 }
 
 // ---------------------------------------------------------------------------
@@ -1048,6 +1473,33 @@ cudaError_t launch_glu_tma(const void* x, const void* wg, const void* wu, void* 
   return cudaLaunchKernelExC(&cfg, kern, args);
 }
 
+// The train-step variant's launch. The split comes from the caller
+// (kernels/epilogue.py _glu_bf16_geometry): 1, a persistent walk of
+// min(tiles, SM_COUNT) CTAs, or 2, one CTA a tile with its K blocks halved
+// between the warpgroups, which needs at most one tile for each SM and two K
+// blocks; anything else is refused.
+template <int EPI>
+cudaError_t launch_glu_gemm(const void* x, const void* wg, const void* wu, void* out, int M,
+                            int N, int K, int split, const Table& tb, cudaStream_t s) {
+  const int tiles = ((M + GEMM_BM - 1) / GEMM_BM) * ((N + GEMM_BN - 1) / GEMM_BN);
+  const int kb_all = (K + GEMM_BK - 1) / GEMM_BK;
+  if (!(split == 1 || (split == 2 && tiles <= SM_COUNT && kb_all >= 2)))
+    return cudaErrorInvalidValue;
+  const void* kern = reinterpret_cast<const void*>(&repro_glu_bf16_gemm_kernel<EPI>);
+  static const cudaError_t opt_in =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, GEMM_SMEM);
+  if (opt_in != cudaSuccess) return opt_in;
+  CUtensorMap tm_x, tm_g, tm_u;
+  if (!encode_2d(&tm_x, x, M, K, GEMM_BM, GEMM_BK) ||
+      !encode_2d(&tm_g, wg, K, N, GEMM_BK, GEMM_BN) ||
+      !encode_2d(&tm_u, wu, K, N, GEMM_BK, GEMM_BN))
+    return cudaErrorInvalidValue;
+  const int grid = split == 2 ? tiles : (tiles < SM_COUNT ? tiles : SM_COUNT);
+  repro_glu_bf16_gemm_kernel<EPI><<<grid, GEMM_THREADS, GEMM_SMEM, s>>>(
+      tm_x, tm_g, tm_u, static_cast<bf16*>(out), M, N, K, split, tb);
+  return cudaGetLastError();
+}
+
 // tma_f32's tiles by M: decode (up to 8 rows), up to 32 rows, and 64-row M
 // tiles above; PERF.md names the alternatives tried against them on an
 // H100.
@@ -1114,6 +1566,8 @@ cudaError_t launch_glu(const void* x, const void* wg, const void* wu, void* out,
     if (M <= 32) return launch_glu_f32_tma<EPI, F32Rows32>(x, wg, wu, out, M, N, K, split, tb, s);
     return launch_glu_f32_tma<EPI, F32Rows64>(x, wg, wu, out, M, N, K, split, tb, s);
   }
+  if (variant == GLU_TMA_GEMM)
+    return launch_glu_gemm<EPI>(x, wg, wu, out, M, N, K, split, tb, s);
   if (variant == GLU_TMA_WGMMA) {
     if (M <= 16) return launch_glu_tma<EPI, 16, 1>(x, wg, wu, out, M, N, K, tb, s);
     if (M <= 64) return launch_glu_tma<EPI, 64, 1>(x, wg, wu, out, M, N, K, tb, s);
@@ -1203,11 +1657,14 @@ extern "C" int repro_glu_2d(const void* x, const void* w_gate, const void* w_up,
       (variant == GLU_TMA_F32 && dtype == DT_F32 &&
        tma_f32_addressable(x, w_gate, w_up, out, N, K)) ||
       (variant == GLU_WMMA && dtype == DT_BF16) ||
-      (variant == GLU_TMA_WGMMA && dtype == DT_BF16 && tma_addressable(x, w_gate, w_up, N, K));
+      (variant == GLU_TMA_WGMMA && dtype == DT_BF16 && tma_addressable(x, w_gate, w_up, N, K)) ||
+      (variant == GLU_TMA_GEMM && dtype == DT_BF16 && tma_addressable(x, w_gate, w_up, N, K) &&
+       (uintptr_t)out % 16 == 0);
   if (!fits) return (int)cudaErrorInvalidValue;
-  // tma_f32 takes its cluster's size from the caller (checked at its
-  // launch); the other variants take none
-  if (variant != GLU_TMA_F32 && split != 0) return (int)cudaErrorInvalidValue;
+  // tma_f32 (its cluster's size) and tma_wgmma_gemm (its K split) take a
+  // split from the caller, checked at their launch; the others take none
+  if (variant != GLU_TMA_F32 && variant != GLU_TMA_GEMM && split != 0)
+    return (int)cudaErrorInvalidValue;
   const repro_glu::Launch a{x, w_gate, w_up, params, out, M, N, K, scheme, p_rows, p_cols,
                             inv_period, x_max, saturation, variant, split,
                             static_cast<cudaStream_t>(stream)};

@@ -25,13 +25,18 @@ CUDA route's checks, then an empty output of the right shape, no launch.
 cost count (``COUNTER``, ``analysis/hlo_cost.py``) takes at the entry in
 place of whatever the route runs inside.
 ``_elementwise_geometry`` sets ``elementwise_2d``'s launch geometry by
-shape, ``_glu_f32_geometry`` the f32 ``glu_2d`` kernel's tile and K split.
+shape, ``_glu_f32_geometry`` the f32 ``glu_2d`` kernel's tile and K split,
+``_glu_bf16_geometry`` the bf16 train-step kernel's.
 ``LAUNCHES[name]`` counts the kernel's launches and nothing else;
 ``GLU_VARIANTS`` splits ``glu_2d``'s launches by the variant
-``_glu_variant`` chose (TMA + wgmma for bf16, wmma for bf16 operands TMA
-cannot address, TMA + cluster FFMA for f32, SIMT for f32 operands TMA
-cannot address). Both kernels carry every registered scheme
-(``cr_spline``, ``pwl``, ``poly``, ``rational``), chosen per launch.
+``_glu_variant`` chose: for bf16 operands TMA can address, by M and K,
+TMA + wgmma built for serving below ``GLU_GEMM_ROWS`` rows or past
+``GLU_GEMM_MAX_K`` K rows, and a persistent TMA + wgmma GEMM tile from
+``GLU_GEMM_ROWS`` rows at K up to ``GLU_GEMM_MAX_K`` (the train step at
+K <= 2048); wmma for bf16 operands TMA cannot address; TMA + cluster
+FFMA for f32, SIMT for f32 operands TMA cannot address. Both kernels
+carry every registered scheme (``cr_spline``, ``pwl``, ``poly``,
+``rational``), chosen per launch.
 """
 from __future__ import annotations
 
@@ -57,11 +62,25 @@ TableSpec = ApproxSpec
 LAUNCHES = {"elementwise_2d": 0, "glu_2d": 0}
 # glu_2d launches by variant (see _glu_variant); they sum to
 # LAUNCHES["glu_2d"]
-GLU_VARIANTS = {"tma_wgmma": 0, "wmma": 0, "tma_f32": 0, "simt_f32": 0}
+GLU_VARIANTS = {"tma_wgmma": 0, "tma_wgmma_gemm": 0, "wmma": 0,
+                "tma_f32": 0, "simt_f32": 0}
+# bf16 launches of at least GLU_GEMM_ROWS rows and at most GLU_GEMM_MAX_K
+# K rows take tma_wgmma_gemm, the rest tma_wgmma. GLU_GEMM_ROWS is the cap
+# of kernels/glu_phases.py's crossover (CROSSOVER_RANGE (128, 512]): at K =
+# 1024, N = 3072 the GEMM tile is faster from 1024 rows on, slower at 384
+# and 512 (its 192 tiles leave 60 CTAs two in turn), but at a sharded qwen3
+# rank (M = 512, N = 1536: split 2) it is faster, and that is the main
+# path's only launch between 256 and 1024 rows. GLU_GEMM_MAX_K: glu_phases'
+# K sweep at M = 1024 (PERF.md): from K = 5120 the GEMM tile is the slower
+# at every swept N, at K = 3072 - 4096 it is at N = 8192 (by 8-16%), at K =
+# 2048 it is faster at N = 3072 and 11008 (by 5-10%) and slower at 8192 (by
+# 2-4%)
+GLU_GEMM_ROWS = 512
+GLU_GEMM_MAX_K = 2048
 
 _DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
 _GLU_VARIANT_IDS = {"wmma": 0, "tma_wgmma": 1, "simt_f32": 2,
-                    "tma_f32": 3}  # csrc GLU_*
+                    "tma_f32": 3, "tma_wgmma_gemm": 4}  # csrc GLU_*
 _SCHEME_IDS = {"cr_spline": 0, "pwl": 1, "poly": 2, "rational": 3}
 _MAX_PARAMS = 2048    # csrc/approximant.cuh MAX_PARAMS: f32 params in shared memory
 _MAX_POLY_DEGREE = 7  # csrc/approximant.cuh MAX_POLY_COLS - 1
@@ -74,6 +93,9 @@ _EW_THREADS = 128     # threads of an elementwise_2d block
 _F32_TILES = ((8, 8, 32, 32, 3, False), (32, 32, 64, 16, 3, False),
               (None, 64, 64, 16, 3, True))
 _F32_MAX_SPLIT, _SM_COUNT = 8, 132
+# tma_wgmma_gemm's tile (csrc/epilogue.cu GEMM_BM, GEMM_BN, GEMM_BK): rows
+# of x, columns of each weight, K rows a stage
+_GEMM_TILE = (128, 64, 64)
 
 # f32 operations of each epilogue's wiring around its one tanh unit
 # (csrc/approximant.cuh epi_arg + epi_out)
@@ -394,22 +416,34 @@ def _glu_variant(m: int, n: int, k: int, dtype, aligned: bool) -> str:
 
       "tma_wgmma"  bf16 that TMA can address: x, w_gate and w_up 16-byte
                    aligned (``aligned``) and both row strides multiples of
-                   16 bytes (K % 8 == 0 for x, N % 8 == 0 for the weights);
-      "wmma"       bf16 operands TMA cannot address;
+                   16 bytes (K % 8 == 0 for x, N % 8 == 0 for the weights),
+                   under GLU_GEMM_ROWS rows (every served launch) or
+                   past GLU_GEMM_MAX_K K rows (llama4's and yi-34b's
+                   train steps);
+      "tma_wgmma_gemm"  the same operands from GLU_GEMM_ROWS rows on at K
+                   up to GLU_GEMM_MAX_K (the train step's 1024 rows at
+                   qwen3's, olmo-1b's and qwen2.5's widths, a sharded
+                   rank's 512);
+      "wmma"       bf16 operands TMA cannot address, at every M;
       "tma_f32"    float32 that TMA can address: the same alignment, K % 4
                    == 0 and N % 4 == 0 (IEEE f32 FMAs, no TF32);
       "simt_f32"   float32 operands TMA cannot address (the same
                    arithmetic, no pipelining).
 
-    ``m`` does not decide the variant; the TMA kernels pick their tile for
-    it. The output is allocated by the wrapper, always aligned."""
+    ``m`` and ``k`` decide only between the two bf16 TMA kernels: the
+    served kernel (a tile of all M rows up to 256, built for the weight
+    bytes) and the GEMM tile (built for the tensor cores), by the row cap
+    and the K the card measured (GLU_GEMM_ROWS, GLU_GEMM_MAX_K). The f32
+    TMA kernel picks its tile for ``m``. The output is allocated by the
+    wrapper, always aligned."""
     if dtype == torch.float32:
         return "tma_f32" if aligned and n % 4 == 0 and k % 4 == 0 \
             else "simt_f32"
     if dtype != torch.bfloat16:
         raise TypeError(f"glu_2d kernel takes float32 or bfloat16, got {dtype}")
     if aligned and n % 8 == 0 and k % 8 == 0:
-        return "tma_wgmma"
+        return "tma_wgmma_gemm" if m >= GLU_GEMM_ROWS \
+            and k <= GLU_GEMM_MAX_K else "tma_wgmma"
     return "wmma"
 
 
@@ -441,6 +475,56 @@ def _glu_f32_geometry(m: int, n: int, k: int) -> tuple[int, int, int, int,
            and kb >= 2 * split and tiles * 2 * split <= slots):
         split *= 2
     return bm, bn, bk, n_tiles, m_tiles, split
+
+
+def _glu_bf16_geometry(m: int, n: int, k: int) -> tuple[int, int, int, int,
+                                                        int, int, int]:
+    """(tile rows, tile columns, K rows a block, N tiles, M tiles, CTAs,
+    split) of one ``tma_wgmma_gemm`` launch. A tile is 128 rows of x by 64
+    columns of w_gate and of w_up (``_GEMM_TILE``), owned by one consumer
+    warpgroup; a CTA has two, one CTA an SM (csrc/epilogue.cu).
+
+    split 1: a persistent walk, min(tiles, 132) CTAs, CTA c taking tiles
+    c, c + CTAs, ..., M tiles fastest; its two warpgroups take them in
+    turn, one's epilogue under the other's products. qwen3's train step
+    (M = 1024, K = 1024, N = 3072) is 8 x 48 = 384 tiles, 2.91 a CTA (120
+    CTAs take 3, 12 take 2); olmo-1b and llama4's shared expert (N = 8192)
+    1,024, 7.76 a CTA; N = 11008 1,376, 10.4; yi-34b (N = 20480) 2,560,
+    19.4.
+
+    split 2, where the tiles do not outnumber the SMs and K has two 64-row
+    blocks: one CTA a tile, no cluster, its two warpgroups each taking half
+    of its K blocks (the first kb // 2 and the rest), then adding the
+    halves in K order. A sharded qwen3 rank (M = 512, K = 1024, N = 1536)
+    is 4 x 24 = 96 tiles: 96 CTAs, each SM's tensor cores fed by both
+    warpgroups. Both splits sum every K block once, in a fixed order. The
+    C side refuses any other split, and a split of 2 past 132 tiles or
+    under two K blocks; the wrapper raises."""
+    bm, bn, bk = _GEMM_TILE
+    n_tiles, m_tiles = -(-n // bn), -(-m // bm)
+    tiles, kb = n_tiles * m_tiles, -(-k // bk)
+    if tiles <= _SM_COUNT and kb >= 2:
+        return bm, bn, bk, n_tiles, m_tiles, tiles, 2
+    return bm, bn, bk, n_tiles, m_tiles, min(tiles, _SM_COUNT), 1
+
+
+def _launch_glu(lib, x, w_gate, w_up, params, out, args, stream) -> str:
+    """One ``glu_2d`` launch through the C library ``lib`` on the variant
+    ``_glu_variant`` picks, with the split its geometry gives (0 for the
+    variants that take none); raises if the C side refuses it, and counts
+    it only once launched. Returns the variant."""
+    (m, k), n = x.shape, w_gate.shape[1]
+    ptrs = (x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr())
+    variant = _glu_variant(m, n, k, x.dtype, all(a % 16 == 0 for a in ptrs))
+    split = (_glu_f32_geometry(m, n, k)[-1] if variant == "tma_f32"
+             else _glu_bf16_geometry(m, n, k)[-1]
+             if variant == "tma_wgmma_gemm" else 0)
+    rc = lib.repro_glu_2d(*ptrs, params.data_ptr(), out.data_ptr(), m, n, k,
+                          *args, _GLU_VARIANT_IDS[variant], split, stream)
+    _raise_on(rc, f"glu_2d ({variant}, split {split})")
+    LAUNCHES["glu_2d"] += 1
+    GLU_VARIANTS[variant] += 1
+    return variant
 
 
 def glu_2d(x, w_gate, w_up, params, *, spec: TableSpec, act: str = "silu",
@@ -483,13 +567,6 @@ def _glu_2d(x, w_gate, w_up, params, spec, act, lookup):
     if route == "meta":
         return out
     from . import _build
-    ptrs = (x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr())
-    variant = _glu_variant(m, n, k, x.dtype, all(a % 16 == 0 for a in ptrs))
-    split = _glu_f32_geometry(m, n, k)[-1] if variant == "tma_f32" else 0
-    rc = _build.library().repro_glu_2d(
-        *ptrs, params.data_ptr(), out.data_ptr(), m, n, k, *args,
-        _GLU_VARIANT_IDS[variant], split, _raw_stream(x.device))
-    _raise_on(rc, f"glu_2d ({variant})")
-    LAUNCHES["glu_2d"] += 1
-    GLU_VARIANTS[variant] += 1
+    _launch_glu(_build.library(), x, w_gate, w_up, params, out, args,
+                _raw_stream(x.device))
     return out

@@ -237,6 +237,46 @@ def test_glu_f32_variant_by_addressability(m, n, k, aligned, variant):
     assert tepi._glu_variant(m, n, k, torch.float32, aligned) == variant
 
 
+# the trained FFNs' (K, N): qwen3-0.6b's, olmo-1b's, llama4's shared
+# expert's and yi-34b's, the narrowest and the widest
+_QWEN3_KN, _YI_KN = (1024, 3072), (7168, 20480)
+_OLMO_KN, _LLAMA4_KN = (2048, 8192), (5120, 8192)
+
+
+@pytest.mark.parametrize("kn", [_QWEN3_KN, _YI_KN, _OLMO_KN, _LLAMA4_KN,
+                                (2056, 3072)],
+                         ids=["qwen3", "yi34b", "olmo1b", "llama4", "k2056"])
+@pytest.mark.parametrize("m", [256, 257, 511, 512, 1000, 1024, 4096])
+def test_glu_variant_by_rows(m, kn):
+    """bf16 that TMA can address takes the GEMM tile from GLU_GEMM_ROWS
+    (512, the cap of the sweep's crossover: every served launch, at most
+    256 rows, stays on tma_wgmma) at K up to GLU_GEMM_MAX_K (2048: qwen3
+    and olmo-1b), and tma_wgmma below those rows or past that K (llama4's
+    shared expert and yi-34b, where the sweep measured it faster, and K =
+    2056, just past the limit)."""
+    k, n = kn
+    want = "tma_wgmma_gemm" if m >= 512 and k <= 2048 else "tma_wgmma"
+    assert (tepi.GLU_GEMM_ROWS, tepi.GLU_GEMM_MAX_K) == (512, 2048)
+    assert tepi._glu_variant(m, n, k, torch.bfloat16, True) == want
+
+
+@pytest.mark.parametrize("m", [2, 256, 512, 1024, 4096])
+@pytest.mark.parametrize("n,k,aligned", [(3001, 1024, True),
+                                         (3072, 1020, True),
+                                         (3072, 1024, False)],
+                         ids=["n3001", "k1020", "misaligned"])
+def test_glu_variant_unaddressable_bf16_takes_wmma_at_every_m(m, n, k,
+                                                              aligned):
+    assert tepi._glu_variant(m, n, k, torch.bfloat16, aligned) == "wmma"
+
+
+@pytest.mark.parametrize("m", [512, 1024, 4096])
+def test_glu_variant_f32_ignores_the_bf16_crossover(m):
+    assert tepi._glu_variant(m, 3072, 1024, torch.float32, True) == "tma_f32"
+    assert tepi._glu_variant(m, 3001, 1024, torch.float32, True) \
+        == "simt_f32"
+
+
 def test_glu_variant_refuses_other_dtypes():
     with pytest.raises(TypeError):
         tepi._glu_variant(2, 3072, 1024, torch.float16, True)
@@ -336,6 +376,156 @@ def test_glu_f32_geometry_by_shape():
     # a short K caps the split at its blocks
     assert tepi._glu_f32_geometry(2, 32, 64)[-1] == 2
     assert tepi._glu_f32_geometry(3, 4, 4)[-1] == 1
+
+
+# --- glu_2d's bf16 train-step geometry (tma_wgmma_gemm) ----------------------
+
+# (M, K, N) of tma_wgmma_gemm's launches: qwen3-0.6b's train
+# step, the train runs' FFN shapes (olmo-1b, the qwen2.5-3b width; llama4's
+# shared expert and yi-34b, past GLU_GEMM_MAX_K, take tma_wgmma, and the
+# geometry still covers them), a sharded qwen3 rank, the card tests'
+# ragged shapes and a short K
+_GEMM_SHAPES = [(1024, 1024, 3072), (1024, 2048, 8192), (1024, 2048, 11008),
+                (1024, 5120, 8192), (1024, 7168, 20480), (512, 1024, 1536),
+                (257, 1000, 3000), (300, 936, 1536), (1000, 1000, 3000),
+                (300, 64, 72), (4096, 1024, 3072), (384, 1024, 3072)]
+
+
+def _gemm_k_blocks(kb, split):
+    """How many warpgroups sum each of a tile's kb K blocks: split 1, one
+    warpgroup all of them; split 2, the first takes [0, kb // 2), the
+    second the rest (csrc/epilogue.cu repro_glu_bf16_gemm_kernel)."""
+    seen = np.zeros(kb, dtype=np.int64)
+    if split == 1:
+        seen += 1
+    else:
+        seen[:kb // 2] += 1
+        seen[kb // 2:] += 1
+    return seen
+
+
+@pytest.mark.parametrize("mkn", _GEMM_SHAPES, ids=lambda s: "x".join(map(
+    str, s)))
+def test_glu_bf16_geometry_covers_every_tile_and_k_block_once(mkn):
+    """The tiles cover M and N, every CTA has a tile (split 2: one each)
+    and every warpgroup that sums K has K blocks to sum; every K block of
+    a tile is summed once; the split is 1 or 2 and never past the K
+    blocks; the CTAs fit the card at once (one an SM)."""
+    m, k, n = mkn
+    bm, bn, bk, n_tiles, m_tiles, ctas, split = tepi._glu_bf16_geometry(
+        m, n, k)
+    assert (bm, bn, bk) == tepi._GEMM_TILE == (128, 64, 64)
+    assert n_tiles * bn >= n > (n_tiles - 1) * bn
+    assert m_tiles * bm >= m > (m_tiles - 1) * bm
+    tiles, kb = n_tiles * m_tiles, -(-k // bk)
+    assert split in (1, 2) and split <= kb
+    assert 1 <= ctas <= min(tiles, 132)
+    assert (_gemm_k_blocks(kb, split) == 1).all()
+    if split == 2:
+        assert ctas == tiles and kb // 2 >= 1    # one tile a CTA
+    else:
+        assert ctas == min(tiles, 132)
+
+
+def test_glu_bf16_geometry_by_shape():
+    """Tiles and CTAs at the shapes of PERF.md's bf16 train rows: 128 x 64
+    tiles, a persistent walk of 132 CTAs (qwen3 M = 1024: 384 tiles, 2.91
+    a CTA, two warpgroups each), split 2 where the tiles do not outnumber
+    the SMs (a sharded qwen3 rank: 96 tiles, 96 CTAs) and K has two
+    blocks."""
+    g = tepi._glu_bf16_geometry
+    assert g(1024, 3072, 1024) == (128, 64, 64, 48, 8, 132, 1)
+    assert g(1024, 8192, 2048) == (128, 64, 64, 128, 8, 132, 1)
+    assert g(1024, 11008, 2048) == (128, 64, 64, 172, 8, 132, 1)
+    assert g(1024, 8192, 5120) == (128, 64, 64, 128, 8, 132, 1)
+    assert g(1024, 20480, 7168) == (128, 64, 64, 320, 8, 132, 1)
+    assert g(512, 1536, 1024) == (128, 64, 64, 24, 4, 96, 2)
+    # tiles per CTA (waves of two warpgroups' tiles)
+    assert 48 * 8 / 132 == pytest.approx(2.909, abs=1e-3)
+    # one K block: no split, however few the tiles
+    assert g(300, 72, 64) == (128, 64, 64, 2, 3, 6, 1)
+    # 136 tiles: the walk, four CTAs taking two
+    assert g(1024, 17 * 64, 1024)[3:] == (17, 8, 132, 1)
+
+
+class _FakeGluLib:
+    """Stands in for the kernel library on the CPU: records each
+    repro_glu_2d call's (M, N, K, variant id, split) and returns 1
+    (cudaErrorInvalidValue) where ``refuse`` says the C side would."""
+
+    def __init__(self, refuse):
+        self.refuse, self.calls = refuse, []
+
+    def repro_glu_2d(self, *a):
+        m, n, k, variant, split = a[5], a[6], a[7], a[-3], a[-2]
+        self.calls.append((m, n, k, variant, split))
+        return 1 if self.refuse(m, n, k, variant, split) else 0
+
+
+def _gemm_refuses(m, n, k, variant, split):
+    """csrc/epilogue.cu launch_glu_gemm's rule: split 1, or 2 with at most
+    132 tiles and two K blocks; repro_glu_2d's for tma_wgmma: split 0."""
+    if variant == tepi._GLU_VARIANT_IDS["tma_wgmma"]:
+        return split != 0
+    tiles, kb = -(-m // 128) * -(-n // 64), -(-k // 64)
+    return not (split == 1 or (split == 2 and tiles <= 132 and kb >= 2))
+
+
+def _gemm_call(m, k, n):
+    x = torch.zeros((m, k), dtype=torch.bfloat16)
+    w = torch.zeros((k, n), dtype=torch.bfloat16)
+    table = tepi.table_for("silu", 4.0, 32)
+    spec = tepi.TableSpec.of(table)
+    p = torch.as_tensor(table.windows, dtype=torch.float32)
+    out = torch.empty((m, n), dtype=torch.bfloat16)
+    return x, w, w, p, out, tepi._kernel_args("silu", spec, p, x), 0
+
+
+@pytest.mark.parametrize("mkn", [(1024, 1024, 3072), (512, 1024, 1536),
+                                 (1024, 7168, 20480)],
+                         ids=["qwen3", "sharded", "yi34b"])
+def test_glu_launch_passes_the_bf16_geometry(mkn):
+    """The wrapper's launch hands the C side the variant id and the split
+    of _glu_bf16_geometry (tma_wgmma, past GLU_GEMM_MAX_K: split 0), and
+    counts the launch once it is taken."""
+    m, k, n = mkn
+    lib = _FakeGluLib(_gemm_refuses)
+    launches, variants = dict(tepi.LAUNCHES), dict(tepi.GLU_VARIANTS)
+    want = "tma_wgmma_gemm" if k <= 2048 else "tma_wgmma"
+    try:
+        got = tepi._launch_glu(lib, *_gemm_call(m, k, n))
+        assert got == want
+        assert lib.calls == [(m, n, k, tepi._GLU_VARIANT_IDS[want],
+                              tepi._glu_bf16_geometry(m, n, k)[-1]
+                              if want == "tma_wgmma_gemm" else 0)]
+        assert tepi.LAUNCHES["glu_2d"] == launches["glu_2d"] + 1
+        assert tepi.GLU_VARIANTS[want] == variants[want] + 1
+    finally:
+        tepi.LAUNCHES.update(launches)
+        tepi.GLU_VARIANTS.update(variants)
+
+
+@pytest.mark.parametrize("split,mkn", [(3, (1024, 1024, 3072)),
+                                       (0, (1024, 1024, 3072)),
+                                       (2, (1024, 1024, 3072)),
+                                       (2, (512, 64, 1536))],
+                         ids=["split3", "split0", "split2-384-tiles",
+                              "split2-one-k-block"])
+def test_glu_launch_raises_when_the_geometry_is_refused(monkeypatch, split,
+                                                        mkn):
+    """A geometry the C side refuses (a split other than 1 and 2, split 2
+    past 132 tiles or under two K blocks) raises in the wrapper, which
+    counts nothing and tries nothing else."""
+    m, k, n = mkn
+    geometry = tepi._glu_bf16_geometry
+    monkeypatch.setattr(tepi, "_glu_bf16_geometry",
+                        lambda *a: geometry(*a)[:-1] + (split,))
+    lib = _FakeGluLib(_gemm_refuses)
+    launches, variants = dict(tepi.LAUNCHES), dict(tepi.GLU_VARIANTS)
+    with pytest.raises(RuntimeError, match=r"tma_wgmma_gemm, split"):
+        tepi._launch_glu(lib, *_gemm_call(m, k, n))
+    assert len(lib.calls) == 1
+    assert tepi.LAUNCHES == launches and tepi.GLU_VARIANTS == variants
 
 
 # --- elementwise_2d's launch geometry ---------------------------------------
@@ -487,6 +677,79 @@ def test_scheme_bound_engine_matches_reference(impl):
         y0 = TEng(TCfg(**c, use_kernel=use_kernel)).tanh(torch.from_numpy(x))
         assert not np.allclose(te.tanh(torch.from_numpy(x)).numpy(),
                                y0.numpy())
+
+
+@pytest.mark.parametrize("wins,want", [
+    ((0, 0, 0, 0, 1), 512),   # only M = 1024: kept to 512
+    ((0, 0, 0, 1, 1), 512),
+    ((0, 1, 0, 1, 1), 512),   # a loss at 384 resets it
+    ((0, 0, 1, 1, 1), 384),
+    ((0, 1, 1, 1, 1), 256),
+    ((1, 1, 1, 1, 1), 256),   # kept above 128: M <= 128 stays on tma_wgmma
+    ((0, 0, 0, 0, 0), 512),   # faster nowhere
+])
+def test_glu_bf16_crossover_from_the_sweep(wins, want):
+    """kernels/glu_phases.py's crossover: the lowest swept M from which
+    tma_wgmma_gemm is faster than tma_wgmma at every swept M, kept to the
+    swept M within (128, 512]."""
+    from repro_torch.kernels import glu_phases
+    sweep = [{"shape": [m, 1024, 3072],
+              "events_ms": {"tma_wgmma": 1.0,
+                            "tma_wgmma_gemm": 0.5 if win else 1.5}}
+             for m, win in zip(glu_phases.BF16_SWEEP_ROWS, wins)]
+    assert glu_phases.crossover(sweep) == want
+
+
+@pytest.mark.parametrize("wins,want", [
+    ((0, 0, 0, 0, 1), 1024),
+    ((0, 1, 0, 1, 1), 512),
+    ((1, 1, 1, 1, 1), 128),   # uncapped: the lowest swept M
+    ((0, 0, 0, 0, 0), None),
+])
+def test_glu_bf16_uncapped_crossover_from_the_sweep(wins, want):
+    """The crossover as measured, before the cap to (128, 512]."""
+    from repro_torch.kernels import glu_phases
+    sweep = [{"shape": [m, 1024, 3072],
+              "events_ms": {"tma_wgmma": 1.0,
+                            "tma_wgmma_gemm": 0.5 if win else 1.5}}
+             for m, win in zip(glu_phases.BF16_SWEEP_ROWS, wins)]
+    assert glu_phases.crossover(sweep, capped=False) == want
+
+
+@pytest.mark.parametrize("wins,want", [
+    ((1, 1, 1, 1, 0, 0), 4096),
+    ((1, 0, 0, 0, 0, 0), 1024),
+    ((1, 1, 0, 1, 0, 0), 2048),   # a loss at 3072 ends it
+    ((1, 1, 1, 1, 1, 1), 7168),
+    ((0, 1, 1, 1, 1, 1), None),
+])
+def test_glu_bf16_k_sweep_reading(wins, want):
+    """glu_phases' K sweep: the largest swept K up to which
+    tma_wgmma_gemm is faster than tma_wgmma at every swept K."""
+    from repro_torch.kernels import glu_phases
+    sweep = [{"shape": [1024, k, 8192],
+              "events_ms": {"tma_wgmma": 1.0,
+                            "tma_wgmma_gemm": 0.5 if win else 1.5}}
+             for k, win in zip(glu_phases.BF16_K_SWEEP_K, wins)]
+    assert glu_phases.gemm_faster_to_k(sweep) == want
+
+
+def test_glu_gemm_phase_durations_from_stamps():
+    """glu_phases reads tma_wgmma_gemm's stamps by the tile's place in its
+    CTA's walk: means over the CTAs that ran that many tiles."""
+    from repro_torch.kernels import glu_phases
+    stamps = np.zeros((3, glu_phases.GEMM_SLOTS), np.uint64)
+    stamps[0, :3] = [1000, 1500, 9000]
+    stamps[0, 3:12] = [1200, 3000, 4000, 3100, 5000, 6000, 4100, 7000, 8000]
+    stamps[1, :3] = [1100, 1400, 6000]
+    stamps[1, 3:9] = [1300, 3100, 4100, 3200, 5100, 5900]
+    got = glu_phases.gemm_phases_of(stamps)
+    assert got["ctas"] == 2 and got["span"] == 8000.0
+    assert [t["ctas"] for t in got["tiles"]] == [2, 2, 1]
+    assert got["tiles"][0]["wait_first_stage"] == 200.0   # from the start
+    assert got["tiles"][0]["k_loop"] == 1800.0
+    assert got["tiles"][2]["wait_first_stage"] == 100.0   # from tile 0's end
+    assert got["tiles"][2]["epilogue"] == 1000.0
 
 
 def test_glu_phase_durations_from_stamps():

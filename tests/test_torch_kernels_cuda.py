@@ -259,13 +259,27 @@ def test_scheme_kernel_refusals(cuda):
                             tap.params_on(big, "tanh", cuda), spec=big)
 
 
-# --- glu_2d's TMA + wgmma variant -------------------------------------------
+# --- glu_2d's TMA + wgmma variants ------------------------------------------
 
 ALL_SCHEME_ACTS = [("cr_spline", a) for a in EPILOGUES] + SCHEME_ACTS
 # ragged M (65 crosses a warpgroup, 300 a 256-row M tile), N and K
-# (TMA's out-of-bounds fill), all addressable by TMA
+# (TMA's out-of-bounds fill), all addressable by TMA; 600 rows past
+# GLU_GEMM_MAX_K stay on tma_wgmma
 GLU_TMA_RAGGED = ((65, 1000, 3000), (1, 1024, 136), (300, 64, 72),
-                  (130, 512, 256), (17, 8, 8))
+                  (130, 512, 256), (17, 8, 8), (600, 2056, 136))
+# tma_wgmma_gemm from GLU_GEMM_ROWS on: ragged M (513 one row past the
+# crossover, 600, 1000) at a ragged K and N, and the train step's M = 1024
+# (the persistent walk, split 1); then split 2 (at most 132 tiles): a
+# ragged M and an odd number of K blocks (K = 936: 15), and a sharded
+# qwen3 rank's shape
+GLU_GEMM_RAGGED = ((513, 1000, 3000), (600, 1000, 3000), (1000, 1000, 3000),
+                   (1024, 1000, 3000), (600, 936, 1536), (512, 1024, 1536))
+
+
+def _tma_variant(m, k):
+    """The bf16 TMA variant a launch of m rows and k K rows takes."""
+    return "tma_wgmma_gemm" if m >= tepi.GLU_GEMM_ROWS \
+        and k <= tepi.GLU_GEMM_MAX_K else "tma_wgmma"
 # the same for tma_f32 (K and N multiples of 4), across its 8-, 32- and
 # 64-row tiles (65 and 300 cross 64-row M tiles) and its K split (K = 36:
 # two K blocks, the second ragged)
@@ -294,14 +308,63 @@ def test_glu_tma_variant_ragged_shapes(cuda, scheme, act):
     spec, p = _any_scheme(scheme, act, cuda)
     for m, k, n in GLU_TMA_RAGGED:
         x, wg, wu = _bf16_operands(m, k, n, cuda)
-        n0 = tepi.GLU_VARIANTS["tma_wgmma"]
+        n0 = tepi.GLU_VARIANTS[_tma_variant(m, k)]
         y = tepi.glu_2d(x, wg, wu, p, spec=spec, act=act)
         torch.cuda.synchronize()
-        assert tepi.GLU_VARIANTS["tma_wgmma"] == n0 + 1, (m, k, n)
+        assert tepi.GLU_VARIANTS[_tma_variant(m, k)] == n0 + 1, (m, k, n)
         torch.testing.assert_close(
             y.float(), tepi.glu_2d_plain(x, wg, wu, p, spec=spec,
                                          act=act).float(),
             rtol=1e-2, atol=1e-3)
+
+
+@pytest.mark.parametrize("scheme,act", ALL_SCHEME_ACTS)
+def test_glu_tma_gemm_variant_ragged_shapes(cuda, scheme, act):
+    """tma_wgmma_gemm at ragged M, K and N, in both splits, against the
+    plain version at the bf16 tolerance of the tma_wgmma tests."""
+    spec, p = _any_scheme(scheme, act, cuda)
+    for m, k, n in GLU_GEMM_RAGGED:
+        x, wg, wu = _bf16_operands(m, k, n, cuda)
+        n0 = tepi.GLU_VARIANTS["tma_wgmma_gemm"]
+        y = tepi.glu_2d(x, wg, wu, p, spec=spec, act=act)
+        torch.cuda.synchronize()
+        assert tepi.GLU_VARIANTS["tma_wgmma_gemm"] == n0 + 1, (m, k, n)
+        torch.testing.assert_close(
+            y.float(), tepi.glu_2d_plain(x, wg, wu, p, spec=spec,
+                                         act=act).float(),
+            rtol=1e-2, atol=1e-3)
+
+
+@pytest.mark.parametrize("m", [512, 1024])
+def test_glu_tma_gemm_variant_is_bitwise_deterministic(cuda, m):
+    """tma_wgmma_gemm sums each tile's K blocks in order and split 2's
+    halves in K order: repeated launches give the same bits (M = 512 at N
+    = 1536 is split 2, M = 1024 at N = 3072 the persistent walk)."""
+    spec, p = _table("silu", cuda)
+    x, wg, wu = _bf16_operands(m, 1024, 3072 if m == 1024 else 1536, cuda,
+                               seed=3)
+    first = tepi.glu_2d(x, wg, wu, p, spec=spec)
+    assert tepi._glu_bf16_geometry(m, wg.shape[1], 1024)[-1] == (
+        1 if m == 1024 else 2)
+    for _ in range(4):
+        assert torch.equal(tepi.glu_2d(x, wg, wu, p, spec=spec), first)
+
+
+@pytest.mark.parametrize("split,m,k", [(3, 1024, 1024), (0, 1024, 1024),
+                                       (2, 1024, 1024), (2, 512, 64)])
+def test_glu_tma_gemm_refuses_a_bad_geometry(cuda, monkeypatch, split, m, k):
+    """The C side refuses a split other than 1 and 2, split 2 past 132
+    tiles (M = 1024, N = 3072: 384) or under two K blocks; the wrapper
+    raises and counts nothing."""
+    spec, p = _table("silu", cuda)
+    x, wg, wu = _bf16_operands(m, k, 3072 if m == 1024 else 1536, cuda)
+    geometry = tepi._glu_bf16_geometry
+    monkeypatch.setattr(tepi, "_glu_bf16_geometry",
+                        lambda *a: geometry(*a)[:-1] + (split,))
+    launches, variants = dict(tepi.LAUNCHES), dict(tepi.GLU_VARIANTS)
+    with pytest.raises(RuntimeError, match="tma_wgmma_gemm"):
+        tepi.glu_2d(x, wg, wu, p, spec=spec)
+    assert tepi.LAUNCHES == launches and tepi.GLU_VARIANTS == variants
 
 
 @pytest.mark.parametrize("m", [2, 128, 256])
@@ -353,14 +416,19 @@ def test_glu_variants_counted_on_the_ops_route(cuda):
     x5, w5, _ = _bf16_operands(2, 64, 5, cuda)
     tops.fused_glu(x5, w5, w5, act="silu")                       # N = 5
     tops.fused_glu(x5.float(), w5.float(), w5.float(), act="silu")  # f32
+    xt, wt, _ = _bf16_operands(600, 64, 32, cuda)
+    tops.fused_glu(xt.reshape(6, 100, 64), wt, wt, act="silu")   # M >= 512
     torch.cuda.synchronize()
     got = {k: tepi.GLU_VARIANTS[k] - before[k] for k in before}
-    assert got == {"tma_wgmma": 1, "tma_f32": 1, "simt_f32": 1, "wmma": 1}
-    assert tepi.LAUNCHES["glu_2d"] == n_before + 4
+    assert got == {"tma_wgmma": 1, "tma_wgmma_gemm": 1, "tma_f32": 1,
+                   "simt_f32": 1, "wmma": 1}
+    assert tepi.LAUNCHES["glu_2d"] == n_before + 5
 
 
 @pytest.mark.parametrize("forced,dtype,n", [
     ("tma_wgmma", torch.bfloat16, 3001),   # N's row stride: not addressable
+    ("tma_wgmma_gemm", torch.bfloat16, 3001),
+    ("tma_wgmma_gemm", torch.float32, 3072),
     ("simt_f32", torch.bfloat16, 3072),    # wrong type for the variant
     ("wmma", torch.float32, 3072),
     ("tma_f32", torch.float32, 3001),      # N's row stride: not addressable
@@ -460,14 +528,17 @@ def _smoke_deployment(dep, dtype="bfloat16"):
     return act_impl_of(cfg, "cr_spline", use_kernel=True), "elementwise_2d"
 
 
+@pytest.mark.parametrize("seq", [16, 128])
 @pytest.mark.parametrize("remat,per_layer", [("none", 1), ("block", 2)])
 @pytest.mark.parametrize("dep", ["fused", "kernel"])
-def test_train_step_launch_counts(cuda, dep, remat, per_layer):
+def test_train_step_launch_counts(cuda, dep, remat, per_layer, seq):
     """Two bf16 train steps of each cr_spline deployment at smoke size:
     the path's kernel launches n_layers times a step in the forward, twice
     that under remat="block" (the checkpoint reruns each block's forward
-    in the backward), the other kernel never, every glu_2d launch on
-    tma_wgmma; finite losses, nothing skipped."""
+    in the backward), the other kernel never, every glu_2d launch on the
+    bf16 TMA variant of its row count (batch 4 x seq 16 = 64 rows:
+    tma_wgmma; 4 x 128 = 512, GLU_GEMM_ROWS: tma_wgmma_gemm); finite
+    losses, nothing skipped."""
     from repro_torch.data import DataConfig, SyntheticPipeline
     from repro_torch.launch import steps as TS
     from repro_torch.models import model as TM
@@ -477,7 +548,7 @@ def test_train_step_launch_counts(cuda, dep, remat, per_layer):
     opt = TA.init_state(params)
     step = TS.make_train_step(cfg, TS.TrainHyper(
         remat=remat, opt=TA.AdamWConfig(lr_peak=1e-2, warmup_steps=2)))
-    pipe = SyntheticPipeline(cfg, DataConfig(seed=1, vocab_size=512), 4, 16,
+    pipe = SyntheticPipeline(cfg, DataConfig(seed=1, vocab_size=512), 4, seq,
                              device=cuda)
     batches = [pipe(s) for s in (1, 2)]
     launches, variants = dict(tepi.LAUNCHES), dict(tepi.GLU_VARIANTS)
@@ -489,8 +560,8 @@ def test_train_step_launch_counts(cuda, dep, remat, per_layer):
     assert got[kernel] == 2 * cfg.n_layers * per_layer, got
     assert got[other] == 0, got
     if kernel == "glu_2d":
-        assert tepi.GLU_VARIANTS["tma_wgmma"] - variants["tma_wgmma"] \
-            == got["glu_2d"]
+        tma = _tma_variant(4 * seq, cfg.d_model)
+        assert tepi.GLU_VARIANTS[tma] - variants[tma] == got["glu_2d"]
 
 
 @pytest.mark.parametrize("dep", ["fused", "kernel"])
