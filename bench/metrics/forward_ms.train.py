@@ -1,0 +1,6 @@
+"""forward_ms.train: Device time of the program's train.forward spans (the loss) a train step of the traced slice, in ms, in stream order by CUDA events."""
+from benchlib import spans
+
+
+def read(rec):
+    return spans.train_phase_ms("train.forward")

@@ -1425,10 +1425,10 @@ def weights_read_ms(params) -> float:
     return nbytes(params) / HBM_BYTES_PER_S * 1e3
 
 
-def latency(done_eng):
-    """TTFT and ITL p99 (ms) of each completion of an engine's run."""
-    done = sorted(done_eng.completions, key=lambda c: c.uid)
-    return ([c.ttft_s * 1e3 for c in done], [c.itl_p99_s * 1e3 for c in done])
+def ttft_ms(done_eng):
+    """TTFT (ms) of each completion of an engine's run, in uid order."""
+    return [c.ttft_s * 1e3
+            for c in sorted(done_eng.completions, key=lambda c: c.uid)]
 
 
 def phase_prefix(torch, epi, name, cfg, params32, dev, card):
@@ -1499,12 +1499,11 @@ def phase_chunked(torch, epi, name, cfg, params32, prompts, dev, card,
             assert got == base, (name, "chunked != one-shot at f32")
         else:
             base = one_shot_bf16
-        ttft, itl = latency(eng)
         out[dtype] = {"prefill_chunks": st.prefill_chunks,
                       "decode_steps": st.decode_steps,
                       "launches": run.launches,
                       "decode_tokens_per_s": st.decode_tokens_per_s,
-                      "ttft_ms": ttft, "itl_p99_ms": itl,
+                      "ttft_ms": ttft_ms(eng),
                       "token_agreement_vs_one_shot": agreement(got, base)}
         del p
     emit(out)

@@ -27,6 +27,7 @@ import dataclasses
 
 import torch
 
+from repro_torch import spans
 from repro_torch.core import approximant
 from repro_torch.core.activations import ActivationEngine, LayerEngines
 from repro_torch.models import model as M
@@ -130,7 +131,15 @@ def make_train_step(cfg: ModelConfig, hyper: TrainHyper = TrainHyper(),
     (``train_shardings``), ``batch`` the global batch, of which the rank
     takes its rows over the batch axes (``dp.local_rows``;
     ``local_batch=True``: ``batch`` is those rows already), and the
-    metrics are global and the same on every rank."""
+    metrics are global and the same on every rank.
+
+    Under a profiler the step opens the spans (``repro_torch.spans``)
+    ``train.step`` around the whole step, ``train.forward`` (the loss)
+    and ``train.backward`` (the gradients; under ``remat="block"`` the
+    blocks' recompute too) once a microbatch, ``train.reduce`` (the
+    gradient reduction, on a mesh) and ``train.optimizer`` (clip,
+    compression, AdamW, the frozen-leaf restore and the non-finite
+    select)."""
     engine = _make_engine(cfg)
     rules = rules or part.DEFAULT_RULES
     fsdp = None
@@ -141,11 +150,14 @@ def make_train_step(cfg: ModelConfig, hyper: TrainHyper = TrainHyper(),
 
     def grads_of(params, batch):
         p = tree_map(lambda t: t.detach().requires_grad_(), params)
-        loss, metrics = M.loss_fn(p, batch, cfg, engine, remat=hyper.remat,
-                                  z_loss=hyper.z_loss, fsdp=fsdp)
+        with spans.span("train.forward"):
+            loss, metrics = M.loss_fn(p, batch, cfg, engine,
+                                      remat=hyper.remat, z_loss=hyper.z_loss,
+                                      fsdp=fsdp)
         leaves = tree_leaves(p)
-        got = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                  materialize_grads=True)
+        with spans.span("train.backward"):
+            got = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                      materialize_grads=True)
         by_leaf = dict(zip(map(id, leaves), got))
         return ((loss.detach(), {k: v.detach() for k, v in metrics.items()}),
                 tree_map(lambda t: by_leaf[id(t)], p))
@@ -189,13 +201,14 @@ def make_train_step(cfg: ModelConfig, hyper: TrainHyper = TrainHyper(),
         return gnorm, lr, ok
 
     def train_step(params, opt_state, batch, step):
-        if fsdp is None:
-            return local_step(params, opt_state, batch, step)
-        if fsdp.group is not None and not local_batch:
-            batch = dp.local_rows(batch, fsdp.group.rank, fsdp.group.size,
-                                  hyper.microbatches)
-        with part.axis_rules(mesh, rules):
-            return local_step(params, opt_state, batch, step)
+        with spans.span("train.step"):
+            if fsdp is None:
+                return local_step(params, opt_state, batch, step)
+            if fsdp.group is not None and not local_batch:
+                batch = dp.local_rows(batch, fsdp.group.rank,
+                                      fsdp.group.size, hyper.microbatches)
+            with part.axis_rules(mesh, rules):
+                return local_step(params, opt_state, batch, step)
 
     def local_step(params, opt_state, batch, step):
         if hyper.microbatches > 1:
@@ -204,50 +217,56 @@ def make_train_step(cfg: ModelConfig, hyper: TrainHyper = TrainHyper(),
             (loss, metrics), grads = grads_of(params, batch)
         with torch.no_grad():
             if fsdp is not None:
-                grads = fsdp.reduce_grads(grads)
-            if not hyper.train_act and "act" in grads:
-                # frozen approximant params: zero their grads BEFORE the
-                # global-norm clip (gnorm then matches a model without them)
-                grads = dict(grads,
-                             act=tree_map(torch.zeros_like, grads["act"]))
-            if hyper.donate:
-                gnorm, lr, ok = donated_update(params, opt_state, grads,
-                                               loss, step)
-                if ok is not None:
+                with spans.span("train.reduce"):
+                    grads = fsdp.reduce_grads(grads)
+            with spans.span("train.optimizer"):
+                if not hyper.train_act and "act" in grads:
+                    # frozen approximant params: zero their grads BEFORE
+                    # the global-norm clip (gnorm then matches a model
+                    # without them)
+                    grads = dict(grads, act=tree_map(torch.zeros_like,
+                                                     grads["act"]))
+                if hyper.donate:
+                    gnorm, lr, ok = donated_update(params, opt_state, grads,
+                                                   loss, step)
+                    if ok is not None:
+                        metrics = dict(metrics,
+                                       skipped=(~ok).to(torch.int32))
+                    return params, opt_state, dict(metrics, loss=loss,
+                                                   gnorm=gnorm, lr=lr)
+                # rebinding grads frees the unclipped ones (a copy of
+                # the params' size) before the update allocates its own
+                grads, gnorm = adamw.clip_by_global_norm(
+                    grads, hyper.opt.clip_norm, norm)
+                if hyper.grad_compression:
+                    grads, new_err = compress.compress_grads(
+                        grads, opt_state["error"], reduce_max)
+                lr = adamw.cosine_schedule(hyper.opt, step, loss.device)
+                inner = {k: opt_state[k] for k in ("m", "v", "count")}
+                new_params, new_inner = adamw.adamw_update(
+                    grads, inner, params, hyper.opt, lr)
+                new_state = dict(new_inner)
+                if not hyper.train_act and "act" in new_params:
+                    # AdamW's weight decay would shrink the frozen leaves
+                    # even at zero grad: restore params and moments
+                    new_params = dict(new_params, act=params["act"])
+                    new_state["m"] = dict(new_state["m"],
+                                          act=opt_state["m"]["act"])
+                    new_state["v"] = dict(new_state["v"],
+                                          act=opt_state["v"]["act"])
+                if hyper.grad_compression:
+                    new_state["error"] = new_err
+                if hyper.skip_nonfinite:
+                    # a non-finite loss or gradient norm keeps the old
+                    # params and state, chosen on the device; the driver
+                    # counts the skips and rolls back if they persist
+                    # (ft/driver.py)
+                    ok = torch.isfinite(loss) & torch.isfinite(gnorm)
+                    sel = lambda new, old: tree_map(
+                        lambda n, o: torch.where(ok, n, o), new, old)
+                    new_params = sel(new_params, params)
+                    new_state = sel(new_state, opt_state)
                     metrics = dict(metrics, skipped=(~ok).to(torch.int32))
-                return params, opt_state, dict(metrics, loss=loss,
-                                               gnorm=gnorm, lr=lr)
-            grads, gnorm = adamw.clip_by_global_norm(grads,
-                                                     hyper.opt.clip_norm,
-                                                     norm)
-            if hyper.grad_compression:
-                grads, new_err = compress.compress_grads(
-                    grads, opt_state["error"], reduce_max)
-            lr = adamw.cosine_schedule(hyper.opt, step, loss.device)
-            inner = {k: opt_state[k] for k in ("m", "v", "count")}
-            new_params, new_inner = adamw.adamw_update(grads, inner, params,
-                                                       hyper.opt, lr)
-            new_state = dict(new_inner)
-            if not hyper.train_act and "act" in new_params:
-                # AdamW's weight decay would shrink the frozen leaves even
-                # at zero grad: restore params and moments as they were
-                new_params = dict(new_params, act=params["act"])
-                new_state["m"] = dict(new_state["m"],
-                                      act=opt_state["m"]["act"])
-                new_state["v"] = dict(new_state["v"],
-                                      act=opt_state["v"]["act"])
-            if hyper.grad_compression:
-                new_state["error"] = new_err
-            if hyper.skip_nonfinite:
-                # a non-finite loss or gradient norm keeps the old params
-                # and state, chosen on the device; the driver counts the
-                # skips and rolls back if they persist (ft/driver.py)
-                ok = torch.isfinite(loss) & torch.isfinite(gnorm)
-                sel = lambda new, old: tree_map(
-                    lambda n, o: torch.where(ok, n, o), new, old)
-                new_params = sel(new_params, params)
-                new_state = sel(new_state, opt_state)
-                metrics = dict(metrics, skipped=(~ok).to(torch.int32))
         metrics = dict(metrics, loss=loss, gnorm=gnorm, lr=lr)
         return new_params, new_state, metrics
 

@@ -35,6 +35,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.core.activations import ActivationEngine
 from repro_torch.parallel import dp, tp
 
@@ -772,6 +773,13 @@ class BlockIO:
 
 
 def _attn_branch(p, xn, io: BlockIO, cfg: ModelConfig, engine):
+    """One layer's attention branch (qkv, cache write, page gather,
+    attention, out projection), in the span ``model.attention``."""
+    with spans.span("model.attention"):
+        return _attention(p, xn, io, cfg, engine)
+
+
+def _attention(p, xn, io: BlockIO, cfg: ModelConfig, engine):
     new_cache = {}
     if cfg.logit_softcap and p["wq"].shape[1] != cfg.n_heads:
         engine = _on_shards(engine)       # the softcap of the rank's heads

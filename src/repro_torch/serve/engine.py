@@ -80,7 +80,18 @@ Timing is honest on the card: every span in ``EngineStats`` ends at a
 host sync on the work it times (the token pull, or an explicit
 ``torch.cuda.synchronize`` after the insert), never at enqueue — except
 chunked prefill, whose chunks are not synced (their time lands in the
-next decode sync), as in the reference.
+next decode sync), as in the reference. Under any ``torch.profiler`` run
+each ``step()`` also opens the spans of ``repro_torch.spans``:
+``serve.step`` around the iteration; inside it ``serve.admit`` (the
+admission loop, with ``serve.prefill`` from the prefill call through the
+first-token pull and ``serve.insert`` through its sync), ``serve.pages``
+(page growth and the table upload), ``serve.decode`` (the decode chunk
+through its token pull; under the token-budget schedule with the
+``serve.prefill_chunk`` spans enqueued behind it) and ``serve.harvest``.
+Each range of the trace is named ``repro.<span>``, and
+``repro_torch.spans.device_ms()`` gives each span's device time in stream
+order. ``prefill_s``, ``insert_s`` and ``decode_s`` time exactly what
+``serve.prefill``, ``serve.insert`` and ``serve.decode`` bracket.
 """
 from __future__ import annotations
 
@@ -91,6 +102,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.launch import steps as steps_mod
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
@@ -851,20 +863,21 @@ class ServeEngine:
         uids = [r.uid for r in reqs]
         temps = [float(r.temperature) for r in reqs]
 
-        t0 = time.perf_counter()
-        if n_pre:
-            pool_kv = {"k": self.cache["layers"]["k"],
-                       "v": self.cache["layers"]["v"]}
-            pages = torch.as_tensor(plans[0].pages[:n_pre],
-                                    dtype=torch.int64, device=dev)
-            tok0, small_cache = self._prefix_prefill(
-                self.params, pool_kv, pages, batch, uids, self.ecfg.seed,
-                temps)
-        else:
-            tok0, small_cache = self._prefill(self.params, batch, uids,
-                                              self.ecfg.seed, temps)
-        tok0 = tok0.cpu().numpy()                 # [N] or [N, K] ints; syncs
-        now = time.perf_counter()
+        with spans.span("serve.prefill"):
+            t0 = time.perf_counter()
+            if n_pre:
+                pool_kv = {"k": self.cache["layers"]["k"],
+                           "v": self.cache["layers"]["v"]}
+                pages = torch.as_tensor(plans[0].pages[:n_pre],
+                                        dtype=torch.int64, device=dev)
+                tok0, small_cache = self._prefix_prefill(
+                    self.params, pool_kv, pages, batch, uids, self.ecfg.seed,
+                    temps)
+            else:
+                tok0, small_cache = self._prefill(self.params, batch, uids,
+                                                  self.ecfg.seed, temps)
+            tok0 = tok0.cpu().numpy()             # [N] or [N, K] ints; syncs
+            now = time.perf_counter()
         self.stats.prefill_s += now - t0
         self.stats.prefill_tokens += sum(lens) * K
         self.stats.prefix_hit_tokens += N * pre_len * K
@@ -917,10 +930,11 @@ class ServeEngine:
                 write_rows[i, :min(len(own), n_w)] = own[:n_w]
             insert_args += [torch.as_tensor(tbl_rows, device=dev),
                             torch.as_tensor(write_rows, device=dev)]
-        t0 = time.perf_counter()
-        self.cache, self.state = self._insert(*insert_args)
-        _sync(dev)        # the insert's cost lands in insert_s, not decode
-        self.stats.insert_s += time.perf_counter() - t0
+        with spans.span("serve.insert"):
+            t0 = time.perf_counter()
+            self.cache, self.state = self._insert(*insert_args)
+            _sync(dev)    # the insert's cost lands in insert_s, not decode
+            self.stats.insert_s += time.perf_counter() - t0
         if self.paged:
             self._tbl[slots[:N]] = tbl_rows    # host copy == device now
             if self.prefix_enabled:
@@ -969,13 +983,12 @@ class ServeEngine:
                   admitted_at: float, token_times=None) -> None:
         tt = list(token_times or ())
         ttft = (tt[0] - (req.arrival_s or req.submitted_at)) if tt else 0.0
-        itl = float(np.percentile(np.diff(tt), 99.0)) if len(tt) >= 2 else 0.0
         self.completions.append(Completion(
             uid=req.uid, prompt_len=len(req.tokens), tokens=list(tokens),
             finish_reason=reason, submitted_at=req.submitted_at,
             admitted_at=admitted_at, finished_at=time.perf_counter(),
             arrival_s=req.arrival_s or req.submitted_at,
-            ttft_s=ttft, itl_p99_s=itl))
+            ttft_s=ttft))
 
     # -- page lifecycle (paged contract only) ------------------------------
 
@@ -1053,28 +1066,36 @@ class ServeEngine:
         """One engine iteration. Chunked engines pack a token budget
         (decode chunk + one prefill chunk per mid-prompt slot); the others
         admit, then run one decode chunk. Returns False when idle."""
-        if self.chunked:
-            return self._step_chunked()
-        self._admit_ready()
+        with spans.span("serve.step"):
+            if self.chunked:
+                return self._step_chunked()
+            return self._step_one_shot()
+
+    def _step_one_shot(self) -> bool:
+        with spans.span("serve.admit"):
+            self._admit_ready()
         active = self.sched.active_slots()
         if not active:
             return False
         n_steps = self._drain_cap(active)
         decode = self._decode_at(n_steps)
         if self.paged:
-            self._grow_pages(active, n_steps)
-            self._push_tbl()
+            with spans.span("serve.pages"):
+                self._grow_pages(active, n_steps)
+                self._push_tbl()
         uids, emitted0, temps = self._decode_keys(active)
-        t0 = time.perf_counter()
-        self.cache, self.state, toks = decode(
-            self.params, self.cache, self.state, self.ecfg.seed, uids,
-            emitted0, temps)
-        toks = toks.cpu().numpy()                          # [T, B]; syncs
-        now = time.perf_counter()
+        with spans.span("serve.decode"):
+            t0 = time.perf_counter()
+            self.cache, self.state, toks = decode(
+                self.params, self.cache, self.state, self.ecfg.seed, uids,
+                emitted0, temps)
+            toks = toks.cpu().numpy()                      # [T, B]; syncs
+            now = time.perf_counter()
         self.stats.decode_s += now - t0
         self.stats.decode_chunks += 1
         self.stats.decode_steps += toks.shape[0]
-        self._harvest(active, toks, now)
+        with spans.span("serve.harvest"):
+            self._harvest(active, toks, now)
         return True
 
     def _harvest(self, active: list, toks, now: float) -> None:
@@ -1107,7 +1128,8 @@ class ServeEngine:
         slots sample their first token on the device inside the chunk and
         flip active there, so they join the NEXT iteration's decode
         chunk."""
-        self._admit_ready()
+        with spans.span("serve.admit"):
+            self._admit_ready()
         active = self.sched.active_slots()
         if not active:
             return False
@@ -1122,9 +1144,10 @@ class ServeEngine:
                 (b, len(self.sched.slots[b].request.tokens)
                  - self._slot_pages[b].prefill_pos) for b in pf])
 
-        if dec:
-            self._grow_pages(dec, plan.decode_steps)
-        self._push_tbl()        # one upload covers decode AND chunks
+        with spans.span("serve.pages"):
+            if dec:
+                self._grow_pages(dec, plan.decode_steps)
+            self._push_tbl()    # one upload covers decode AND chunks
         # the chunks' tokens go to the device before the decode chunk is
         # enqueued: a copy from host memory waits for the stream
         chunk_tokens = []
@@ -1136,30 +1159,48 @@ class ServeEngine:
                               else (1, sbucket), np.int32)
             padded[0, :c] = np.asarray(req.tokens[pos:pos + c], np.int32)
             chunk_tokens.append(torch.as_tensor(padded, device=self.device))
-        toks = None
-        if dec:
-            decode = self._decode_at(plan.decode_steps)
-            uids, emitted0, temps = self._decode_keys(dec)
+        if not dec:
+            finals = self._prefill_chunks(plan.chunks, chunk_tokens)
+            with spans.span("serve.harvest"):
+                self._arm_finals(finals)
+            return True
+        decode = self._decode_at(plan.decode_steps)
+        uids, emitted0, temps = self._decode_keys(dec)
+        with spans.span("serve.decode"):
             t0 = time.perf_counter()
             self.cache, self.state, toks = decode(
                 self.params, self.cache, self.state, self.ecfg.seed, uids,
                 emitted0, temps)
+            finals = self._prefill_chunks(plan.chunks, chunk_tokens)
+            toks = toks.cpu().numpy()                      # [T, B]; syncs
+            now = time.perf_counter()
+        self.stats.decode_s += now - t0
+        self.stats.decode_chunks += 1
+        self.stats.decode_steps += toks.shape[0]
+        with spans.span("serve.harvest"):
+            self._harvest(dec, toks, now)
+            self._arm_finals(finals)
+        return True
 
+    def _prefill_chunks(self, chunks, chunk_tokens) -> list:
+        """Enqueue one prefill chunk per (slot, tokens) of ``chunks``;
+        returns the (slot, first token) of each prompt a chunk finished."""
         finals = []
-        for (b, c), tokens in zip(plan.chunks, chunk_tokens):
+        for (b, c), tokens in zip(chunks, chunk_tokens):
             req = self.sched.slots[b].request
             sp = self._slot_pages[b]
             pos = sp.prefill_pos
             final = pos + c == len(req.tokens)
             gen = min(req.max_new, self.ecfg.max_len - len(req.tokens))
-            tc = time.perf_counter()
-            self.cache, self.state, tok0 = self._chunk_prefill(
-                self.params, self.cache, self.state, {"tokens": tokens},
-                b, pos, c, sp.first_chunk, final, req.uid, self.ecfg.seed,
-                float(req.temperature), gen, req.eos_id)
-            # enqueue time only: chunks are never synced here, their
-            # compute lands in the next decode sync (decode_s)
-            self.stats.prefill_s += time.perf_counter() - tc
+            with spans.span("serve.prefill_chunk"):
+                tc = time.perf_counter()
+                self.cache, self.state, tok0 = self._chunk_prefill(
+                    self.params, self.cache, self.state, {"tokens": tokens},
+                    b, pos, c, sp.first_chunk, final, req.uid,
+                    self.ecfg.seed, float(req.temperature), gen, req.eos_id)
+                # enqueue time only: chunks are never synced here, their
+                # compute lands in the next decode sync (decode_s)
+                self.stats.prefill_s += time.perf_counter() - tc
             self.stats.prefill_chunks += 1
             self.stats.prefill_tokens += c * self.K
             self.stats.prefill_padded_tokens += tokens.shape[1] * self.K
@@ -1168,15 +1209,11 @@ class ServeEngine:
             if final:
                 sp.prefill_done = True
                 finals.append((b, tok0))
+        return finals
 
-        if toks is not None:
-            toks = toks.cpu().numpy()                      # [T, B]; syncs
-            now = time.perf_counter()
-            self.stats.decode_s += now - t0
-            self.stats.decode_chunks += 1
-            self.stats.decode_steps += toks.shape[0]
-            self._harvest(dec, toks, now)
-
+    def _arm_finals(self, finals) -> None:
+        """Pull each finished prompt's first token (a sync each), register
+        its full prompt pages, and complete a request that ends there."""
         ps = self.ecfg.page_size
         for b, tok0 in finals:
             raw = tok0.cpu().numpy()                       # syncs
@@ -1199,7 +1236,6 @@ class ServeEngine:
                                "eos" if t == req.eos_id else "length",
                                admitted_at=run.admitted_at,
                                token_times=run.token_times)
-        return True
 
     def run(self) -> list[Completion]:
         """Serve until queue and slots drain. Completions in uid order."""

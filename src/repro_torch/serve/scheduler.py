@@ -86,11 +86,6 @@ class Completion:
     finished_at: float = 0.0
     arrival_s: float = 0.0  # system entry (Request.arrival_s)
     ttft_s: float = 0.0     # submit -> first token visible on host
-    itl_p99_s: float = 0.0  # p99 gap between consecutive harvested
-                            # tokens (0.0 with < 2 tokens); measured at
-                            # chunk-sync granularity, which is exactly
-                            # where a competing prefill dispatch stalls
-                            # a decoding slot
 
     @property
     def _arrival(self) -> float:

@@ -159,7 +159,7 @@ def test_chunked_temperature_streams_schedule_invariant(dense):
 
 
 def test_latency_and_interleaving(dense):
-    """TTFT and ITL are populated, and a short request keeps decoding
+    """TTFT is populated, and a short request keeps decoding
     while a long prompt prefills: it finishes first."""
     _, tc, _, tp = dense
     rng = np.random.RandomState(8)
@@ -172,7 +172,7 @@ def test_latency_and_interleaving(dense):
     assert done[0].finished_at < done[1].finished_at
     assert [len(done[0].tokens), len(done[1].tokens)] == [6, 2]
     for c in done.values():
-        assert 0.0 < c.ttft_s <= c.latency_s and c.itl_p99_s > 0.0
+        assert 0.0 < c.ttft_s <= c.latency_s
 
 
 def test_write_mask_keeps_mid_prefill_slot(dense):
